@@ -25,9 +25,27 @@ Phases, each of which fails the run (non-zero exit, no result line):
 5. profile: device time per request by kernel (torch.profiler, 50
    requests) against the request's p50, which gives the device's busy and
    idle share;
-6. timing: each kernel at the periods the served requests selected, beside
-   its plain version, a cuDNN convolution over the exact fold grids (a
-   yardstick the port never calls) and its bound on the card.
+6. backward kernels: the dh-adjoint and weight-gradient kernels against
+   their plain versions at the training shape (K=2, B=256, Lp=55, 32
+   channels) for the three sizes, three period sets and bf16 and float32
+   (dh within 1e-4; dW within rtol 1e-4 and 1e-4 of its largest value, as it
+   sums 28,160 products), and in float32 against cuDNN's convolution
+   backward over the exact fold grids within 1e-3 (of the largest dW);
+7. train: the flagship at full width and depth takes 5 + 100 timed
+   ``Engine.train_step`` calls at B=256 on seeded windows of 192 series x
+   365 days (``SlidingWindowSource`` -> ``WindowBatcher`` ->
+   ``batch_to_device``; lr from ``LRController``, dropout 0.0675, EMA 0.99,
+   bf16); the losses must be finite and each step must launch each kernel
+   exactly 12 times; 30 steps on one fixed batch must lower its loss, and
+   ``Engine.evaluate`` over 8 held-out batches (the last one padded) must
+   give a finite NLL and sMAPE. A float32 step with dropout 0 on the card
+   must match the same step on the CPU (loss within 1e-5 relative,
+   gradients within 1e-4 of the largest, the NB-NLL alone within 1e-5);
+   then device time per step by kernel over 20 profiled steps;
+8. timing: each kernel at the periods its path selected (served requests
+   for the forward, training steps for the backward), beside its plain
+   version, cuDNN over the exact fold grids (a yardstick the port never
+   calls) and its bound on the card.
 
 The last lines are the ``kernels`` JSON line, the card line of ``nvidia-smi``
 and ``{"ok": true, "device": {...}}``.
@@ -50,14 +68,24 @@ HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = {"bfloat16": 989e12, "float32": 67e12}
 
 L, LP, C, K, B = 28, 55, 32, 2, 192  # the fold conv's serving shape (Lp = L + L - 1)
+B_TRAIN = 256  # the flagship's training batch
 KERNEL_SIZES = ((3, 3), (5, 5), (7, 7))
 PERIOD_SETS = ((7, 14), (4, 27), (1, 27))
 TOL = 1e-4
 REQUESTS = 200  # timed requests per serving measurement (about 12 ms each)
 PROFILED = 50  # requests under the profiler
-LAUNCHES_PER_REQUEST = 12  # 2 layers x 2 inception blocks x 3 branches
+LAUNCHES_PER_PASS = 12  # 2 layers x 2 inception blocks x 3 branches, per forward or backward
 REPLACES = "flow_timesnet_tpu/ops/pallas_fold.py:174"
+REPLACES_DH = "flow_timesnet_tpu/ops/pallas_fold.py:174 (sign=-1, 133-138)"
+REPLACES_DW = "flow_timesnet_tpu/ops/fold.py:265 (XLA; companion of pallas_fold.py:133)"
 SOURCE = "flow_timesnet_tpu_torch/csrc/tap_conv_fwd.cu"
+SOURCE_BWD = "flow_timesnet_tpu_torch/csrc/tap_conv_bwd.cu"
+# the train: block of configs/demand_benchmark.yaml
+TRAIN = dict(lr=9.878e-4, epochs=30, warmup_steps=400, eta_min=1e-5)
+ENGINE = dict(use_loss_masking=True, grad_clip_norm=1.0, weight_decay=1e-6, ema_decay=0.99,
+              num_series=B)
+DAYS, HELD_OUT_DAYS = 365, 44  # 44 days hold 10 windows a series: 8 batches, the last padded
+WARMUP_STEPS, TIMED_STEPS, OVERFIT_STEPS, PROFILED_STEPS = 5, 100, 30, 20
 
 
 def fail(msg: str) -> None:
@@ -132,16 +160,24 @@ def valid_taps(periods, kh: int, kw: int) -> int:
     return total
 
 
-def bound(periods, kh: int, kw: int, dtype: str):
+def bound(periods, kh: int, kw: int, dtype: str, batch: int = B, kind: str = "fwd"):
     """Least time for one call on an H100 SXM: each input read once and the
     output written once over the memory rate, against the multiply-adds of
     the taps that these periods leave inside the grid over the peak rate of
-    the input type. Returns (ms, bound_by, ms counting all kh*kw taps)."""
+    the input type. ``kind``: the forward (h, W, bias in; float32 out), the
+    dh adjoint (ct, W in; float32 dh out) or the weight gradient (h, ct in;
+    float32 dW out); all three do one multiply-add per valid (row, tap)
+    pair and channel pair. Returns (ms, bound_by, ms counting all kh*kw taps)."""
 
     elt = 2 if dtype == "bfloat16" else 4
-    nbytes = K * B * LP * C * elt + kh * kw * C * C * elt + C * 4 + 2 * K * 4 + K * B * LP * C * 4
-    ops = 2 * B * C * C * valid_taps(periods, kh, kw)
-    ops_all = 2 * K * B * LP * kh * kw * C * C
+    act, w = K * batch * LP * C, kh * kw * C * C
+    nbytes = {
+        "fwd": act * elt + w * elt + C * 4 + 2 * K * 4 + act * 4,
+        "dh": act * elt + w * elt + 2 * K * 4 + act * 4,
+        "dw": 2 * act * elt + 2 * K * 4 + w * 4,
+    }[kind]
+    ops = 2 * batch * C * C * valid_taps(periods, kh, kw)
+    ops_all = 2 * K * batch * LP * kh * kw * C * C
     t_mem, t_ops = nbytes / HBM_BYTES_PER_S, ops / PEAK_OPS_PER_S[dtype]
     t_all = max(t_mem, ops_all / PEAK_OPS_PER_S[dtype])
     return 1e3 * max(t_mem, t_ops), ("bytes" if t_mem >= t_ops else "operations"), 1e3 * t_all
@@ -170,6 +206,279 @@ def library_conv(torch, F, h, periods, weight, bias, kh, kw):
     return run, unfold
 
 
+def library_conv_bwd(torch, h, ct, periods, weight, kh, kw, batch):
+    """cuDNN's convolution backward over each candidate's exact [cycles, p]
+    grid: the yardstick of the dh and dW kernels. Returns the K
+    ``conv2d_input`` calls, the K ``conv2d_weight`` calls (grids built
+    beforehand) and the grids' extents."""
+
+    from torch.nn import grad as nn_grad
+
+    w = weight.permute(3, 2, 0, 1).contiguous()  # HWIO -> OIHW
+    pad = (kh // 2, kw // 2)
+    grids = []
+    for k, p in enumerate(periods):
+        cycles = -(-L // p)
+
+        def to_grid(x, k=k, p=p, cycles=cycles):
+            return x[k, :, : cycles * p].reshape(batch, cycles, p, C).permute(0, 3, 1, 2).contiguous()
+
+        grids.append((to_grid(h), to_grid(ct), cycles, p))
+
+    def dh():
+        return [nn_grad.conv2d_input(hg.shape, w, cg, padding=pad) for hg, cg, _, _ in grids]
+
+    def dw():
+        return [nn_grad.conv2d_weight(hg, w.shape, cg, padding=pad) for hg, cg, _, _ in grids]
+
+    return dh, dw, [(cyc, p) for _, _, cyc, p in grids]
+
+
+def check_backward_kernels(torch, fold, cuda_fold, gen, dev):
+    """Phase 6: the dh and dW kernels against their plain versions and, in
+    float32, against cuDNN's convolution backward. Returns the largest
+    kernel-vs-plain differences by name."""
+
+    max_err = {}
+    for kh, kw in KERNEL_SIZES:
+        key = f"{kh}x{kw}"
+        weight = torch.randn((kh, kw, C, C), generator=gen, device=dev) * 0.3
+        for periods in PERIOD_SETS:
+            geom = fold.make_geometry(torch.tensor(periods, dtype=torch.int32, device=dev), L, L - 1)
+            h32 = torch.randn((K, B_TRAIN, LP, C), generator=gen, device=dev)
+            # a cotangent over all Lp rows: rows beyond L feed the next conv
+            ct32 = torch.randn((K, B_TRAIN, LP, C), generator=gen, device=dev)
+            for dtype in (torch.bfloat16, torch.float32):
+                h, ct = h32.to(dtype), ct32.to(dtype)
+                dh = cuda_fold.tap_conv_dh_cuda(ct, geom.periods, geom.cycles, weight, kh, kw)
+                dw = cuda_fold.tap_conv_dw_cuda(h, geom.periods, geom.cycles, ct, kh, kw)
+                want_dh = fold.tap_conv_dh(ct, geom, weight, kh, kw)
+                want_dw = fold.tap_weight_grad(h, geom, ct, kh, kw)
+                torch.cuda.synchronize()
+                err_dh = float((dh - want_dh).abs().max())
+                err_dw = float((dw - want_dw).abs().max())
+                scale = float(want_dw.abs().max())
+                ok_dh = bool(torch.allclose(dh, want_dh, rtol=TOL, atol=TOL))
+                ok_dw = bool(torch.allclose(dw, want_dw, rtol=TOL, atol=TOL * scale))
+                tail = all(not bool(dh[k, :, t:].any()) for k, t in enumerate(geom.total.tolist()))
+                max_err[f"dh_{key}"] = max(max_err.get(f"dh_{key}", 0.0), err_dh)
+                max_err[f"dw_{key}"] = max(max_err.get(f"dw_{key}", 0.0), err_dw)
+                print(f"[kernel] {key} periods {list(periods)} {str(dtype)[6:]}: max |dh - plain| "
+                      f"{err_dh:.3e} {'ok' if ok_dh else 'FAIL'}, dh rows beyond the fold 0: "
+                      f"{tail}, max |dW - plain| {err_dw:.3e} of max |dW| {scale:.3e} "
+                      f"{'ok' if ok_dw else 'FAIL'}")
+                check(ok_dh and tail, f"tap_conv_dh {key} {periods} {dtype}: {err_dh:.3e}")
+                check(ok_dw, f"tap_conv_dw {key} {periods} {dtype}: {err_dw:.3e} of {scale:.3e}")
+                if dtype == torch.bfloat16:  # the training path's type: time it here too
+                    t = time_backward(torch, fold, cuda_fold, h, ct, geom, periods, weight, kh, kw)
+                    print(f"[kernel]   time: dh kernel {t['dh'][0] * 1e3:.2f} us, plain "
+                          f"{t['dh'][1] * 1e3:.2f} us, cuDNN {t['dh'][2] * 1e3:.2f} us, bound "
+                          f"{t['dh'][3] * 1e3:.3f} us ({t['dh'][4]}); dW kernel "
+                          f"{t['dw'][0] * 1e3:.2f} us, plain {t['dw'][1] * 1e3:.2f} us, cuDNN "
+                          f"{t['dw'][2] * 1e3:.2f} us, bound {t['dw'][3] * 1e3:.3f} us "
+                          f"({t['dw'][4]})")
+            # the adjoint identity itself: the kernels equal cuDNN's backward
+            # over the exact grids, for a cotangent that is 0 beyond each grid
+            ct_grid = ct32.clone()
+            for k, t in enumerate(geom.total.tolist()):
+                ct_grid[k, :, t:] = 0.0
+            run_dh, run_dw, extents = library_conv_bwd(torch, h32, ct_grid, periods, weight,
+                                                       kh, kw, B_TRAIN)
+            dh = cuda_fold.tap_conv_dh_cuda(ct_grid, geom.periods, geom.cycles, weight, kh, kw)
+            dw = cuda_fold.tap_conv_dw_cuda(h32, geom.periods, geom.cycles, ct_grid, kh, kw)
+            err_dh = max(float((dh[k, :, : cyc * p] - ref.permute(0, 2, 3, 1).reshape(
+                B_TRAIN, cyc * p, C)).abs().max()) for k, (ref, (cyc, p)) in
+                enumerate(zip(run_dh(), extents)))
+            ref_dw = sum(run_dw()).permute(2, 3, 1, 0)
+            err_dw = float((dw - ref_dw).abs().max()) / max(1.0, float(ref_dw.abs().max()))
+            print(f"[kernel] {key} periods {list(periods)} float32: max |dh - cuDNN| {err_dh:.3e},"
+                  f" max |dW - cuDNN| / max |dW| {err_dw:.3e}")
+            check(err_dh <= 1e-3 and err_dw <= 1e-3,
+                  f"{key} {periods}: backward kernels vs cuDNN {err_dh:.3e} / {err_dw:.3e}")
+    return max_err
+
+
+def time_backward(torch, fold, cuda_fold, h, ct, geom, periods, weight, kh, kw):
+    """(kernel ms, plain ms, cuDNN ms, bound ms, bound_by, bound ms counting
+    all taps) of the dh and dW kernels on these inputs."""
+
+    run_dh, run_dw, _ = library_conv_bwd(torch, h, ct, periods, weight.to(h.dtype), kh, kw,
+                                         h.shape[1])
+    dtype = "bfloat16" if h.dtype == torch.bfloat16 else "float32"
+    out = {}
+    for kind, kernel, plain, lib in (
+        ("dh", lambda: cuda_fold.tap_conv_dh_cuda(ct, geom.periods, geom.cycles, weight, kh, kw),
+         lambda: fold.tap_conv_dh(ct, geom, weight, kh, kw), run_dh),
+        ("dw", lambda: cuda_fold.tap_conv_dw_cuda(h, geom.periods, geom.cycles, ct, kh, kw),
+         lambda: fold.tap_weight_grad(h, geom, ct, kh, kw), run_dw),
+    ):
+        b_ms, b_by, b_all = bound(periods, kh, kw, dtype, h.shape[1], kind)
+        out[kind] = (time_ms(torch, kernel), time_ms(torch, plain, iters=20), time_ms(torch, lib),
+                     b_ms, b_by, b_all)
+    return out
+
+
+def train_data(np, windows, L_in: int, H_out: int):
+    """Seeded Poisson counts with a weekly cycle, 192 series x 365 days, 5
+    static features and the 8 cyclical calendar features of the flagship:
+    the training batcher (shuffled, B=256) over the first 321 days, the
+    held-out batcher (padded final batch) over the last 44, and the
+    per-series dispersion floors."""
+
+    rng = np.random.default_rng(2)
+    weekly = 1.0 + 0.5 * np.sin(2 * np.pi * (np.arange(DAYS)[:, None] / 7.0 + rng.uniform(0, 1, B)))
+    values = rng.poisson(rng.gamma(2.0, 6.0, B) * weekly).astype(np.float32)  # [DAYS, B]
+    dates = np.datetime64("2023-03-06") + np.arange(DAYS)
+    static = rng.standard_normal((B, 5)).astype(np.float32)
+    sigma = rng.uniform(0.01, 0.1, B).astype(np.float32)
+    tf_cfg = {"enabled": True, "features": ["day_of_week", "day_of_month", "month", "day_of_year"],
+              "encoding": "cyclical", "normalize": True}
+
+    def source(lo, hi):
+        return windows.SlidingWindowSource(
+            values[lo:hi], L_in, H_out, "direct", series_static=static, series_ids=np.arange(B),
+            time_index=dates[lo:hi], time_feature_config=tf_cfg)
+
+    split = DAYS - HELD_OUT_DAYS
+    train = windows.WindowBatcher([source(0, split)], B_TRAIN, shuffle=True, drop_last=True, seed=0)
+    held_out = windows.WindowBatcher([source(split, DAYS)], B_TRAIN, shuffle=False,
+                                     drop_last=False, seed=1, pad_final=True)
+    return train, held_out, sigma
+
+
+def train_phase(torch, np, modules, cfg, params, dev):
+    """Phase 7: flagship training steps on the card. Returns the launch
+    counts of the timed steps, the step p50 in ms and the periods the steps
+    selected."""
+
+    windows, engine_mod, optim, cuda_fold = modules
+    train, held_out, sigma = train_data(np, windows, cfg.input_len, cfg.pred_len)
+    check(len(held_out) == 8, f"{len(held_out)} held-out batches")
+    warmup = optim.resolve_warmup(TRAIN["warmup_steps"], None, len(train))
+    lr_ctl = optim.LRController(TRAIN["lr"], TRAIN["epochs"],
+                                {"type": "cosine", "eta_min": TRAIN["eta_min"]}, warmup)
+    lr = lr_ctl.lr_for_epoch(1)
+
+    def to_device(batch):
+        floor = sigma[batch.series_ids.reshape(-1)].reshape(-1, 1, 1)
+        return engine_mod.batch_to_device(batch, floor=floor, device=dev)
+
+    t0 = time.perf_counter()
+    host_batches = [b for _, b in zip(range(WARMUP_STEPS + TIMED_STEPS), train)]
+    gather_ms = 1e3 * (time.perf_counter() - t0) / len(host_batches)
+    eng = engine_mod.Engine(cfg, params, **ENGINE)
+    check(eng.device.type == "cuda", f"default device is {eng.device}")
+    state = eng.init_state()
+    gen = torch.Generator(device=dev).manual_seed(0)
+    selected = []
+    hooks = [getattr(eng.model, f"blocks_{i}").register_forward_pre_hook(
+        lambda mod, a: selected.append(tuple(int(p) for p in a[1].periods.tolist())))
+        for i in range(cfg.n_layers)]
+    losses = []
+    for batch in host_batches[:WARMUP_STEPS]:
+        state, loss, _ = eng.train_step(state, lr, gen, to_device(batch))
+        losses.append(loss)
+    torch.cuda.synchronize()
+    for hook in hooks:
+        hook.remove()
+
+    torch.cuda.reset_peak_memory_stats()
+    counters = (cuda_fold.launches, cuda_fold.launches_dh, cuda_fold.launches_dw)
+    for counter in counters:
+        counter.clear()  # the training path's launches, from here ...
+    step_ms = []
+    for batch in host_batches[WARMUP_STEPS:]:
+        t0 = time.perf_counter()
+        state, loss, stats = eng.train_step(state, lr, gen, to_device(batch))
+        torch.cuda.synchronize()
+        step_ms.append(1e3 * (time.perf_counter() - t0))
+        losses.append(loss)
+    counts = [dict(c) for c in counters]  # ... to here
+    peak_mib = torch.cuda.max_memory_allocated() / 2**20
+    losses = torch.stack(losses).cpu().numpy()
+    check(bool(np.isfinite(losses).all()), "non-finite training loss")
+    for name, got in zip(("tap_conv_fwd", "tap_conv_dh", "tap_conv_dw"), counts):
+        for kh, kw in KERNEL_SIZES:
+            n = got.get(f"{kh}x{kw}", 0)
+            check(n == TIMED_STEPS * LAUNCHES_PER_PASS // len(KERNEL_SIZES),
+                  f"{name} {kh}x{kw} launched {n} times in {TIMED_STEPS} steps")
+    p50 = float(np.median(step_ms))
+    print(f"[train] {TIMED_STEPS} steps of {B_TRAIN} windows (after {WARMUP_STEPS} warm-up), "
+          f"lr {lr:.4e} (epoch 1 of the cosine schedule with {TRAIN['warmup_steps']} warm-up "
+          f"steps over {len(train)} batches an epoch): step ms {spread(np, step_ms)}")
+    print(f"[train] windows/s at the p50 {B_TRAIN / p50 * 1e3:.1f}, peak device memory "
+          f"{peak_mib:.1f} MiB, host gather {gather_ms:.3f} ms a batch (before the timing), "
+          f"launches fwd {counts[0]} dh {counts[1]} dW {counts[2]}, selected periods "
+          f"{sorted(set(selected))}, loss first {losses[0]:.4f} last {losses[-1]:.4f}, "
+          f"mask_true {float(stats['mask_true']):.0f} of {float(stats['mask_total']):.0f}")
+
+    # 30 steps on one fixed batch at the schedule's base rate lower its loss
+    fixed = to_device(host_batches[0])
+    fit = engine_mod.Engine(cfg, params, **ENGINE)
+    fit_state = fit.init_state()
+    fit_losses = [fit.train_step(fit_state, TRAIN["lr"], gen, fixed)[1]
+                  for _ in range(OVERFIT_STEPS)]
+    fit_losses = torch.stack(fit_losses).cpu().numpy()
+    last = float(np.mean(fit_losses[-5:]))
+    print(f"[train] {OVERFIT_STEPS} steps on one batch at lr {TRAIN['lr']}: loss "
+          f"{fit_losses[0]:.4f} -> {last:.4f} (mean of the last 5)")
+    check(bool(np.isfinite(fit_losses).all()) and last < float(fit_losses[0]),
+          "the fixed-batch loss did not fall")
+
+    result = eng.evaluate(state.ema, [to_device(b) for b in held_out])
+    print(f"[train] evaluate (EMA) over {len(held_out)} held-out batches "
+          f"({held_out.total} windows, the last batch padded): nll {result['nll']:.5f}, "
+          f"smape {result['smape']:.5f}")
+    check(np.isfinite(result["nll"]) and np.isfinite(result["smape"]), f"evaluate {result}")
+
+    def step(batch=fixed):
+        eng.train_step(state, lr, gen, batch)
+
+    parity_batch = engine_mod.batch_to_device(
+        host_batches[0], floor=sigma[host_batches[0].series_ids.reshape(-1)].reshape(-1, 1, 1),
+        device="cpu")
+    return dict(counts=counts, p50=p50, periods=sorted(set(selected)), step=step,
+                parity_batch=parity_batch)
+
+
+def train_parity(torch, np, engine_mod, losses_mod, cfg, params, batch_cpu):
+    """Phase 7, parity: one float32 step with dropout 0, card against CPU."""
+
+    cfg32 = dataclasses.replace(cfg, compute_dtype="float32", dropout=0.0)
+    out = {}
+    for device in ("cuda", "cpu"):
+        eng = engine_mod.Engine(cfg32, params, device=device, **ENGINE)
+        eng.model.train()
+        batch = {k: None if v is None else v.to(device) for k, v in batch_cpu.items()}
+        loss, _ = eng._loss(batch, None)
+        loss.backward()
+        out[device] = (float(loss.detach()), {k: p.grad.cpu() for k, p in
+                                              eng.model.named_parameters()})
+    (loss_gpu, g_gpu), (loss_cpu, g_cpu) = out["cuda"], out["cpu"]
+    rel = abs(loss_gpu - loss_cpu) / abs(loss_cpu)
+    scale = max(1.0, max(float(g.abs().max()) for g in g_cpu.values()))
+    err = max(float((g_gpu[k] - g_cpu[k]).abs().max()) for k in g_cpu)
+    worst = max(g_cpu, key=lambda k: float((g_gpu[k] - g_cpu[k]).abs().max()))
+    print(f"[train] float32 step card vs CPU: loss {loss_gpu:.7f} vs {loss_cpu:.7f} (relative "
+          f"{rel:.3e}); max gradient difference {err:.3e} ({worst}) of max |g| {scale:.3e}")
+    check(rel <= 1e-5, f"float32 loss card vs CPU {rel:.3e}")
+    check(err <= 1e-4 * scale, f"float32 gradients card vs CPU {err:.3e}")
+
+    # the NB-NLL alone (torch.lgamma on the card against the CPU)
+    rng = np.random.default_rng(3)
+    rate = rng.gamma(2.0, 6.0, (B_TRAIN, 7, 1)).astype(np.float32)
+    disp = rng.uniform(0.01, 1.0, rate.shape).astype(np.float32)
+    y = rng.poisson(rate).astype(np.float32)
+    nll = {}
+    for device in ("cuda", "cpu"):
+        args = [torch.from_numpy(a).to(device) for a in (y, rate, disp)]
+        nll[device] = float(losses_mod.negative_binomial_nll(*args))
+    diff = abs(nll["cuda"] - nll["cpu"])
+    print(f"[train] NB-NLL card vs CPU: {nll['cuda']:.7f} vs {nll['cpu']:.7f}, "
+          f"difference {diff:.3e}")
+    check(diff <= 1e-5 * max(1.0, abs(nll["cpu"])), f"NB-NLL card vs CPU {diff:.3e}")
+
+
 def main() -> int:
     import torch
 
@@ -182,7 +491,10 @@ def main() -> int:
     import numpy as np
     import torch.nn.functional as F
 
-    from flow_timesnet_tpu_torch import convert, forecaster
+    from flow_timesnet_tpu_torch import convert, forecaster, optim
+    from flow_timesnet_tpu_torch import engine as engine_mod
+    from flow_timesnet_tpu_torch import losses as losses_mod
+    from flow_timesnet_tpu_torch.data import windows
     from flow_timesnet_tpu_torch.device import resolve_device
     from flow_timesnet_tpu_torch.models import timesnet
     from flow_timesnet_tpu_torch.ops import _build, cuda_fold, fold
@@ -303,9 +615,9 @@ def main() -> int:
         check(bool(np.isfinite(out).all()) and bool((out >= 0).all()), "non-finite or negative")
     for kh, kw in KERNEL_SIZES:
         n = counts.get(f"{kh}x{kw}", 0)
-        check(n == REQUESTS * LAUNCHES_PER_REQUEST // len(KERNEL_SIZES),
+        check(n == REQUESTS * LAUNCHES_PER_PASS // len(KERNEL_SIZES),
               f"tap_conv_fwd {kh}x{kw} launched {n} times in {REQUESTS} requests")
-    check(sum(counts.values()) == REQUESTS * LAUNCHES_PER_REQUEST, f"launches {counts}")
+    check(sum(counts.values()) == REQUESTS * LAUNCHES_PER_PASS, f"launches {counts}")
     p50 = float(np.median(latencies))
     print(f"[serve] {REQUESTS} requests of {B} series x {T} days: launches {counts}, "
           f"latency ms {spread(np, latencies)}, "
@@ -345,9 +657,17 @@ def main() -> int:
         check(np.allclose(a, b, rtol=TOL, atol=TOL), f"float32 {name} card vs CPU {err:.3e}")
 
     # 5. where the request's device time goes ----------------------------------
-    profile(torch, fc, history, dates, p50)
+    profile(torch, lambda: fc.forecast(history, dates=dates), PROFILED, "request", p50)
 
-    # 6. timing at the periods the requests selected ---------------------------
+    # 6. the backward kernels against their plain versions ------------------------
+    bwd_err = check_backward_kernels(torch, fold, cuda_fold, gen, dev)
+
+    # 7. train at the flagship width -----------------------------------------------
+    trained = train_phase(torch, np, (windows, engine_mod, optim, cuda_fold), cfg, params, dev)
+    train_parity(torch, np, engine_mod, losses_mod, cfg, params, trained["parity_batch"])
+    profile(torch, trained["step"], PROFILED_STEPS, "step", trained["p50"])
+
+    # 8. timing at the periods each path selected -----------------------------------
     kernels = []
     for kh, kw in KERNEL_SIZES:
         weight = torch.randn((kh, kw, C, C), generator=gen, device=dev) * 0.3
@@ -374,7 +694,34 @@ def main() -> int:
             "max_abs_err": max_err[f"{kh}x{kw}"], "ms": mean[0], "plain_ms": mean[1],
             "bound_ms": mean[3], "bound_by": rows[0][4], "library_ms": mean[2],
             "bound_ms_all_taps": mean[4], "periods": [list(p) for p in served],
+            "launches_train": trained["counts"][0][f"{kh}x{kw}"],
         })
+    for kh, kw in KERNEL_SIZES:
+        key = f"{kh}x{kw}"
+        weight = torch.randn((kh, kw, C, C), generator=gen, device=dev) * 0.3
+        h, ct = (torch.randn((K, B_TRAIN, LP, C), generator=gen, device=dev).to(torch.bfloat16)
+                 for _ in range(2))
+        rows = []
+        for periods in trained["periods"]:
+            geom = fold.make_geometry(torch.tensor(periods, dtype=torch.int32, device=dev), L, L - 1)
+            t = time_backward(torch, fold, cuda_fold, h, ct, geom, periods, weight, kh, kw)
+            rows.append(t)
+            for kind in ("dh", "dw"):
+                ms, plain, lib, b_ms, b_by, b_all = t[kind]
+                print(f"[time] {kind} {key} periods {list(periods)} bf16 B={B_TRAIN}: kernel "
+                      f"{ms * 1e3:.2f} us, plain {plain * 1e3:.2f} us, cuDNN grid conv backward "
+                      f"{lib * 1e3:.2f} us, bound {b_ms * 1e3:.3f} us ({b_by}; "
+                      f"{b_all * 1e3:.3f} us counting all taps)")
+        for i, (kind, source, replaces) in enumerate(
+                (("dh", SOURCE_BWD, REPLACES_DH), ("dw", SOURCE_BWD, REPLACES_DW))):
+            mean = [float(np.mean([r[kind][j] for r in rows])) for j in (0, 1, 2, 3, 5)]
+            kernels.append({
+                "name": f"tap_conv_{kind}_{key}", "route": "cuda", "source": source,
+                "replaces": replaces, "launches": trained["counts"][i + 1][key],
+                "max_abs_err": bwd_err[f"{kind}_{key}"], "ms": mean[0], "plain_ms": mean[1],
+                "bound_ms": mean[3], "bound_by": rows[0][kind][4], "library_ms": mean[2],
+                "bound_ms_all_taps": mean[4], "periods": [list(p) for p in trained["periods"]],
+            })
 
     print(json.dumps({"kernels": kernels}))
     print(card)
@@ -384,31 +731,40 @@ def main() -> int:
     return 0
 
 
-def profile(torch, fc, history, dates, p50_ms: float) -> None:
-    """Device time by kernel over ``PROFILED`` requests, against the request
-    p50 measured without the profiler: the device's busy and idle share."""
+def profile(torch, run, n: int, unit: str, p50_ms: float) -> None:
+    """Device time by kernel over ``n`` calls of ``run`` (one request or one
+    step each), against the p50 of such a call measured without the
+    profiler: the device's busy and idle share."""
 
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as torch_profile
 
     torch.cuda.synchronize()
     with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(PROFILED):
-            fc.forecast(history, dates=dates)
+        for _ in range(n):
+            run()
         torch.cuda.synchronize()
-    events = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
-    busy_ms = sum(e.self_device_time_total for e in events) / (1e3 * PROFILED)
+    # device-side ranges of user annotations (``Optimizer.step#AdamW.step``)
+    # span kernels that are counted on their own: leave them out
+    averages = prof.key_averages()
+    ranges = {e.key for e in averages if getattr(e, "is_user_annotation", False)}
+    events = [e for e in averages if e.device_type.name == "CUDA"]
+    for e in [e for e in events if e.key in ranges]:
+        print(f"[profile] left out, a range over other kernels: {e.key[:60]} "
+              f"{e.self_device_time_total / n:.2f} us/{unit}")
+        events.remove(e)
+    busy_ms = sum(e.self_device_time_total for e in events) / (1e3 * n)
     if busy_ms <= 0:
         print("[profile] device time not measured (the profiler saw no device activity)")
         return
-    launches = sum(e.count for e in events) / PROFILED
-    print(f"[profile] {PROFILED} requests: device busy {busy_ms:.3f} ms per request in "
+    launches = sum(e.count for e in events) / n
+    print(f"[profile] {n} {unit}s: device busy {busy_ms:.3f} ms per {unit} in "
           f"{launches:.0f} launches of {len(events)} kernels: "
-          f"{100 * busy_ms / p50_ms:.1f} % of the p50 request, idle "
+          f"{100 * busy_ms / p50_ms:.1f} % of the p50 {unit}, idle "
           f"{100 - 100 * busy_ms / p50_ms:.1f} %")
     for e in sorted(events, key=lambda e: -e.self_device_time_total)[:12]:
-        print(f"[profile]   {e.self_device_time_total / PROFILED:9.2f} us/request "
-              f"x{e.count / PROFILED:<5.1f} {e.key[:90]}")
+        print(f"[profile]   {e.self_device_time_total / n:9.2f} us/{unit} "
+              f"x{e.count / n:<5.1f} {e.key[:90]}")
 
 
 if __name__ == "__main__":

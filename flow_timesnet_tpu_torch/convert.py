@@ -63,6 +63,30 @@ def params_from_jax(tree: Mapping[str, Any], cfg: TimesNetConfig) -> Dict[str, t
     return out
 
 
+def params_to_jax(state_dict: Mapping[str, torch.Tensor], cfg: TimesNetConfig) -> Dict[str, Any]:
+    """The port's state_dict -> the JAX package's param tree (nested dicts of
+    float32 numpy arrays): the inverse of :func:`params_from_jax`, with the
+    same checks against ``cfg``'s model."""
+
+    want = expected_shapes(cfg)
+    missing = sorted(set(want) - set(state_dict))
+    unexpected = sorted(set(state_dict) - set(want))
+    if missing or unexpected:
+        raise KeyError(f"state_dict does not match the config: missing {missing}, "
+                       f"unexpected {unexpected}")
+    tree: Dict[str, Any] = {}
+    for name, shape in want.items():
+        value = state_dict[name].detach().float().cpu().numpy()
+        if value.shape != shape:
+            raise ValueError(f"{name}: shape {value.shape}, the config needs {shape}")
+        node = tree
+        *parents, leaf = name.split(".")
+        for part in parents:
+            node = node.setdefault(part, {})
+        node[leaf] = value
+    return tree
+
+
 def init_params(cfg: TimesNetConfig, generator: torch.Generator) -> Dict[str, torch.Tensor]:
     """The JAX package's initialisation, drawn from ``generator``.
 

@@ -24,6 +24,23 @@ def torch_uniform(shape, fan_in: int, generator: torch.Generator) -> torch.Tenso
     return (torch.rand(shape, generator=generator) * 2.0 - 1.0) * bound
 
 
+def dropout(x: torch.Tensor, rate: float, generator: Optional[torch.Generator]) -> torch.Tensor:
+    """flax ``nn.Dropout``: keep each element with probability ``1 - rate``
+    and scale it by ``1 / (1 - rate)``, in ``x``'s type.
+
+    ``generator`` is None in a deterministic pass (the identity); in a
+    training pass it is the step's ``torch.Generator`` on ``x``'s device.
+    ``F.dropout`` would draw from the global generator instead.
+    """
+
+    if generator is None or rate <= 0.0:
+        return x
+    if rate >= 1.0:
+        return torch.zeros_like(x)
+    keep = torch.rand(x.shape, generator=generator, device=x.device) >= rate
+    return torch.where(keep, x / (1.0 - rate), torch.zeros((), dtype=x.dtype, device=x.device))
+
+
 class Dense(nn.Module):
     """flax ``nn.Dense``: ``x @ kernel + bias`` with ``kernel`` [in, out]."""
 
@@ -123,13 +140,13 @@ class DataEmbedding(nn.Module):
 
     ``embed_norm_mode``: ``decoupled`` gives ``value + gate *
     LayerNorm(pos + temporal)`` with a learnable gate; ``layer`` / ``rms``
-    normalise the summed embedding; ``none`` is the plain sum. Inference
-    only: dropout is the identity.
+    normalise the summed embedding; ``none`` is the plain sum. Dropout
+    follows, drawn from ``generator`` (None: deterministic).
     """
 
     def __init__(
         self, c_in: int, d_model: int, time_features: int = 0,
-        embed_norm_mode: str = "decoupled",
+        embed_norm_mode: str = "decoupled", dropout: float = 0.0,
     ) -> None:
         super().__init__()
         if embed_norm_mode not in _VALID_NORM_MODES:
@@ -140,6 +157,7 @@ class DataEmbedding(nn.Module):
         self.d_model = d_model
         self.time_features = time_features
         self.mode = embed_norm_mode
+        self.dropout = float(dropout)
         self.value_embedding = Dense(c_in, d_model)
         if time_features > 0:
             self.temporal_embedding = Dense(time_features, d_model)
@@ -151,7 +169,10 @@ class DataEmbedding(nn.Module):
         elif embed_norm_mode == "rms":
             self.norm = RMSNorm(d_model)
 
-    def forward(self, x: torch.Tensor, x_mark: Optional[torch.Tensor] = None) -> torch.Tensor:
+    def forward(
+        self, x: torch.Tensor, x_mark: Optional[torch.Tensor] = None,
+        generator: Optional[torch.Generator] = None,
+    ) -> torch.Tensor:
         if x.dim() != 3:
             raise ValueError("DataEmbedding expects input shaped [B, L, C]")
         L = x.shape[1]
@@ -162,11 +183,12 @@ class DataEmbedding(nn.Module):
         else:
             aux = pos.expand_as(value)
         if self.mode == "decoupled":
-            return value + self.gate.to(value.dtype) * self.aux_norm(aux)
-        out = value + aux
-        if self.mode in ("layer", "rms"):
-            out = self.norm(out)
-        return out
+            out = value + self.gate.to(value.dtype) * self.aux_norm(aux)
+        else:
+            out = value + aux
+            if self.mode in ("layer", "rms"):
+                out = self.norm(out)
+        return dropout(out, self.dropout, generator)
 
 
 def resolve_embed_norm_mode(use_norm: bool, embed_norm_mode: Optional[str]) -> str:

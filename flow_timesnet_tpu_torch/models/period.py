@@ -1,6 +1,6 @@
 """FFT dominant-period selection and static-shape period grouping.
 
-Counterpart of ``flow_timesnet_tpu/models/period.py`` (forward only). The
+Counterpart of ``flow_timesnet_tpu/models/period.py``. The
 selector returns a fixed-K candidate set plus a validity mask, and the
 grouper is O(K^2) masked tensor math over that K-vector, so the forward has
 no data-dependent control flow and never reads a value back to the host.
@@ -27,6 +27,26 @@ class PeriodSelection(NamedTuple):
     freq_indices: torch.Tensor  # [K] int32: selected rFFT bins (>= 1)
 
 
+class _LowerMedianLast(torch.autograd.Function):
+    """Lower median over the last axis with the JAX package's custom VJP:
+    the cotangent goes to the first element equal to the median.
+    ``torch.median``'s own backward sends it to the index ``torch.median``
+    returns, which on ties is not specified."""
+
+    @staticmethod
+    def forward(ctx, x):
+        med = torch.median(x, dim=-1).values
+        ctx.save_for_backward(x, med)
+        return med
+
+    @staticmethod
+    def backward(ctx, ct):
+        x, med = ctx.saved_tensors
+        eq = x == med[..., None]
+        first = eq & (torch.cumsum(eq.to(torch.int32), dim=-1) == 1)
+        return ct[..., None] * first.to(ct.dtype)
+
+
 def _lower_median(x: torch.Tensor, dim: int) -> torch.Tensor:
     """Median taking the lower of the two middle order statistics.
 
@@ -34,7 +54,7 @@ def _lower_median(x: torch.Tensor, dim: int) -> torch.Tensor:
     semantics the JAX package reproduces with a sort.
     """
 
-    return torch.median(x, dim=dim).values
+    return _LowerMedianLast.apply(torch.movedim(x, dim, -1))
 
 
 def _batch_mean(values: torch.Tensor, row_weight: Optional[torch.Tensor]) -> torch.Tensor:

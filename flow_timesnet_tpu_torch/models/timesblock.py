@@ -6,6 +6,8 @@ over the masked dilated-tap fold conv of ``ops/cuda_fold.py``, which runs the
 CUDA kernel on the card. With ``compute_dtype="bfloat16"`` the casts follow
 the JAX package point by point: matmul inputs are bf16, products are summed
 in float32, the float32 bias is added, and only then is the result cast.
+Dropout runs when the caller passes the step's ``torch.Generator``; with
+None the block is deterministic.
 """
 
 from __future__ import annotations
@@ -19,6 +21,7 @@ from torch import nn
 
 from ..ops.cuda_fold import tap_conv
 from ..ops.fold import FoldGeometry, combine_residuals, make_geometry, pad_time, pointwise_conv
+from .embedding import dropout
 from .period import PeriodSelection, group_periods
 
 
@@ -68,17 +71,18 @@ class InceptionBranch(nn.Module):
 
 
 class InceptionBlock(nn.Module):
-    """Multi-kernel branches -> concat -> 1x1 proj -> act -> +res."""
+    """Multi-kernel branches -> concat -> 1x1 proj -> act -> dropout -> +res."""
 
     def __init__(
         self, in_ch: int, out_ch: int, kernel_set: Tuple[Tuple[int, int], ...],
         activation: str = "gelu", bottleneck_ratio: float = 1.0,
-        compute_dtype: str = "float32",
+        compute_dtype: str = "float32", dropout: float = 0.0,
     ) -> None:
         super().__init__()
         if not kernel_set:
             raise ValueError("kernel_set must contain at least one kernel size")
         self.dt = _dtype(compute_dtype)
+        self.dropout = float(dropout)
         self.act = _activation(activation)
         self.n_branches = len(kernel_set)
         for i, ks in enumerate(kernel_set):
@@ -94,7 +98,9 @@ class InceptionBlock(nn.Module):
             self.res_kernel = nn.Parameter(torch.zeros(in_ch, out_ch))
             self.res_bias = nn.Parameter(torch.zeros(out_ch))
 
-    def forward(self, h: torch.Tensor, geom: FoldGeometry) -> torch.Tensor:
+    def forward(
+        self, h: torch.Tensor, geom: FoldGeometry, generator: Optional[torch.Generator] = None
+    ) -> torch.Tensor:
         dt = self.dt
         res = pointwise_conv(h.to(dt), self.res_kernel, self.res_bias) if self.has_res else h
         feats = [
@@ -102,6 +108,8 @@ class InceptionBlock(nn.Module):
         ]
         z = pointwise_conv(torch.cat(feats, dim=-1), self.proj_kernel, self.proj_bias).to(dt)
         z = self.act(z)
+        # after the cast: the dropout product stays in the compute type
+        z = dropout(z, self.dropout, generator)
         return z + res.to(z.dtype)
 
 
@@ -127,6 +135,7 @@ class TimesBlock(nn.Module):
         log_base: Optional[float] = None,
         max_unique: Optional[int] = None,
         conv_dtype: str = "float32",
+        dropout: float = 0.0,
     ) -> None:
         super().__init__()
         self.d_model = d_model
@@ -138,13 +147,16 @@ class TimesBlock(nn.Module):
         self.conv_dt = _dtype(conv_dtype)
         self.act = _activation(activation)
         self.inception_in = InceptionBlock(
-            d_model, d_ff, kernel_set, activation, bottleneck_ratio, conv_dtype
+            d_model, d_ff, kernel_set, activation, bottleneck_ratio, conv_dtype, dropout
         )
         self.inception_out = InceptionBlock(
-            d_ff, d_model, kernel_set, activation, bottleneck_ratio, conv_dtype
+            d_ff, d_model, kernel_set, activation, bottleneck_ratio, conv_dtype, dropout
         )
 
-    def _conv_deltas(self, x: torch.Tensor, periods: torch.Tensor, p_cap: int) -> torch.Tensor:
+    def _conv_deltas(
+        self, x: torch.Tensor, periods: torch.Tensor, p_cap: int,
+        generator: Optional[torch.Generator],
+    ) -> torch.Tensor:
         """Per-candidate inception residual deltas [K, B, L, C]."""
 
         B, L, C = x.shape
@@ -152,14 +164,24 @@ class TimesBlock(nn.Module):
         geom = make_geometry(periods, L, p_cap)
         xg = pad_time(x.float(), L, geom.Lp)
         h = xg[None].expand(K, B, geom.Lp, C).to(self.conv_dt)
-        h = self.inception_in(h, geom).to(self.conv_dt)
+        h = self.inception_in(h, geom, generator).to(self.conv_dt)
         h = self.act(h)
-        h = self.inception_out(h, geom)
+        h = self.inception_out(h, geom, generator)
         # residual delta against the folded input, cropped to the input length
         delta = h.float()[:, :, :L, :] - xg[None, :, :L, :]
         return delta.to(x.dtype)
 
-    def forward(self, x: torch.Tensor, selection: PeriodSelection) -> torch.Tensor:
+    def forward(
+        self,
+        x: torch.Tensor,
+        selection: PeriodSelection,
+        row_weight: Optional[torch.Tensor] = None,
+        generator: Optional[torch.Generator] = None,
+    ) -> torch.Tensor:
+        """``row_weight`` [B] (0 for padded rows) keeps padded rows out of the
+        grouper's batch statistics; ``generator`` drives dropout (None:
+        deterministic)."""
+
         if x.dim() != 3:
             raise ValueError("TimesBlock expects input shaped [B, L, d_model]")
         B, L, C = x.shape
@@ -176,9 +198,10 @@ class TimesBlock(nn.Module):
             max_period=self.max_period,
             log_base=self.log_base,
             max_unique=self.max_unique,
+            row_weight=row_weight,
         )
         p_cap = min(int(self.p_cap), max(1, L - 1))
-        delta = self._conv_deltas(x, grouped.periods, p_cap)
+        delta = self._conv_deltas(x, grouped.periods, p_cap, generator)
         out = combine_residuals(delta, grouped.weights, x)
         # no valid period -> identity, decided on the device
         return torch.where(grouped.any_valid, out, x)

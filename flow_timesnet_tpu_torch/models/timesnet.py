@@ -4,8 +4,10 @@
 with ``out_steps = pred_len`` (direct) or 1 (recursive). The shared FFT
 selector runs once per layer and feeds its TimesBlock; grouping is
 static-shape masked math, so the forward has no data-dependent Python
-control flow and no host synchronisation. Inference only: dropout is the
-identity.
+control flow and no host synchronisation. In training mode the forward
+takes the step's ``torch.Generator`` for its dropout (embedding, inception
+blocks, residual) and ``row_valid`` to keep padded batch rows out of the
+period statistics; backward runs through the fold conv's autograd Function.
 """
 
 from __future__ import annotations
@@ -22,6 +24,7 @@ from .embedding import (
     Dense,
     LayerNorm32,
     LowRankTemporalContext,
+    dropout,
     resolve_embed_norm_mode,
 )
 from .period import resolve_log_base, resolve_max_unique, select_periods
@@ -31,7 +34,7 @@ from .timesblock import TimesBlock
 @dataclass(frozen=True)
 class TimesNetConfig:
     """Static model hyper-parameters + data dimensions (the JAX package's fields,
-    less those that only select a JAX backend or training behaviour)."""
+    less ``use_pallas``, which only selects a JAX backend)."""
 
     input_len: int
     pred_len: int
@@ -45,6 +48,7 @@ class TimesNetConfig:
     mode: str = "direct"
     bottleneck_ratio: float = 1.0
     min_period_threshold: int = 1
+    use_checkpoint: bool = False
     use_embedding_norm: bool = True
     embed_norm_mode: Optional[str] = None
     min_sigma: float = 1e-3
@@ -84,6 +88,11 @@ class TimesNetConfig:
             raise NotImplementedError(
                 "period_buckets is not ported yet; it comes with the frozen-period "
                 "serving slice (see ROADMAP.md)"
+            )
+        if self.use_checkpoint:
+            raise NotImplementedError(
+                "use_checkpoint (rematerialising the TimesBlocks in the backward) is not "
+                "ported yet; it comes with a later training slice (see ROADMAP.md)"
             )
         if self.frozen_periods is not None:
             raise NotImplementedError(
@@ -156,7 +165,7 @@ class TimesNet(nn.Module):
                 self.context_proj = Dense(ctx_dim, 1)
         self.embedding = DataEmbedding(
             cfg.c_in, cfg.d_model, cfg.time_features,
-            resolve_embed_norm_mode(cfg.use_embedding_norm, cfg.embed_norm_mode),
+            resolve_embed_norm_mode(cfg.use_embedding_norm, cfg.embed_norm_mode), cfg.dropout,
         )
         pmax = cfg.pmax
         self.min_thresh = min(pmax, max(1, cfg.min_period_threshold))
@@ -176,6 +185,7 @@ class TimesNet(nn.Module):
                     log_base=resolve_log_base(cfg.period_binning, i),
                     max_unique=resolve_max_unique(cfg.period_max_unique, i),
                     conv_dtype=cfg.compute_dtype,
+                    dropout=cfg.dropout,
                 ),
             )
         self.layer_norm = LayerNorm32(cfg.d_model)
@@ -218,8 +228,17 @@ class TimesNet(nn.Module):
         series_static: Optional[torch.Tensor] = None,
         series_ids: Optional[torch.Tensor] = None,
         dispersion_floor: Optional[torch.Tensor] = None,
+        row_valid: Optional[torch.Tensor] = None,
+        generator: Optional[torch.Generator] = None,
     ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """``row_valid`` [B] is 0 for padded batch rows; ``generator`` drives
+        dropout in training mode and is ignored in eval mode."""
+
         cfg = self.cfg
+        if not self.training:
+            generator = None
+        elif generator is None and cfg.dropout > 0:
+            raise ValueError("a training forward with dropout needs a torch.Generator")
         if x.dim() != 3:
             raise ValueError("TimesNet expects input shaped [B, T, N]")
         B, T, N = x.shape
@@ -248,7 +267,7 @@ class TimesNet(nn.Module):
                 x_feat = x_feat + bias.to(x_feat.dtype)[:, None, :]
 
         # embedding + copy-last history baseline
-        seq = self.embedding(x_feat, marks)
+        seq = self.embedding(x_feat, marks, generator)
         hist_steps = min(target_steps, L)
         history_tail = x_val[:, -hist_steps:, :]
         if hist_steps < target_steps:
@@ -257,9 +276,9 @@ class TimesNet(nn.Module):
 
         # shared period selection + TimesBlock stack
         for i in range(cfg.n_layers):
-            sel = select_periods(seq, cfg.k_periods, cfg.pmax, self.min_thresh)
-            updated = getattr(self, f"blocks_{i}")(seq, sel)
-            seq = self.layer_norm(seq + (updated - seq))
+            sel = select_periods(seq, cfg.k_periods, cfg.pmax, self.min_thresh, row_valid)
+            updated = getattr(self, f"blocks_{i}")(seq, sel, row_valid, generator)
+            seq = self.layer_norm(seq + dropout(updated - seq, cfg.dropout, generator))
 
         # heads: Dense over time on [B, D, L], then per-feature heads
         baseline_bn = self.forecast_time_proj(seq.transpose(1, 2))  # [B, D, pred_len]

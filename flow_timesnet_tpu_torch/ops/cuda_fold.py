@@ -1,14 +1,18 @@
-"""Fold convolution on the card: the wrapper around ``csrc/tap_conv_fwd.cu``.
+"""Fold convolution on the card: the wrappers around ``csrc/tap_conv_fwd.cu``
+and ``csrc/tap_conv_bwd.cu``, and the autograd Function that joins them.
 
-Counterpart of ``flow_timesnet_tpu/ops/pallas_fold.py::tap_conv_pallas``.
-:func:`tap_conv` sends a CUDA tensor through the hand-written kernel (or
-raises) and a CPU tensor through the plain version,
-:func:`flow_timesnet_tpu_torch.ops.fold.tap_conv`. The two compute the same
-function; ``chip_smoke.py`` holds the kernel against the plain version on
-the card, and the CPU tests hold the plain version against the JAX package.
+Counterpart of ``flow_timesnet_tpu/ops/pallas_fold.py::tap_conv_pallas`` and
+of the custom VJP of ``flow_timesnet_tpu/ops/fold.py::tap_conv``.
+:func:`tap_conv` runs :class:`TapConv`: on a CUDA tensor its forward is the
+forward kernel and its backward the dh-adjoint and dW kernels (or a launch
+raises); on a CPU tensor both are the plain versions of ``ops/fold.py``.
+Autograd never differentiates the plain version's gathers, whose transpose
+would be the scatter the JAX package's custom VJP avoids. ``chip_smoke.py``
+holds each kernel against its plain version on the card, and the CPU tests
+hold the plain versions against the JAX package.
 
-The kernel is built with ``nvcc`` at its first launch (see ``ops/_build.py``);
-importing this module builds nothing.
+The kernels are built with ``nvcc`` at their first launch (see
+``ops/_build.py``); importing this module builds nothing.
 """
 
 from __future__ import annotations
@@ -22,25 +26,67 @@ import torch
 from . import _build
 from .fold import FoldGeometry
 from .fold import tap_conv as tap_conv_plain
+from .fold import tap_conv_dh as tap_conv_dh_plain
+from .fold import tap_weight_grad as tap_weight_grad_plain
 
 SOURCE = "tap_conv_fwd.cu"
+SOURCE_BWD = "tap_conv_bwd.cu"
 
-# Launches of the kernel, keyed by kernel size ("3x3", ...). Only the CUDA
-# path counts; the plain version never does.
-launches: Counter = Counter()
+# Launches of each kernel, keyed by kernel size ("3x3", ...). Only the CUDA
+# path counts; the plain versions never do.
+launches: Counter = Counter()  # forward
+launches_dh: Counter = Counter()  # dh adjoint
+launches_dw: Counter = Counter()  # weight gradient
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
 
 
 @functools.cache
 def _kernel_fn():
     fn = _build.load(SOURCE).tap_conv_fwd
-    fn.restype = ctypes.c_int
-    fn.argtypes = [
-        ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-    ]
+    fn.restype = _I
+    fn.argtypes = [_P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P]
     return fn
+
+
+@functools.cache
+def _bwd_fns():
+    lib = _build.load(SOURCE_BWD)
+    lib.tap_conv_dh.restype = _I
+    lib.tap_conv_dh.argtypes = [_P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P]
+    lib.tap_conv_dw_chunks.restype = _I
+    lib.tap_conv_dw_chunks.argtypes = [_I, _I, _I]
+    lib.tap_conv_dw.restype = _I
+    lib.tap_conv_dw.argtypes = [_P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P]
+    return lib
+
+
+def _check(name: str, x: torch.Tensor, kh: int, kw: int) -> None:
+    """What every kernel needs of its [K, B, Lp, C] input and kernel size."""
+
+    if x.device.type != "cuda":
+        raise ValueError(f"{name} needs CUDA tensors, got {x.device}")
+    if x.dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"{name}: the input must be bfloat16 or float32, got {x.dtype}")
+    if x.dim() != 4 or not x.is_contiguous():
+        raise ValueError(f"{name}: the input must be a contiguous [K, B, Lp, C] tensor")
+    if kh % 2 == 0 or kw % 2 == 0:
+        raise ValueError(f"kernel size must be odd, got {kh}x{kw}")
+
+
+def _check_geometry(name: str, K: int, periods, cycles, device, *others) -> None:
+    for label, v in (("periods", periods), ("cycles", cycles)):
+        if v.dtype != torch.int32 or tuple(v.shape) != (K,) or not v.is_contiguous():
+            raise ValueError(f"{label} must be int32 [{K}], got {v.dtype} {tuple(v.shape)}")
+    if any(t.device != device for t in (periods, cycles, *others)):
+        raise ValueError(f"all {name} arguments must be on one device")
+
+
+def _raise_on(err: int, name: str, shape: str) -> None:
+    if err != 0:
+        # each kernel owns its capacity rules (channels per block, shared
+        # memory) and rejects a shape beyond them with cudaErrorInvalidValue (1)
+        raise RuntimeError(f"{name} launch failed with cudaError_t {err} at {shape}")
 
 
 def tap_conv_cuda(
@@ -52,7 +98,7 @@ def tap_conv_cuda(
     kh: int,
     kw: int,
 ) -> torch.Tensor:
-    """Launch the fold-conv kernel; every argument lies on one CUDA device.
+    """Launch the forward kernel; every argument lies on one CUDA device.
 
     ``h`` [K, B, Lp, Cin] bf16 or float32; ``kernel`` [kh, kw, Cin, Cout] is
     rounded to ``h.dtype`` as in the plain version; ``bias`` [Cout];
@@ -60,48 +106,149 @@ def tap_conv_cuda(
     [K, B, Lp, Cout] float32.
     """
 
-    if h.device.type != "cuda":
-        raise ValueError(f"tap_conv_cuda needs CUDA tensors, got {h.device}")
-    if h.dtype not in (torch.bfloat16, torch.float32):
-        raise TypeError(f"h must be bfloat16 or float32, got {h.dtype}")
-    if h.dim() != 4 or not h.is_contiguous():
-        raise ValueError("h must be a contiguous [K, B, Lp, Cin] tensor")
+    _check("tap_conv_cuda", h, kh, kw)
     K, B, Lp, Cin = h.shape
-    if kh % 2 == 0 or kw % 2 == 0:
-        raise ValueError(f"kernel size must be odd, got {kh}x{kw}")
     if tuple(kernel.shape[:3]) != (kh, kw, Cin) or kernel.dim() != 4:
         raise ValueError(f"kernel must be [{kh}, {kw}, {Cin}, Cout], got {tuple(kernel.shape)}")
     Cout = int(kernel.shape[3])
     if tuple(bias.shape) != (Cout,):
         raise ValueError(f"bias must be [{Cout}], got {tuple(bias.shape)}")
-    for name, v in (("periods", periods), ("cycles", cycles)):
-        if v.dtype != torch.int32 or tuple(v.shape) != (K,):
-            raise ValueError(f"{name} must be int32 [{K}], got {v.dtype} {tuple(v.shape)}")
-    if any(t.device != h.device for t in (kernel, bias, periods, cycles)):
-        raise ValueError("all tap_conv_cuda arguments must be on h's device")
+    _check_geometry("tap_conv_cuda", K, periods, cycles, h.device, kernel, bias)
 
     w = kernel.to(h.dtype).contiguous()
     b = bias.float().contiguous()
-    periods = periods.contiguous()
-    cycles = cycles.contiguous()
     out = torch.empty((K, B, Lp, Cout), dtype=torch.float32, device=h.device)
-    fn = _kernel_fn()
     with torch.cuda.device(h.device):
         stream = torch.cuda.current_stream(h.device).cuda_stream
-        err = fn(
+        err = _kernel_fn()(
             h.data_ptr(), int(h.dtype == torch.bfloat16), w.data_ptr(), b.data_ptr(),
             periods.data_ptr(), cycles.data_ptr(), out.data_ptr(),
             K, B, Lp, Cin, Cout, kh, kw, stream,
         )
-    if err != 0:
-        # the kernel owns its capacity rules (Cout per block, shared memory)
-        # and rejects a shape beyond them with cudaErrorInvalidValue (1)
-        raise RuntimeError(
-            f"tap_conv_fwd launch failed with cudaError_t {err} at K={K}, B={B}, "
-            f"Lp={Lp}, Cin={Cin}, Cout={Cout}, {kh}x{kw}"
-        )
+    _raise_on(err, "tap_conv_fwd", f"K={K}, B={B}, Lp={Lp}, Cin={Cin}, Cout={Cout}, {kh}x{kw}")
     launches[f"{kh}x{kw}"] += 1
     return out
+
+
+def tap_conv_dh_cuda(
+    ct: torch.Tensor,
+    periods: torch.Tensor,
+    cycles: torch.Tensor,
+    kernel: torch.Tensor,
+    kh: int,
+    kw: int,
+) -> torch.Tensor:
+    """Launch the dh-adjoint kernel: :func:`ops.fold.tap_conv_dh` on the card.
+
+    ``ct`` [K, B, Lp, Cout] bf16 or float32; ``kernel`` [kh, kw, Cin, Cout]
+    (the forward layout) is rounded to ``ct.dtype``. Returns [K, B, Lp, Cin]
+    float32; the caller casts it to the input's type.
+    """
+
+    _check("tap_conv_dh_cuda", ct, kh, kw)
+    K, B, Lp, Cout = ct.shape
+    if kernel.dim() != 4 or tuple(kernel.shape[:2]) != (kh, kw) or kernel.shape[3] != Cout:
+        raise ValueError(f"kernel must be [{kh}, {kw}, Cin, {Cout}], got {tuple(kernel.shape)}")
+    Cin = int(kernel.shape[2])
+    _check_geometry("tap_conv_dh_cuda", K, periods, cycles, ct.device, kernel)
+
+    w = kernel.to(ct.dtype).contiguous()
+    dh = torch.empty((K, B, Lp, Cin), dtype=torch.float32, device=ct.device)
+    with torch.cuda.device(ct.device):
+        stream = torch.cuda.current_stream(ct.device).cuda_stream
+        err = _bwd_fns().tap_conv_dh(
+            ct.data_ptr(), int(ct.dtype == torch.bfloat16), w.data_ptr(),
+            periods.data_ptr(), cycles.data_ptr(), dh.data_ptr(),
+            K, B, Lp, Cin, Cout, kh, kw, stream,
+        )
+    _raise_on(err, "tap_conv_dh", f"K={K}, B={B}, Lp={Lp}, Cin={Cin}, Cout={Cout}, {kh}x{kw}")
+    launches_dh[f"{kh}x{kw}"] += 1
+    return dh
+
+
+def tap_conv_dw_cuda(
+    h: torch.Tensor,
+    periods: torch.Tensor,
+    cycles: torch.Tensor,
+    ct: torch.Tensor,
+    kh: int,
+    kw: int,
+) -> torch.Tensor:
+    """Launch the weight-gradient kernel: :func:`ops.fold.tap_weight_grad` on the card.
+
+    ``h`` [K, B, Lp, Cin] and ``ct`` [K, B, Lp, Cout], both bf16 or both
+    float32. Returns dW [kh, kw, Cin, Cout] float32. The kernel sums
+    per-chunk partials in a fixed order (no float atomics), so the result is
+    the same from run to run; the wrapper allocates their scratch buffer.
+    """
+
+    _check("tap_conv_dw_cuda", h, kh, kw)
+    _check("tap_conv_dw_cuda", ct, kh, kw)
+    K, B, Lp, Cin = h.shape
+    Cout = int(ct.shape[3])
+    if tuple(ct.shape[:3]) != (K, B, Lp) or ct.dtype != h.dtype:
+        raise ValueError(f"ct must be [{K}, {B}, {Lp}, Cout] in {h.dtype}, "
+                         f"got {ct.dtype} {tuple(ct.shape)}")
+    _check_geometry("tap_conv_dw_cuda", K, periods, cycles, h.device, ct)
+
+    lib = _bwd_fns()
+    chunks = lib.tap_conv_dw_chunks(K, B, kh)
+    partial = torch.empty((chunks, kh, kw, Cin, Cout), dtype=torch.float32, device=h.device)
+    dw = torch.empty((kh, kw, Cin, Cout), dtype=torch.float32, device=h.device)
+    with torch.cuda.device(h.device):
+        stream = torch.cuda.current_stream(h.device).cuda_stream
+        err = lib.tap_conv_dw(
+            h.data_ptr(), int(h.dtype == torch.bfloat16), ct.data_ptr(),
+            periods.data_ptr(), cycles.data_ptr(), partial.data_ptr(), dw.data_ptr(),
+            K, B, Lp, Cin, Cout, kh, kw, stream,
+        )
+    _raise_on(err, "tap_conv_dw", f"K={K}, B={B}, Lp={Lp}, Cin={Cin}, Cout={Cout}, {kh}x{kw}")
+    launches_dw[f"{kh}x{kw}"] += 1
+    return dw
+
+
+class TapConv(torch.autograd.Function):
+    """The fold conv with the JAX package's custom VJP (``ops/fold.py:303-332``).
+
+    The backward takes the bf16 order of the XLA form: the cotangent is
+    rounded to ``h.dtype`` once and feeds dh and dW; dh is cast to
+    ``h.dtype``; dW is summed in float32; db is summed from the float32
+    cotangent before any rounding. It keeps ``h``, the kernel and the
+    geometry's int32 tensors, not the tap stack.
+    """
+
+    @staticmethod
+    def forward(ctx, h, kernel, bias, geom: FoldGeometry, kh: int, kw: int):
+        ctx.save_for_backward(h, kernel)
+        ctx.geom, ctx.kh, ctx.kw = geom, kh, kw
+        if h.device.type == "cuda":
+            return tap_conv_cuda(h, geom.periods, geom.cycles, kernel, bias, kh, kw)
+        return tap_conv_plain(h, geom, kernel, bias, kh, kw)
+
+    @staticmethod
+    def backward(ctx, ct):
+        h, kernel = ctx.saved_tensors
+        geom, kh, kw = ctx.geom, ctx.kh, ctx.kw
+        need_h, need_w, need_b = ctx.needs_input_grad[:3]
+        ct_dt = ct.to(h.dtype).contiguous()
+        dh = dw = db = None
+        if h.device.type == "cuda":
+            if need_h:
+                dh = tap_conv_dh_cuda(ct_dt, geom.periods, geom.cycles, kernel, kh, kw)
+            if need_w:
+                dw = tap_conv_dw_cuda(h, geom.periods, geom.cycles, ct_dt, kh, kw)
+        else:
+            if need_h:
+                dh = tap_conv_dh_plain(ct_dt, geom, kernel, kh, kw)
+            if need_w:
+                dw = tap_weight_grad_plain(h, geom, ct_dt, kh, kw)
+        if dh is not None:
+            dh = dh.to(h.dtype)
+        if dw is not None:
+            dw = dw.to(kernel.dtype)
+        if need_b:
+            db = ct.sum(dim=(0, 1, 2))
+        return dh, dw, db, None, None, None
 
 
 def tap_conv(
@@ -112,16 +259,13 @@ def tap_conv(
     kh: int,
     kw: int,
 ) -> torch.Tensor:
-    """Fold-grid Conv2d (see :func:`flow_timesnet_tpu_torch.ops.fold.tap_conv`).
+    """Fold-grid Conv2d (see :func:`flow_timesnet_tpu_torch.ops.fold.tap_conv`)
+    with the JAX package's backward.
 
-    A CUDA tensor goes through the kernel, a CPU tensor through the plain
-    version; any other device raises.
+    A CUDA tensor goes through the kernels, a CPU tensor through the plain
+    versions; any other device raises.
     """
 
-    if h.device.type == "cuda":
-        return tap_conv_cuda(
-            h.contiguous(), geom.periods, geom.cycles, kernel, bias, kh, kw
-        )
-    if h.device.type == "cpu":
-        return tap_conv_plain(h, geom, kernel, bias, kh, kw)
-    raise ValueError(f"tap_conv runs on cuda or cpu tensors, got {h.device}")
+    if h.device.type not in ("cuda", "cpu"):
+        raise ValueError(f"tap_conv runs on cuda or cpu tensors, got {h.device}")
+    return TapConv.apply(h.contiguous(), kernel, bias, geom, kh, kw)

@@ -69,3 +69,70 @@ def test_tap_conv_kernel_rejects_what_it_cannot_take(cuda):
     with pytest.raises(RuntimeError, match="cudaError_t 1 "):
         cuda_fold.tap_conv(h, geom, torch.zeros(3, 3, 4, 4096, device=cuda),
                            torch.zeros(4096, device=cuda), 3, 3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("periods", [[7, 14], [4, 27], [1, 27]])
+@pytest.mark.parametrize("kh,kw", [(3, 3), (5, 5), (7, 7), (1, 3)])
+def test_backward_kernels_match_plain(cuda, kh, kw, periods, dtype):
+    B, L, C = 16, 28, 32
+    geom = fold.make_geometry(torch.tensor(periods, dtype=torch.int32, device=cuda), L, L - 1)
+    h, kernel, _ = _inputs(2, len(periods), B, L, geom.Lp, C, kh, kw)
+    ct, _, _ = _inputs(3, len(periods), B, L, geom.Lp, C, kh, kw)  # over all Lp rows
+    h_t, ct_t = (torch.from_numpy(a).to(cuda).to(dtype) for a in (h, ct))
+    k_t = torch.from_numpy(kernel).to(cuda)
+    key = f"{kh}x{kw}"
+    before = (cuda_fold.launches_dh[key], cuda_fold.launches_dw[key])
+    dh = cuda_fold.tap_conv_dh_cuda(ct_t, geom.periods, geom.cycles, k_t, kh, kw)
+    dw = cuda_fold.tap_conv_dw_cuda(h_t, geom.periods, geom.cycles, ct_t, kh, kw)
+    torch.cuda.synchronize()
+    assert (cuda_fold.launches_dh[key], cuda_fold.launches_dw[key]) == (before[0] + 1, before[1] + 1)
+    want_dh = fold.tap_conv_dh(ct_t, geom, k_t, kh, kw)
+    want_dw = fold.tap_weight_grad(h_t, geom, ct_t, kh, kw)
+    assert dh.dtype == dw.dtype == torch.float32
+    # exact float32 products, summed in another order; dW sums K*B*Lp of them
+    torch.testing.assert_close(dh, want_dh, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(dw, want_dw, rtol=1e-4, atol=1e-4 * float(want_dw.abs().max()))
+    for k, total in enumerate(geom.total.tolist()):
+        assert not dh[k, :, total:].any()
+    # fixed-order reduction: the same bits from run to run
+    again = cuda_fold.tap_conv_dw_cuda(h_t, geom.periods, geom.cycles, ct_t, kh, kw)
+    assert torch.equal(dw, again)
+
+
+@pytest.mark.cuda
+def test_tap_conv_autograd_on_the_card_matches_the_cpu(cuda):
+    B, L, C, kh, kw, periods = 8, 28, 32, 5, 5, [7, 27]
+    geoms = {d: fold.make_geometry(torch.tensor(periods, dtype=torch.int32, device=d), L, L - 1)
+             for d in ("cpu", cuda)}
+    h, kernel, bias = _inputs(4, len(periods), B, L, geoms["cpu"].Lp, C, kh, kw)
+    ct = np.random.default_rng(5).standard_normal((len(periods), B, geoms["cpu"].Lp, C))
+    grads = {}
+    for d, geom in geoms.items():
+        args = [torch.from_numpy(a).to(d).requires_grad_() for a in (h, kernel, bias)]
+        out = cuda_fold.tap_conv(args[0], geom, args[1], args[2], kh, kw)
+        out.backward(torch.from_numpy(ct.astype(np.float32)).to(d))
+        grads[d] = [a.grad.cpu() for a in args]
+    for got, want in zip(grads[cuda], grads["cpu"]):
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4 * max(1.0, float(want.abs().max())))
+
+
+@pytest.mark.cuda
+def test_backward_kernels_reject_what_they_cannot_take(cuda):
+    geom = fold.make_geometry(torch.tensor([4], dtype=torch.int32, device=cuda), 8, 7)
+    ct = torch.zeros((1, 2, geom.Lp, 4), device=cuda)
+    w = torch.zeros(3, 3, 4, 4, device=cuda)
+    with pytest.raises(TypeError):
+        cuda_fold.tap_conv_dh_cuda(ct.half(), geom.periods, geom.cycles, w, 3, 3)
+    with pytest.raises(ValueError, match="kernel"):
+        cuda_fold.tap_conv_dh_cuda(ct, geom.periods, geom.cycles, w[..., :3], 3, 3)
+    with pytest.raises(ValueError, match="ct must be"):
+        cuda_fold.tap_conv_dw_cuda(ct, geom.periods, geom.cycles, ct.bfloat16(), 3, 3)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        cuda_fold.tap_conv_dw_cuda(ct.cpu(), geom.periods, geom.cycles, ct, 3, 3)
+    # 48 output channels do not divide the dW kernel's 256 threads: the
+    # kernel itself refuses with cudaErrorInvalidValue
+    with pytest.raises(RuntimeError, match="cudaError_t 1 "):
+        cuda_fold.tap_conv_dw_cuda(ct, geom.periods, geom.cycles,
+                                   torch.zeros((1, 2, geom.Lp, 48), device=cuda), 3, 3)

@@ -1,9 +1,9 @@
 """Import hygiene of the PyTorch port: no JAX and nothing of the JAX package.
 
 Every module of ``flow_timesnet_tpu_torch`` and ``chip_smoke.py`` is parsed
-with ``ast``; an import of ``jax``, ``flax``, ``optax`` or
-``flow_timesnet_tpu`` anywhere in them (top level or inside a function)
-fails the test.
+with ``ast``; an import of ``jax``, ``flax``, ``optax``, ``flow_timesnet_tpu``
+or ``pandas`` (which the card's machine lacks) anywhere in them (top level or
+inside a function) fails the test.
 """
 
 import ast
@@ -12,7 +12,7 @@ from pathlib import Path
 import pytest
 
 REPO = Path(__file__).resolve().parents[1]
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "flow_timesnet_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "flow_timesnet_tpu", "pandas")
 SOURCES = sorted((REPO / "flow_timesnet_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
 
 
@@ -46,6 +46,7 @@ def test_no_jax_import(path):
 
 @pytest.mark.parametrize("name,bad", [("jax.numpy", True), ("flax.linen", True),
                                       ("flow_timesnet_tpu.ops.fold", True), ("optax", True),
+                                      ("pandas", True),
                                       ("flow_timesnet_tpu_torch.ops.fold", False),
                                       ("torch", False), ("numpy", False)])
 def test_forbidden_names(name, bad):

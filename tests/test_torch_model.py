@@ -19,39 +19,15 @@ torch = pytest.importorskip("torch")
 jax = pytest.importorskip("jax")
 jnp = pytest.importorskip("jax.numpy")
 
-from port_helpers import flat_params, perturb, unflat_params  # noqa: E402
+from port_helpers import B, H, MODEL_KW, flat_params, model_inputs, perturb, unflat_params  # noqa: E402
 
 from flow_timesnet_tpu.models import timesnet as jtn  # noqa: E402
 from flow_timesnet_tpu_torch import convert  # noqa: E402
 from flow_timesnet_tpu_torch.models import timesnet  # noqa: E402
 
-B, L, H, TF, STATIC = 6, 28, 7, 8, 5
-MODEL_KW = dict(
-    input_len=L, pred_len=H, d_model=16, d_ff=64, n_layers=2, k_periods=2,
-    kernel_set=((3, 3), (5, 5), (7, 7)), bottleneck_ratio=4.0, min_period_threshold=7,
-    id_embed_dim=4, static_dim=STATIC, static_proj_dim=4, use_zero_mean_context=True,
-    context_rank=4, context_scale=0.05, time_features=TF, id_vocab=B, dropout=0.0,
-)
 FP32_TOL = dict(rtol=1e-4, atol=1e-4)
 ARGS = ("x", "x_mark", "static", "ids", "floor")
-
-
-def _inputs(seed):
-    rng = np.random.default_rng(seed)
-    t = np.arange(L)
-    # a weekly and a 9.3-step cycle at continuous random phases and
-    # amplitudes: no two rFFT bins tie, so both sides select the same periods
-    phase = rng.uniform(0, 2 * np.pi, size=(B, 1))
-    x = (np.sin(2 * np.pi * t / 7 + phase) * rng.uniform(0.5, 2.0, (B, 1))
-         + 0.6 * np.cos(2 * np.pi * t / 9.3 + 2 * phase)
-         + 0.3 * rng.standard_normal((B, L)))
-    return dict(
-        x=x[:, :, None].astype(np.float32),
-        x_mark=rng.uniform(-1, 1, (B, L, TF)).astype(np.float32),
-        static=rng.standard_normal((B, 1, STATIC)).astype(np.float32),
-        ids=rng.permutation(B).reshape(B, 1).astype(np.int32),
-        floor=rng.uniform(0.01, 0.1, (B, 1, 1)).astype(np.float32),
-    )
+_inputs = model_inputs
 
 
 def _jax_model(use_pallas=False, dtype="float32"):
