@@ -29,23 +29,29 @@ Phases, each of which fails the run (non-zero exit, no result line):
    their plain versions at the training shape (K=2, B=256, Lp=55, 32
    channels) for the three sizes, three period sets and bf16 and float32
    (dh within 1e-4; dW within rtol 1e-4 and 1e-4 of its largest value, as it
-   sums 28,160 products), and in float32 against cuDNN's convolution
-   backward over the exact fold grids within 1e-3 (of the largest dW);
+   sums 28,160 products). bf16 dW takes the tensor-core kernel, whose plan
+   must equal the wrapper's mirror of it; float32 dW the CUDA-core kernel,
+   held in float32 against cuDNN's convolution backward over the exact fold
+   grids within 1e-3 (of the largest dW), as dh is;
 7. train: the flagship at full width and depth takes 5 + 100 timed
    ``Engine.train_step`` calls at B=256 on seeded windows of 192 series x
    365 days (``SlidingWindowSource`` -> ``WindowBatcher`` ->
    ``batch_to_device``; lr from ``LRController``, dropout 0.0675, EMA 0.99,
    bf16); the losses must be finite and each step must launch each kernel
-   exactly 12 times; 30 steps on one fixed batch must lower its loss, and
-   ``Engine.evaluate`` over 8 held-out batches (the last one padded) must
-   give a finite NLL and sMAPE. A float32 step with dropout 0 on the card
-   must match the same step on the CPU (loss within 1e-5 relative,
-   gradients within 1e-4 of the largest, the NB-NLL alone within 1e-5);
-   then device time per step by kernel over 20 profiled steps;
+   exactly 12 times, dW on the tensor-core route; 30 steps on one fixed
+   batch must lower its loss, and ``Engine.evaluate`` over 8 held-out
+   batches (the last one padded) must give a finite NLL and sMAPE. A float32
+   step with dropout 0 on the card must match the same step on the CPU (loss
+   within 1e-5 relative, gradients within 1e-4 of the largest, the NB-NLL
+   alone within 1e-5), its dW on the CUDA-core route; then device time per
+   step by kernel over 20 profiled steps;
 8. timing: each kernel at the periods its path selected (served requests
    for the forward, training steps for the backward), beside its plain
    version, cuDNN over the exact fold grids (a yardstick the port never
-   calls) and its bound on the card.
+   calls) and its bound on the card. Times are device time (torch.profiler's
+   kernel time, mean of 100 calls); the kernel's and cuDNN's calls are also
+   timed back to back by CUDA events, which adds the host's launch work
+   where that is the longer.
 
 The last lines are the ``kernels`` JSON line, the card line of ``nvidia-smi``
 and ``{"ok": true, "device": {...}}``.
@@ -69,6 +75,7 @@ PEAK_OPS_PER_S = {"bfloat16": 989e12, "float32": 67e12}
 
 L, LP, C, K, B = 28, 55, 32, 2, 192  # the fold conv's serving shape (Lp = L + L - 1)
 B_TRAIN = 256  # the flagship's training batch
+P_MAX = L - 1  # make_geometry's p_cap on both paths: the dW kernel's zero rows cover it
 KERNEL_SIZES = ((3, 3), (5, 5), (7, 7))
 PERIOD_SETS = ((7, 14), (4, 27), (1, 27))
 TOL = 1e-4
@@ -131,8 +138,43 @@ def spread(np, values) -> str:
 
 
 def time_ms(torch, fn, iters: int = 100) -> float:
-    """Mean device time of one call, from CUDA events around ``iters`` calls
-    after a warm-up (inputs stay in L2, as they do between the model's ops)."""
+    """Device time of one call: what its kernels take on the card, from
+    torch.profiler over ``iters`` calls after a warm-up (inputs stay in L2,
+    as they do between the model's ops). The host's time between launches is
+    not in it: a call whose kernels take a few tens of us can take longer
+    from the host than on the card (see :func:`call_ms`).
+
+    Each kernel counts with the mean time of its recorded launches times its
+    launches per call, so a launch the profiler failed to record does not
+    lower the time; such a shortfall is printed."""
+
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as torch_profile
+
+    for _ in range(5):
+        fn()
+    torch.cuda.synchronize()
+    with torch_profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    us = 0.0
+    for e in prof.key_averages():
+        if e.device_type.name != "CUDA" or e.count == 0:
+            continue
+        per_call = max(1, round(e.count / iters))  # every call launches the same kernels
+        if e.count != per_call * iters:
+            print(f"[time] the profiler recorded {e.count} launches of {e.key[:60]} in "
+                  f"{iters} calls")
+        us += e.self_device_time_total / e.count * per_call
+    check(us > 0, "the profiler saw no device activity")
+    return us / 1e3
+
+
+def call_ms(torch, fn, iters: int = 100) -> float:
+    """Time of one call back to back with the next, from CUDA events around
+    ``iters`` calls after a warm-up: the device time, or the host's launch
+    work where that is longer."""
 
     for _ in range(5):
         fn()
@@ -144,6 +186,33 @@ def time_ms(torch, fn, iters: int = 100) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def measure(torch, kernel, plain, lib, bnd) -> dict:
+    """One kernel's numbers on one set of inputs, under the keys of the
+    ``kernels`` line: device time of the kernel, of its plain version and of
+    cuDNN (``lib``); the bound ``bnd`` = (ms, bound_by, ms counting all
+    taps); and the time of a call back to back, of the kernel and of cuDNN."""
+
+    b_ms, b_by, b_all = bnd
+    return {"ms": time_ms(torch, kernel), "plain_ms": time_ms(torch, plain, iters=20),
+            "library_ms": time_ms(torch, lib), "bound_ms": b_ms, "bound_by": b_by,
+            "bound_ms_all_taps": b_all, "call_ms": call_ms(torch, kernel),
+            "library_call_ms": call_ms(torch, lib)}
+
+
+def mean_of(np, rows) -> dict:
+    """:func:`measure`'s numbers averaged over the period sets."""
+
+    return {k: rows[0][k] if isinstance(rows[0][k], str) else float(np.mean([r[k] for r in rows]))
+            for k in rows[0]}
+
+
+def described(t: dict) -> str:
+    return (f"kernel {t['ms'] * 1e3:.2f} us (a call back to back {t['call_ms'] * 1e3:.2f} us), "
+            f"plain {t['plain_ms'] * 1e3:.2f} us, cuDNN {t['library_ms'] * 1e3:.2f} us (a call "
+            f"back to back {t['library_call_ms'] * 1e3:.2f} us), bound {t['bound_ms'] * 1e3:.3f} "
+            f"us ({t['bound_by']}; {t['bound_ms_all_taps'] * 1e3:.3f} us counting all taps)")
 
 
 def valid_taps(periods, kh: int, kw: int) -> int:
@@ -242,6 +311,11 @@ def check_backward_kernels(torch, fold, cuda_fold, gen, dev):
     max_err = {}
     for kh, kw in KERNEL_SIZES:
         key = f"{kh}x{kw}"
+        plan = cuda_fold.dw_mma_plan(K, B_TRAIN, LP, C, C, kh, kw, P_MAX)
+        check(cuda_fold.dw_mma_plan_of_kernel(K, B_TRAIN, LP, C, C, kh, kw, P_MAX) == plan,
+              f"tap_conv_dw_mma {key}: the wrapper's plan differs from the kernel's")
+        print(f"[kernel] dW {key} bf16 tensor-core plan (the kernel's own): {plan._asdict()}, "
+              f"scratch {4 * plan.scratch_elems(kh, kw, C, C) / 1e6:.2f} MB")
         weight = torch.randn((kh, kw, C, C), generator=gen, device=dev) * 0.3
         for periods in PERIOD_SETS:
             geom = fold.make_geometry(torch.tensor(periods, dtype=torch.int32, device=dev), L, L - 1)
@@ -251,7 +325,7 @@ def check_backward_kernels(torch, fold, cuda_fold, gen, dev):
             for dtype in (torch.bfloat16, torch.float32):
                 h, ct = h32.to(dtype), ct32.to(dtype)
                 dh = cuda_fold.tap_conv_dh_cuda(ct, geom.periods, geom.cycles, weight, kh, kw)
-                dw = cuda_fold.tap_conv_dw_cuda(h, geom.periods, geom.cycles, ct, kh, kw)
+                dw = cuda_fold.tap_conv_dw_cuda(h, geom.periods, geom.cycles, ct, kh, kw, P_MAX)
                 want_dh = fold.tap_conv_dh(ct, geom, weight, kh, kw)
                 want_dw = fold.tap_weight_grad(h, geom, ct, kh, kw)
                 torch.cuda.synchronize()
@@ -262,7 +336,8 @@ def check_backward_kernels(torch, fold, cuda_fold, gen, dev):
                 ok_dw = bool(torch.allclose(dw, want_dw, rtol=TOL, atol=TOL * scale))
                 tail = all(not bool(dh[k, :, t:].any()) for k, t in enumerate(geom.total.tolist()))
                 max_err[f"dh_{key}"] = max(max_err.get(f"dh_{key}", 0.0), err_dh)
-                max_err[f"dw_{key}"] = max(max_err.get(f"dw_{key}", 0.0), err_dw)
+                route = "dw_mma" if dtype == torch.bfloat16 else "dw_f32"
+                max_err[f"{route}_{key}"] = max(max_err.get(f"{route}_{key}", 0.0), err_dw)
                 print(f"[kernel] {key} periods {list(periods)} {str(dtype)[6:]}: max |dh - plain| "
                       f"{err_dh:.3e} {'ok' if ok_dh else 'FAIL'}, dh rows beyond the fold 0: "
                       f"{tail}, max |dW - plain| {err_dw:.3e} of max |dW| {scale:.3e} "
@@ -271,12 +346,8 @@ def check_backward_kernels(torch, fold, cuda_fold, gen, dev):
                 check(ok_dw, f"tap_conv_dw {key} {periods} {dtype}: {err_dw:.3e} of {scale:.3e}")
                 if dtype == torch.bfloat16:  # the training path's type: time it here too
                     t = time_backward(torch, fold, cuda_fold, h, ct, geom, periods, weight, kh, kw)
-                    print(f"[kernel]   time: dh kernel {t['dh'][0] * 1e3:.2f} us, plain "
-                          f"{t['dh'][1] * 1e3:.2f} us, cuDNN {t['dh'][2] * 1e3:.2f} us, bound "
-                          f"{t['dh'][3] * 1e3:.3f} us ({t['dh'][4]}); dW kernel "
-                          f"{t['dw'][0] * 1e3:.2f} us, plain {t['dw'][1] * 1e3:.2f} us, cuDNN "
-                          f"{t['dw'][2] * 1e3:.2f} us, bound {t['dw'][3] * 1e3:.3f} us "
-                          f"({t['dw'][4]})")
+                    for kind in ("dh", "dw"):
+                        print(f"[kernel]   time {kind}: {described(t[kind])}")
             # the adjoint identity itself: the kernels equal cuDNN's backward
             # over the exact grids, for a cotangent that is 0 beyond each grid
             ct_grid = ct32.clone()
@@ -285,7 +356,7 @@ def check_backward_kernels(torch, fold, cuda_fold, gen, dev):
             run_dh, run_dw, extents = library_conv_bwd(torch, h32, ct_grid, periods, weight,
                                                        kh, kw, B_TRAIN)
             dh = cuda_fold.tap_conv_dh_cuda(ct_grid, geom.periods, geom.cycles, weight, kh, kw)
-            dw = cuda_fold.tap_conv_dw_cuda(h32, geom.periods, geom.cycles, ct_grid, kh, kw)
+            dw = cuda_fold.tap_conv_dw_cuda(h32, geom.periods, geom.cycles, ct_grid, kh, kw, P_MAX)
             err_dh = max(float((dh[k, :, : cyc * p] - ref.permute(0, 2, 3, 1).reshape(
                 B_TRAIN, cyc * p, C)).abs().max()) for k, (ref, (cyc, p)) in
                 enumerate(zip(run_dh(), extents)))
@@ -298,9 +369,20 @@ def check_backward_kernels(torch, fold, cuda_fold, gen, dev):
     return max_err
 
 
-def time_backward(torch, fold, cuda_fold, h, ct, geom, periods, weight, kh, kw):
-    """(kernel ms, plain ms, cuDNN ms, bound ms, bound_by, bound ms counting
-    all taps) of the dh and dW kernels on these inputs."""
+def time_forward(torch, F, fold, cuda_fold, h, geom, periods, weight, bias, kh, kw):
+    """:func:`measure` of the forward kernel on these bf16 inputs."""
+
+    run, _ = library_conv(torch, F, h, periods, weight.to(h.dtype), bias.to(h.dtype), kh, kw)
+    return measure(
+        torch, lambda: cuda_fold.tap_conv_cuda(h, geom.periods, geom.cycles, weight, bias, kh, kw),
+        lambda: fold.tap_conv(h, geom, weight, bias, kh, kw), run,
+        bound(periods, kh, kw, "bfloat16"))
+
+
+def time_backward(torch, fold, cuda_fold, h, ct, geom, periods, weight, kh, kw,
+                  kinds=("dh", "dw")):
+    """:func:`measure` of the dh and dW kernels (``kinds``) on these inputs,
+    by kind; dW takes the route of their dtype."""
 
     run_dh, run_dw, _ = library_conv_bwd(torch, h, ct, periods, weight.to(h.dtype), kh, kw,
                                          h.shape[1])
@@ -309,12 +391,13 @@ def time_backward(torch, fold, cuda_fold, h, ct, geom, periods, weight, kh, kw):
     for kind, kernel, plain, lib in (
         ("dh", lambda: cuda_fold.tap_conv_dh_cuda(ct, geom.periods, geom.cycles, weight, kh, kw),
          lambda: fold.tap_conv_dh(ct, geom, weight, kh, kw), run_dh),
-        ("dw", lambda: cuda_fold.tap_conv_dw_cuda(h, geom.periods, geom.cycles, ct, kh, kw),
+        ("dw", lambda: cuda_fold.tap_conv_dw_cuda(h, geom.periods, geom.cycles, ct, kh, kw, P_MAX),
          lambda: fold.tap_weight_grad(h, geom, ct, kh, kw), run_dw),
     ):
-        b_ms, b_by, b_all = bound(periods, kh, kw, dtype, h.shape[1], kind)
-        out[kind] = (time_ms(torch, kernel), time_ms(torch, plain, iters=20), time_ms(torch, lib),
-                     b_ms, b_by, b_all)
+        if kind not in kinds:
+            continue
+        out[kind] = measure(torch, kernel, plain, lib,
+                            bound(periods, kh, kw, dtype, h.shape[1], kind))
     return out
 
 
@@ -383,7 +466,8 @@ def train_phase(torch, np, modules, cfg, params, dev):
         hook.remove()
 
     torch.cuda.reset_peak_memory_stats()
-    counters = (cuda_fold.launches, cuda_fold.launches_dh, cuda_fold.launches_dw)
+    counters = (cuda_fold.launches, cuda_fold.launches_dh, cuda_fold.launches_dw,
+                cuda_fold.launches_dw_mma)
     for counter in counters:
         counter.clear()  # the training path's launches, from here ...
     step_ms = []
@@ -397,7 +481,7 @@ def train_phase(torch, np, modules, cfg, params, dev):
     peak_mib = torch.cuda.max_memory_allocated() / 2**20
     losses = torch.stack(losses).cpu().numpy()
     check(bool(np.isfinite(losses).all()), "non-finite training loss")
-    for name, got in zip(("tap_conv_fwd", "tap_conv_dh", "tap_conv_dw"), counts):
+    for name, got in zip(("tap_conv_fwd", "tap_conv_dh", "tap_conv_dw", "tap_conv_dw_mma"), counts):
         for kh, kw in KERNEL_SIZES:
             n = got.get(f"{kh}x{kw}", 0)
             check(n == TIMED_STEPS * LAUNCHES_PER_PASS // len(KERNEL_SIZES),
@@ -408,7 +492,8 @@ def train_phase(torch, np, modules, cfg, params, dev):
           f"steps over {len(train)} batches an epoch): step ms {spread(np, step_ms)}")
     print(f"[train] windows/s at the p50 {B_TRAIN / p50 * 1e3:.1f}, peak device memory "
           f"{peak_mib:.1f} MiB, host gather {gather_ms:.3f} ms a batch (before the timing), "
-          f"launches fwd {counts[0]} dh {counts[1]} dW {counts[2]}, selected periods "
+          f"launches fwd {counts[0]} dh {counts[1]} dW {counts[2]} (tensor-core route "
+          f"{counts[3]}), selected periods "
           f"{sorted(set(selected))}, loss first {losses[0]:.4f} last {losses[-1]:.4f}, "
           f"mask_true {float(stats['mask_true']):.0f} of {float(stats['mask_total']):.0f}")
 
@@ -441,8 +526,9 @@ def train_phase(torch, np, modules, cfg, params, dev):
                 parity_batch=parity_batch)
 
 
-def train_parity(torch, np, engine_mod, losses_mod, cfg, params, batch_cpu):
-    """Phase 7, parity: one float32 step with dropout 0, card against CPU."""
+def train_parity(torch, np, engine_mod, losses_mod, cuda_fold, cfg, params, batch_cpu):
+    """Phase 7, parity: one float32 step with dropout 0, card against CPU.
+    Returns the dW launches of the card's step by size (the CUDA-core route)."""
 
     cfg32 = dataclasses.replace(cfg, compute_dtype="float32", dropout=0.0)
     out = {}
@@ -450,8 +536,16 @@ def train_parity(torch, np, engine_mod, losses_mod, cfg, params, batch_cpu):
         eng = engine_mod.Engine(cfg32, params, device=device, **ENGINE)
         eng.model.train()
         batch = {k: None if v is None else v.to(device) for k, v in batch_cpu.items()}
+        cuda_fold.launches_dw.clear()  # the float32 step's dW launches, from here ...
+        cuda_fold.launches_dw_mma.clear()
         loss, _ = eng._loss(batch, None)
         loss.backward()
+        if device == "cuda":
+            dw_f32 = dict(cuda_fold.launches_dw)  # ... to here
+            check(not cuda_fold.launches_dw_mma and all(
+                dw_f32.get(f"{kh}x{kw}", 0) == LAUNCHES_PER_PASS // len(KERNEL_SIZES)
+                for kh, kw in KERNEL_SIZES), f"float32 step dW launches {dw_f32}, "
+                f"tensor-core {dict(cuda_fold.launches_dw_mma)}")
         out[device] = (float(loss.detach()), {k: p.grad.cpu() for k, p in
                                               eng.model.named_parameters()})
     (loss_gpu, g_gpu), (loss_cpu, g_cpu) = out["cuda"], out["cpu"]
@@ -477,6 +571,7 @@ def train_parity(torch, np, engine_mod, losses_mod, cfg, params, batch_cpu):
     print(f"[train] NB-NLL card vs CPU: {nll['cuda']:.7f} vs {nll['cpu']:.7f}, "
           f"difference {diff:.3e}")
     check(diff <= 1e-5 * max(1.0, abs(nll["cpu"])), f"NB-NLL card vs CPU {diff:.3e}")
+    return dw_f32
 
 
 def main() -> int:
@@ -541,16 +636,9 @@ def main() -> int:
                 check(ok, f"tap_conv_fwd {kh}x{kw} {periods} {dtype} disagrees with the plain "
                           f"version: {err:.3e} > {TOL}")
                 if dtype == torch.bfloat16:  # the serving path's type: time it here too
-                    ms = time_ms(torch, lambda: cuda_fold.tap_conv_cuda(
-                        h, geom.periods, geom.cycles, weight, bias, kh, kw))
-                    plain = time_ms(torch, lambda: fold.tap_conv(h, geom, weight, bias, kh, kw),
-                                    iters=20)
-                    run, _ = library_conv(torch, F, h, periods, weight.to(dtype),
-                                          bias.to(dtype), kh, kw)
-                    b_ms, b_by, _ = bound(periods, kh, kw, "bfloat16")
-                    print(f"[kernel]   time: kernel {ms * 1e3:.2f} us, plain {plain * 1e3:.2f} us,"
-                          f" cuDNN grid conv {time_ms(torch, run) * 1e3:.2f} us, bound "
-                          f"{b_ms * 1e3:.3f} us ({b_by})")
+                    t = time_forward(torch, F, fold, cuda_fold, h, geom, periods, weight, bias,
+                                     kh, kw)
+                    print(f"[kernel]   time: {described(t)}")
             # the fold identity itself: the kernel equals cuDNN over the exact grid
             run, unfold = library_conv(torch, F, h32, periods, weight, bias, kh, kw)
             got = cuda_fold.tap_conv_cuda(h32, geom.periods, geom.cycles, weight, bias, kh, kw)
@@ -664,7 +752,8 @@ def main() -> int:
 
     # 7. train at the flagship width -----------------------------------------------
     trained = train_phase(torch, np, (windows, engine_mod, optim, cuda_fold), cfg, params, dev)
-    train_parity(torch, np, engine_mod, losses_mod, cfg, params, trained["parity_batch"])
+    dw_f32_counts = train_parity(torch, np, engine_mod, losses_mod, cuda_fold, cfg, params,
+                                 trained["parity_batch"])
     profile(torch, trained["step"], PROFILED_STEPS, "step", trained["p50"])
 
     # 8. timing at the periods each path selected -----------------------------------
@@ -676,24 +765,14 @@ def main() -> int:
         rows = []
         for periods in served:
             geom = fold.make_geometry(torch.tensor(periods, dtype=torch.int32, device=dev), L, L - 1)
-            ms = time_ms(torch, lambda: cuda_fold.tap_conv_cuda(
-                h, geom.periods, geom.cycles, weight, bias, kh, kw))
-            plain = time_ms(torch, lambda: fold.tap_conv(h, geom, weight, bias, kh, kw), iters=20)
-            run, _ = library_conv(torch, F, h, periods, weight.to(torch.bfloat16),
-                                  bias.to(torch.bfloat16), kh, kw)
-            lib = time_ms(torch, run)
-            b_ms, b_by, b_all = bound(periods, kh, kw, "bfloat16")
-            rows.append((ms, plain, lib, b_ms, b_by, b_all))
-            print(f"[time] {kh}x{kw} periods {list(periods)} bf16: kernel {ms * 1e3:.2f} us, "
-                  f"plain {plain * 1e3:.2f} us, cuDNN grid conv {lib * 1e3:.2f} us, "
-                  f"bound {b_ms * 1e3:.3f} us ({b_by}; {b_all * 1e3:.3f} us counting all taps)")
-        mean = [float(np.mean([r[j] for r in rows])) for j in (0, 1, 2, 3, 5)]
+            rows.append(time_forward(torch, F, fold, cuda_fold, h, geom, periods, weight, bias,
+                                     kh, kw))
+            print(f"[time] {kh}x{kw} periods {list(periods)} bf16: {described(rows[-1])}")
         kernels.append({
             "name": f"tap_conv_fwd_{kh}x{kw}", "route": "cuda", "source": SOURCE,
             "replaces": REPLACES, "launches": counts[f"{kh}x{kw}"],
-            "max_abs_err": max_err[f"{kh}x{kw}"], "ms": mean[0], "plain_ms": mean[1],
-            "bound_ms": mean[3], "bound_by": rows[0][4], "library_ms": mean[2],
-            "bound_ms_all_taps": mean[4], "periods": [list(p) for p in served],
+            "max_abs_err": max_err[f"{kh}x{kw}"], **mean_of(np, rows),
+            "periods": [list(p) for p in served],
             "launches_train": trained["counts"][0][f"{kh}x{kw}"],
         })
     for kh, kw in KERNEL_SIZES:
@@ -705,22 +784,26 @@ def main() -> int:
         for periods in trained["periods"]:
             geom = fold.make_geometry(torch.tensor(periods, dtype=torch.int32, device=dev), L, L - 1)
             t = time_backward(torch, fold, cuda_fold, h, ct, geom, periods, weight, kh, kw)
+            t["dw_mma"] = t.pop("dw")
+            # the float32 route (the CUDA-core kernel) on the same values
+            t["dw_f32"] = time_backward(torch, fold, cuda_fold, h.float(), ct.float(), geom,
+                                        periods, weight, kh, kw, kinds=("dw",))["dw"]
             rows.append(t)
-            for kind in ("dh", "dw"):
-                ms, plain, lib, b_ms, b_by, b_all = t[kind]
-                print(f"[time] {kind} {key} periods {list(periods)} bf16 B={B_TRAIN}: kernel "
-                      f"{ms * 1e3:.2f} us, plain {plain * 1e3:.2f} us, cuDNN grid conv backward "
-                      f"{lib * 1e3:.2f} us, bound {b_ms * 1e3:.3f} us ({b_by}; "
-                      f"{b_all * 1e3:.3f} us counting all taps)")
-        for i, (kind, source, replaces) in enumerate(
-                (("dh", SOURCE_BWD, REPLACES_DH), ("dw", SOURCE_BWD, REPLACES_DW))):
-            mean = [float(np.mean([r[kind][j] for r in rows])) for j in (0, 1, 2, 3, 5)]
+            for kind in ("dh", "dw_mma", "dw_f32"):
+                print(f"[time] {kind} {key} periods {list(periods)} "
+                      f"{'float32' if kind == 'dw_f32' else 'bf16'} B={B_TRAIN}: "
+                      f"{described(t[kind])}")
+        launched = {"dh": trained["counts"][1][key], "dw_mma": trained["counts"][3][key],
+                    "dw_f32": dw_f32_counts[key]}
+        for kind, replaces in (("dh", REPLACES_DH), ("dw_mma", REPLACES_DW),
+                               ("dw_f32", REPLACES_DW)):
             kernels.append({
-                "name": f"tap_conv_{kind}_{key}", "route": "cuda", "source": source,
-                "replaces": replaces, "launches": trained["counts"][i + 1][key],
-                "max_abs_err": bwd_err[f"{kind}_{key}"], "ms": mean[0], "plain_ms": mean[1],
-                "bound_ms": mean[3], "bound_by": rows[0][kind][4], "library_ms": mean[2],
-                "bound_ms_all_taps": mean[4], "periods": [list(p) for p in trained["periods"]],
+                "name": f"tap_conv_{kind}_{key}", "route": "cuda", "source": SOURCE_BWD,
+                "replaces": replaces, "launches": launched[kind],
+                "max_abs_err": bwd_err[f"{kind}_{key}"], **mean_of(np, [r[kind] for r in rows]),
+                "periods": [list(p) for p in trained["periods"]],
+                # the float32 route runs on the float32 path (the card-vs-CPU step), not the bf16 one
+                **({"launches_from": "float32 parity step"} if kind == "dw_f32" else {}),
             })
 
     print(json.dumps({"kernels": kernels}))
@@ -762,9 +845,12 @@ def profile(torch, run, n: int, unit: str, p50_ms: float) -> None:
           f"{launches:.0f} launches of {len(events)} kernels: "
           f"{100 * busy_ms / p50_ms:.1f} % of the p50 {unit}, idle "
           f"{100 - 100 * busy_ms / p50_ms:.1f} %")
-    for e in sorted(events, key=lambda e: -e.self_device_time_total)[:12]:
-        print(f"[profile]   {e.self_device_time_total / n:9.2f} us/{unit} "
-              f"x{e.count / n:<5.1f} {e.key[:90]}")
+    ranked = sorted(events, key=lambda e: -e.self_device_time_total)
+    # the 12 largest, then the port's own kernels wherever they rank
+    for i, e in enumerate(ranked):
+        if i < 12 or "tap_conv" in e.key:
+            print(f"[profile]   {e.self_device_time_total / n:9.2f} us/{unit} "
+                  f"x{e.count / n:<5.1f} #{i + 1} {e.key[:90]}")
 
 
 if __name__ == "__main__":

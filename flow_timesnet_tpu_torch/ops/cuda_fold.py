@@ -20,6 +20,7 @@ from __future__ import annotations
 import ctypes
 import functools
 from collections import Counter
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -36,9 +37,84 @@ SOURCE_BWD = "tap_conv_bwd.cu"
 # path counts; the plain versions never do.
 launches: Counter = Counter()  # forward
 launches_dh: Counter = Counter()  # dh adjoint
-launches_dw: Counter = Counter()  # weight gradient
+launches_dw: Counter = Counter()  # weight gradient, either route
+launches_dw_mma: Counter = Counter()  # weight gradient, the bf16 tensor-core route
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
+_INVALID_VALUE = 1  # cudaErrorInvalidValue: what a kernel returns for a shape it cannot take
+
+# The plan of the bf16 dW kernel, constant for constant as in
+# csrc/tap_conv_bwd.cu (dw_mma_plan); a card test holds the two together.
+MMA_ROWS = 16  # rows of a sequence per mma k-step
+MMA_WARP_TILE = 32  # a warp's dW tile: 32 ci x 32 co
+MMA_ROW_PAD = 8  # bf16 elements added to each staged row
+MMA_MAX_WARPS = 16  # one warp per tap of a kernel row
+MMA_STAGES = 4  # staged sequences in a block's ring of buffers
+MMA_TARGET_WARPS = 8 * 132  # pass 1: about 8 warps per SM of an H100 in all
+MAX_SMEM_BYTES = 232448  # the most shared memory one block may use
+
+
+class DwMmaPlan(NamedTuple):
+    """How ``tap_conv_dw_mma`` cuts one call, in the order its C plan reports."""
+
+    lp_pad: int  # Lp rounded up to whole 16-row k-steps
+    pad: int  # zero rows on each side of a staged h sequence
+    tiles: int  # 32 x 32 channel tiles of dW
+    chunks_per_k: int  # chunks of each candidate's B sequences
+    per_chunk: int  # sequences of a chunk (the last one may hold fewer)
+    warps: int  # warps of a block: one per tap of a kernel row
+    smem: int  # dynamic shared memory of a block, bytes
+    chunks: int  # K * chunks_per_k
+
+    def scratch_elems(self, kh: int, kw: int, cin: int, cout: int) -> int:
+        """float32 partials pass 1 writes: one [kh, kw, Cin, Cout] per chunk."""
+
+        return self.chunks * kh * kw * cin * cout
+
+
+@functools.lru_cache(maxsize=64)  # a training step asks for the same few plans each time
+def dw_mma_plan(K: int, B: int, Lp: int, cin: int, cout: int, kh: int, kw: int,
+                p_max: int) -> DwMmaPlan:
+    """The launch plan of the bf16 dW kernel, or a ``RuntimeError`` through
+    :func:`_raise_on` for a shape it cannot take (the kernel refuses the same
+    shapes with ``cudaErrorInvalidValue``).
+
+    A block stages one sequence of h between ``pad = (kh // 2) * p_max + kw // 2``
+    zero rows on each side, ``MMA_STAGES`` times (a ring), beside ct, rows padded
+    by ``MMA_ROW_PAD`` elements, plus its B-fragment masks (8 bytes a lane,
+    warp and k-step) and its row/col table. Chunks never straddle two
+    candidates, and hold as many sequences as about ``MMA_TARGET_WARPS``
+    warps in all leave to each.
+    """
+
+    shape = f"K={K}, B={B}, Lp={Lp}, Cin={cin}, Cout={cout}, {kh}x{kw}, p_max={p_max}"
+    why = None
+    if min(K, B, Lp, cin, cout, kh, kw) <= 0 or kh % 2 == 0 or kw % 2 == 0:
+        why = "every extent must be positive and the kernel size odd"
+    elif cin % 16 or cout % 8:
+        why = "Cin must be a multiple of 16 and Cout a multiple of 8 (the mma tile)"
+    elif kw > MMA_MAX_WARPS:
+        why = f"at most {MMA_MAX_WARPS} taps in a kernel row (one warp each)"
+    elif not 1 <= p_max <= Lp:
+        why = "p_max must lie in [1, Lp]"
+    if why is None:
+        lp_pad = -(-Lp // MMA_ROWS) * MMA_ROWS
+        pad = (kh // 2) * p_max + kw // 2
+        smem = (2 * MMA_STAGES * ((lp_pad + 2 * pad) * (cin + MMA_ROW_PAD)
+                                  + lp_pad * (cout + MMA_ROW_PAD))
+                + 8 * kw * (lp_pad // MMA_ROWS) * 32 + 2 * 4 * lp_pad)
+        if smem > MAX_SMEM_BYTES:
+            why = f"a block would need {smem} bytes of shared memory, above {MAX_SMEM_BYTES}"
+    if why is not None:
+        _raise_on(_INVALID_VALUE, "tap_conv_dw_mma", f"{shape}: {why}")
+    tiles = -(-cin // MMA_WARP_TILE) * -(-cout // MMA_WARP_TILE)
+    want = max(1, MMA_TARGET_WARPS // (kh * tiles * kw))  # chunks in all
+    per_k = min(B, -(-want // K))
+    per_chunk = -(-B // per_k)
+    chunks_per_k = -(-B // per_chunk)
+    if K * chunks_per_k > 65535:
+        _raise_on(_INVALID_VALUE, "tap_conv_dw_mma", f"{shape}: more than 65535 chunks")
+    return DwMmaPlan(lp_pad, pad, tiles, chunks_per_k, per_chunk, kw, smem, K * chunks_per_k)
 
 
 @functools.cache
@@ -57,8 +133,23 @@ def _bwd_fns():
     lib.tap_conv_dw_chunks.restype = _I
     lib.tap_conv_dw_chunks.argtypes = [_I, _I, _I]
     lib.tap_conv_dw.restype = _I
-    lib.tap_conv_dw.argtypes = [_P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P]
+    lib.tap_conv_dw.argtypes = [_P] * 6 + [_I] * 7 + [_P]
+    lib.tap_conv_dw_mma_plan.restype = _I
+    lib.tap_conv_dw_mma_plan.argtypes = [_I] * 8 + [_P]
+    lib.tap_conv_dw_mma.restype = _I
+    lib.tap_conv_dw_mma.argtypes = [_P] * 6 + [_I] * 8 + [_P]
     return lib
+
+
+def dw_mma_plan_of_kernel(K: int, B: int, Lp: int, cin: int, cout: int, kh: int, kw: int,
+                          p_max: int) -> Optional[DwMmaPlan]:
+    """The plan ``csrc/tap_conv_bwd.cu`` itself makes, or None where it
+    refuses the shape: what :func:`dw_mma_plan` mirrors (builds the library)."""
+
+    out = (ctypes.c_int * len(DwMmaPlan._fields))()
+    if _bwd_fns().tap_conv_dw_mma_plan(K, B, Lp, cin, cout, kh, kw, p_max, out) != 0:
+        return None
+    return DwMmaPlan(*out)
 
 
 def _check(name: str, x: torch.Tensor, kh: int, kw: int) -> None:
@@ -173,13 +264,26 @@ def tap_conv_dw_cuda(
     ct: torch.Tensor,
     kh: int,
     kw: int,
+    p_max: Optional[int] = None,
 ) -> torch.Tensor:
     """Launch the weight-gradient kernel: :func:`ops.fold.tap_weight_grad` on the card.
 
     ``h`` [K, B, Lp, Cin] and ``ct`` [K, B, Lp, Cout], both bf16 or both
-    float32. Returns dW [kh, kw, Cin, Cout] float32. The kernel sums
-    per-chunk partials in a fixed order (no float atomics), so the result is
-    the same from run to run; the wrapper allocates their scratch buffer.
+    float32. Returns dW [kh, kw, Cin, Cout] float32. The dtype picks the
+    route, and neither route gives way to the other:
+
+    - bf16: the tensor-core kernel ``tap_conv_dw_mma`` (bf16 products are
+      exact in float32, summed in float32). A shape it cannot take
+      (:func:`dw_mma_plan`) raises ``RuntimeError``. ``p_max`` bounds the
+      periods (``make_geometry``'s ``p_cap``; default ``Lp - 1``, which
+      holds for every geometry) and sizes the zero rows it stages.
+    - float32: the CUDA-core kernel ``tap_conv_dw``, whose float32 FMAs keep
+      the products exact (the tensor cores would round them to TF32).
+
+    Both sum per-chunk partials in a fixed order (no float atomics), so the
+    result is the same from run to run; the wrapper allocates their scratch
+    buffer. ``launches_dw`` counts both routes, ``launches_dw_mma`` the
+    tensor-core one.
     """
 
     _check("tap_conv_dw_cuda", h, kh, kw)
@@ -192,18 +296,27 @@ def tap_conv_dw_cuda(
     _check_geometry("tap_conv_dw_cuda", K, periods, cycles, h.device, ct)
 
     lib = _bwd_fns()
-    chunks = lib.tap_conv_dw_chunks(K, B, kh)
+    mma = h.dtype == torch.bfloat16
+    p_max = max(1, Lp - 1) if p_max is None else int(p_max)
+    if mma:
+        chunks = dw_mma_plan(K, B, Lp, Cin, Cout, kh, kw, p_max).chunks
+    else:
+        chunks = lib.tap_conv_dw_chunks(K, B, kh)
     partial = torch.empty((chunks, kh, kw, Cin, Cout), dtype=torch.float32, device=h.device)
     dw = torch.empty((kh, kw, Cin, Cout), dtype=torch.float32, device=h.device)
+    ptrs = (h.data_ptr(), ct.data_ptr(), periods.data_ptr(), cycles.data_ptr(),
+            partial.data_ptr(), dw.data_ptr())
     with torch.cuda.device(h.device):
         stream = torch.cuda.current_stream(h.device).cuda_stream
-        err = lib.tap_conv_dw(
-            h.data_ptr(), int(h.dtype == torch.bfloat16), ct.data_ptr(),
-            periods.data_ptr(), cycles.data_ptr(), partial.data_ptr(), dw.data_ptr(),
-            K, B, Lp, Cin, Cout, kh, kw, stream,
-        )
-    _raise_on(err, "tap_conv_dw", f"K={K}, B={B}, Lp={Lp}, Cin={Cin}, Cout={Cout}, {kh}x{kw}")
+        if mma:
+            err = lib.tap_conv_dw_mma(*ptrs, K, B, Lp, Cin, Cout, kh, kw, p_max, stream)
+        else:
+            err = lib.tap_conv_dw(*ptrs, K, B, Lp, Cin, Cout, kh, kw, stream)
+    _raise_on(err, "tap_conv_dw_mma" if mma else "tap_conv_dw",
+              f"K={K}, B={B}, Lp={Lp}, Cin={Cin}, Cout={Cout}, {kh}x{kw}")
     launches_dw[f"{kh}x{kw}"] += 1
+    if mma:
+        launches_dw_mma[f"{kh}x{kw}"] += 1
     return dw
 
 
@@ -236,7 +349,8 @@ class TapConv(torch.autograd.Function):
             if need_h:
                 dh = tap_conv_dh_cuda(ct_dt, geom.periods, geom.cycles, kernel, kh, kw)
             if need_w:
-                dw = tap_conv_dw_cuda(h, geom.periods, geom.cycles, ct_dt, kh, kw)
+                dw = tap_conv_dw_cuda(h, geom.periods, geom.cycles, ct_dt, kh, kw,
+                                      p_max=geom.Lp - geom.L)
         else:
             if need_h:
                 dh = tap_conv_dh_plain(ct_dt, geom, kernel, kh, kw)

@@ -83,11 +83,15 @@ def test_backward_kernels_match_plain(cuda, kh, kw, periods, dtype):
     h_t, ct_t = (torch.from_numpy(a).to(cuda).to(dtype) for a in (h, ct))
     k_t = torch.from_numpy(kernel).to(cuda)
     key = f"{kh}x{kw}"
-    before = (cuda_fold.launches_dh[key], cuda_fold.launches_dw[key])
+    before = (cuda_fold.launches_dh[key], cuda_fold.launches_dw[key],
+              cuda_fold.launches_dw_mma[key])
     dh = cuda_fold.tap_conv_dh_cuda(ct_t, geom.periods, geom.cycles, k_t, kh, kw)
-    dw = cuda_fold.tap_conv_dw_cuda(h_t, geom.periods, geom.cycles, ct_t, kh, kw)
+    dw = cuda_fold.tap_conv_dw_cuda(h_t, geom.periods, geom.cycles, ct_t, kh, kw, p_max=L - 1)
     torch.cuda.synchronize()
-    assert (cuda_fold.launches_dh[key], cuda_fold.launches_dw[key]) == (before[0] + 1, before[1] + 1)
+    # bf16 takes the tensor-core route, float32 the CUDA-core one
+    mma = int(dtype == torch.bfloat16)
+    assert (cuda_fold.launches_dh[key], cuda_fold.launches_dw[key],
+            cuda_fold.launches_dw_mma[key]) == (before[0] + 1, before[1] + 1, before[2] + mma)
     want_dh = fold.tap_conv_dh(ct_t, geom, k_t, kh, kw)
     want_dw = fold.tap_weight_grad(h_t, geom, ct_t, kh, kw)
     assert dh.dtype == dw.dtype == torch.float32
@@ -97,8 +101,68 @@ def test_backward_kernels_match_plain(cuda, kh, kw, periods, dtype):
     for k, total in enumerate(geom.total.tolist()):
         assert not dh[k, :, total:].any()
     # fixed-order reduction: the same bits from run to run
-    again = cuda_fold.tap_conv_dw_cuda(h_t, geom.periods, geom.cycles, ct_t, kh, kw)
+    again = cuda_fold.tap_conv_dw_cuda(h_t, geom.periods, geom.cycles, ct_t, kh, kw, p_max=L - 1)
     assert torch.equal(dw, again)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cin,cout", [(16, 8), (48, 40), (64, 24)])
+@pytest.mark.parametrize("kh,kw", [(3, 3), (7, 7)])
+def test_dw_tensor_core_route_matches_plain(cuda, kh, kw, cin, cout):
+    """Channel counts that leave part of a warp's 32 x 32 tile outside dW, at
+    B=16, with the same bits from run to run."""
+
+    B, L, periods = 16, 28, [4, 27]
+    geom = fold.make_geometry(torch.tensor(periods, dtype=torch.int32, device=cuda), L, L - 1)
+    rng = np.random.default_rng(6)
+    h, ct = (torch.from_numpy(rng.standard_normal((2, B, geom.Lp, c)).astype(np.float32))
+             .to(cuda).bfloat16() for c in (cin, cout))
+    before = cuda_fold.launches_dw_mma[f"{kh}x{kw}"]
+    dw = cuda_fold.tap_conv_dw_cuda(h, geom.periods, geom.cycles, ct, kh, kw, p_max=L - 1)
+    again = cuda_fold.tap_conv_dw_cuda(h, geom.periods, geom.cycles, ct, kh, kw, p_max=L - 1)
+    torch.cuda.synchronize()
+    assert cuda_fold.launches_dw_mma[f"{kh}x{kw}"] == before + 2
+    want = fold.tap_weight_grad(h, geom, ct, kh, kw)
+    torch.testing.assert_close(dw, want, rtol=1e-4, atol=1e-4 * float(want.abs().max()))
+    assert torch.equal(dw, again)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [
+    (2, 256, 55, 32, 32, 3, 3, 27), (2, 256, 55, 32, 32, 5, 5, 27),
+    (2, 256, 55, 32, 32, 7, 7, 27), (2, 256, 55, 32, 32, 7, 7, 54), (2, 16, 55, 48, 40, 1, 3, 27),
+    (3, 7, 35, 128, 64, 5, 3, 17), (2, 4, 55, 24, 32, 3, 3, 27), (2, 4, 55, 32, 12, 3, 3, 27),
+    (2, 4, 55, 32, 32, 1, 17, 27), (2, 4, 55, 32, 32, 3, 3, 56), (2, 4, 900, 128, 128, 7, 7, 899),
+])
+def test_dw_mma_plan_mirrors_the_kernel(cuda, shape):
+    """ops/cuda_fold.py::dw_mma_plan gives the plan csrc/tap_conv_bwd.cu
+    makes, and refuses what it refuses."""
+
+    got = cuda_fold.dw_mma_plan_of_kernel(*shape)
+    if got is None:
+        with pytest.raises(RuntimeError, match="cudaError_t 1 "):
+            cuda_fold.dw_mma_plan(*shape)
+    else:
+        assert cuda_fold.dw_mma_plan(*shape) == got
+
+
+@pytest.mark.cuda
+def test_dw_tensor_core_route_refuses_and_never_falls_back(cuda):
+    """A bf16 shape the tensor-core kernel cannot take raises; neither the
+    CUDA-core kernel nor the plain version stands in for it."""
+
+    geom = fold.make_geometry(torch.tensor([4], dtype=torch.int32, device=cuda), 8, 7)
+    h = torch.zeros((1, 2, geom.Lp, 24), device=cuda, dtype=torch.bfloat16)  # Cin % 16 != 0
+    ct = torch.zeros((1, 2, geom.Lp, 32), device=cuda, dtype=torch.bfloat16)
+    before = (sum(cuda_fold.launches_dw.values()), sum(cuda_fold.launches_dw_mma.values()))
+    with pytest.raises(RuntimeError, match="cudaError_t 1 .*Cin must be a multiple of 16"):
+        cuda_fold.tap_conv_dw_cuda(h, geom.periods, geom.cycles, ct, 3, 3)
+    # the same shape in float32 takes the CUDA-core route
+    dw = cuda_fold.tap_conv_dw_cuda(h.float(), geom.periods, geom.cycles, ct.float(), 3, 3)
+    torch.cuda.synchronize()
+    assert dw.shape == (3, 3, 24, 32)
+    assert (sum(cuda_fold.launches_dw.values()),
+            sum(cuda_fold.launches_dw_mma.values())) == (before[0] + 1, before[1])
 
 
 @pytest.mark.cuda
