@@ -10,15 +10,17 @@ Phases, each of which fails the run (non-zero exit, no result line):
 
 1. environment: versions and the card's name and power limit;
 2. build: every CUDA source of the port, one ``nvcc`` each, all at once;
-3. kernels: the fold-conv kernel against its plain PyTorch version on the
+3. kernels: the fold-conv forward against its plain PyTorch version on the
    card at the serving shape (K=2 candidates, B=192 series, L=28, Lp=55,
-   32 channels) for 3x3, 5x5 and 7x7, three period sets and bf16 and
-   float32, within 1e-4;
+   32 channels) for 3x3, 5x5 and 7x7, three period sets and bf16 (the
+   tensor-core template, whose plan must equal the wrapper's mirror of it)
+   and float32 (the CUDA-core kernel), within 1e-4, and in float32 against
+   cuDNN over the exact fold grids within 1e-3;
 4. serve: a ``Forecaster`` at the full width of the flagship model
    (``configs/demand_benchmark.yaml``: d_model 128, d_ff 512, two layers,
    2,536,356 parameters, bf16 conv islands) with seeded random weights
-   answers 200 timed requests of 192 series x 28 days; the kernel must be
-   launched 12 times per request, the forecasts must be finite and >= 0,
+   answers 200 timed requests of 192 series x 28 days; the forward must be
+   launched 12 times per request, all on the tensor-core route, the forecasts must be finite and >= 0,
    and a float32 request must match the same request on the CPU within 1e-4.
    Then 200 requests interleaved with 200 forwards on the request's own
    device inputs split the request into host and forward;
@@ -28,30 +30,34 @@ Phases, each of which fails the run (non-zero exit, no result line):
 6. backward kernels: the dh-adjoint and weight-gradient kernels against
    their plain versions at the training shape (K=2, B=256, Lp=55, 32
    channels) for the three sizes, three period sets and bf16 and float32
-   (dh within 1e-4; dW within rtol 1e-4 and 1e-4 of its largest value, as it
-   sums 28,160 products). bf16 dW takes the tensor-core kernel, whose plan
-   must equal the wrapper's mirror of it; float32 dW the CUDA-core kernel,
-   held in float32 against cuDNN's convolution backward over the exact fold
-   grids within 1e-3 (of the largest dW), as dh is;
+   (dh within 1e-4, rows past each fold extent exactly 0; dW within rtol
+   1e-4 and 1e-4 of its largest value, as it sums 28,160 products). bf16 dh
+   and dW take their tensor-core kernels, whose plans must equal the
+   wrapper's mirrors of them; float32 the CUDA-core kernels, held against
+   cuDNN's convolution backward over the exact fold grids within 1e-3 (of
+   the largest dW);
 7. train: the flagship at full width and depth takes 5 + 100 timed
    ``Engine.train_step`` calls at B=256 on seeded windows of 192 series x
    365 days (``SlidingWindowSource`` -> ``WindowBatcher`` ->
    ``batch_to_device``; lr from ``LRController``, dropout 0.0675, EMA 0.99,
-   bf16); the losses must be finite and each step must launch each kernel
-   exactly 12 times, dW on the tensor-core route; 30 steps on one fixed
+   bf16); the losses must be finite and each step must launch the forward,
+   dh and dW exactly 12 times each, all on the tensor-core routes; 30 steps on one fixed
    batch must lower its loss, and ``Engine.evaluate`` over 8 held-out
    batches (the last one padded) must give a finite NLL and sMAPE. A float32
    step with dropout 0 on the card must match the same step on the CPU (loss
    within 1e-5 relative, gradients within 1e-4 of the largest, the NB-NLL
-   alone within 1e-5), its dW on the CUDA-core route; then device time per
-   step by kernel over 20 profiled steps;
-8. timing: each kernel at the periods its path selected (served requests
-   for the forward, training steps for the backward), beside its plain
+   alone within 1e-5), its forward, dh and dW on the CUDA-core routes (12
+   launches each, none on a tensor-core route); then device time per step
+   by kernel over 20 profiled steps;
+8. timing: each kernel, both routes, at the periods its path selected
+   (served requests for the forward, training steps for the backward),
+   beside its plain
    version, cuDNN over the exact fold grids (a yardstick the port never
    calls) and its bound on the card. Times are device time (torch.profiler's
-   kernel time, mean of 100 calls); the kernel's and cuDNN's calls are also
-   timed back to back by CUDA events, which adds the host's launch work
-   where that is the longer.
+   kernel time, mean of 100 calls; a profiler session that loses records is
+   taken again, and the run fails if they keep being lost); the kernel's and
+   cuDNN's calls are also timed back to back by CUDA events, which adds the
+   host's launch work where that is the longer.
 
 The last lines are the ``kernels`` JSON line, the card line of ``nvidia-smi``
 and ``{"ok": true, "device": {...}}``.
@@ -61,6 +67,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import re
 import subprocess
 import sys
 import time
@@ -75,15 +82,17 @@ PEAK_OPS_PER_S = {"bfloat16": 989e12, "float32": 67e12}
 
 L, LP, C, K, B = 28, 55, 32, 2, 192  # the fold conv's serving shape (Lp = L + L - 1)
 B_TRAIN = 256  # the flagship's training batch
-P_MAX = L - 1  # make_geometry's p_cap on both paths: the dW kernel's zero rows cover it
+P_MAX = L - 1  # make_geometry's p_cap on both paths: the plans' zero rows cover it
 KERNEL_SIZES = ((3, 3), (5, 5), (7, 7))
 PERIOD_SETS = ((7, 14), (4, 27), (1, 27))
 TOL = 1e-4
 REQUESTS = 200  # timed requests per serving measurement (about 12 ms each)
 PROFILED = 50  # requests under the profiler
+PROFILER_TRIES = 5  # profiler sessions a device time may take before the run fails
 LAUNCHES_PER_PASS = 12  # 2 layers x 2 inception blocks x 3 branches, per forward or backward
 REPLACES = "flow_timesnet_tpu/ops/pallas_fold.py:174"
 REPLACES_DH = "flow_timesnet_tpu/ops/pallas_fold.py:174 (sign=-1, 133-138)"
+SOURCE_MMA = "flow_timesnet_tpu_torch/csrc/tap_conv_mma.cu"
 REPLACES_DW = "flow_timesnet_tpu/ops/fold.py:265 (XLA; companion of pallas_fold.py:133)"
 SOURCE = "flow_timesnet_tpu_torch/csrc/tap_conv_fwd.cu"
 SOURCE_BWD = "flow_timesnet_tpu_torch/csrc/tap_conv_bwd.cu"
@@ -103,6 +112,16 @@ def fail(msg: str) -> None:
 def check(cond: bool, msg: str) -> None:
     if not cond:
         fail(msg)
+
+
+def kernel_label(ptxas_line: str) -> str:
+    """``tap_conv_mma_kernel<1, 32>`` from ptxas's line naming a mangled kernel."""
+
+    m = re.search(r"(tap_conv_[a-z_]+?_kernel)(?:I((?:Lin?\d+E)+)E)?", ptxas_line)
+    if not m:
+        return ptxas_line.strip()
+    args = re.findall(r"Li(n?\d+)E", m.group(2) or "")
+    return m.group(1) + (f"<{', '.join(a.replace('n', '-') for a in args)}>" if args else "")
 
 
 def card_line() -> str:
@@ -146,7 +165,10 @@ def time_ms(torch, fn, iters: int = 100) -> float:
 
     Each kernel counts with the mean time of its recorded launches times its
     launches per call, so a launch the profiler failed to record does not
-    lower the time; such a shortfall is printed."""
+    lower the time; such a shortfall is printed. A session that recorded no
+    device time, or lost a tenth of a kernel's launches (one that lost half
+    of them has read a kernel far below its time), is taken again, up to
+    ``PROFILER_TRIES`` sessions in all; then the run fails."""
 
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as torch_profile
@@ -154,21 +176,25 @@ def time_ms(torch, fn, iters: int = 100) -> float:
     for _ in range(5):
         fn()
     torch.cuda.synchronize()
-    with torch_profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    us = 0.0
-    for e in prof.key_averages():
-        if e.device_type.name != "CUDA" or e.count == 0:
-            continue
-        per_call = max(1, round(e.count / iters))  # every call launches the same kernels
-        if e.count != per_call * iters:
-            print(f"[time] the profiler recorded {e.count} launches of {e.key[:60]} in "
-                  f"{iters} calls")
-        us += e.self_device_time_total / e.count * per_call
-    check(us > 0, "the profiler saw no device activity")
-    return us / 1e3
+    for _ in range(PROFILER_TRIES):
+        with torch_profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        us, whole = 0.0, True
+        for e in prof.key_averages():
+            if e.device_type.name != "CUDA" or e.count == 0:
+                continue
+            per_call = max(1, round(e.count / iters))  # every call launches the same kernels
+            if e.count != per_call * iters:
+                print(f"[time] the profiler recorded {e.count} launches of {e.key[:60]} in "
+                      f"{iters} calls")
+                whole = whole and e.count >= 0.9 * per_call * iters
+            us += e.self_device_time_total / e.count * per_call
+        if us > 0 and whole:
+            return us / 1e3
+        print(f"[time] the profiler lost this session ({us:.2f} us recorded): taking it again")
+    fail(f"the profiler lost {PROFILER_TRIES} sessions in a row: device time not measured")
 
 
 def call_ms(torch, fn, iters: int = 100) -> float:
@@ -303,6 +329,17 @@ def library_conv_bwd(torch, h, ct, periods, weight, kh, kw, batch):
     return dh, dw, [(cyc, p) for _, _, cyc, p in grids]
 
 
+def check_fold_plan(cuda_fold, sign: int, batch: int, kh: int, kw: int) -> None:
+    """The tensor-core forward (sign +1) or dh (sign -1) plan at this shape:
+    the wrapper's mirror must equal the kernel's own."""
+
+    name = "tap_conv_fwd_mma" if sign > 0 else "tap_conv_dh_mma"
+    plan = cuda_fold.fold_mma_plan(sign, K, batch, LP, C, C, kh, kw, P_MAX)
+    check(cuda_fold.fold_mma_plan_of_kernel(sign, K, batch, LP, C, C, kh, kw, P_MAX) == plan,
+          f"{name} {kh}x{kw}: the wrapper's plan differs from the kernel's")
+    print(f"[kernel] {name} {kh}x{kw} plan (the kernel's own): {plan._asdict()}")
+
+
 def check_backward_kernels(torch, fold, cuda_fold, gen, dev):
     """Phase 6: the dh and dW kernels against their plain versions and, in
     float32, against cuDNN's convolution backward. Returns the largest
@@ -316,16 +353,17 @@ def check_backward_kernels(torch, fold, cuda_fold, gen, dev):
               f"tap_conv_dw_mma {key}: the wrapper's plan differs from the kernel's")
         print(f"[kernel] dW {key} bf16 tensor-core plan (the kernel's own): {plan._asdict()}, "
               f"scratch {4 * plan.scratch_elems(kh, kw, C, C) / 1e6:.2f} MB")
+        check_fold_plan(cuda_fold, -1, B_TRAIN, kh, kw)
         weight = torch.randn((kh, kw, C, C), generator=gen, device=dev) * 0.3
         for periods in PERIOD_SETS:
-            geom = fold.make_geometry(torch.tensor(periods, dtype=torch.int32, device=dev), L, L - 1)
+            geom = fold.make_geometry(torch.tensor(periods, dtype=torch.int32, device=dev), L, P_MAX)
             h32 = torch.randn((K, B_TRAIN, LP, C), generator=gen, device=dev)
             # a cotangent over all Lp rows: rows beyond L feed the next conv
             ct32 = torch.randn((K, B_TRAIN, LP, C), generator=gen, device=dev)
             for dtype in (torch.bfloat16, torch.float32):
                 h, ct = h32.to(dtype), ct32.to(dtype)
-                dh = cuda_fold.tap_conv_dh_cuda(ct, geom.periods, geom.cycles, weight, kh, kw)
-                dw = cuda_fold.tap_conv_dw_cuda(h, geom.periods, geom.cycles, ct, kh, kw, P_MAX)
+                dh = cuda_fold.tap_conv_dh_cuda(ct, geom, weight, kh, kw)
+                dw = cuda_fold.tap_conv_dw_cuda(h, geom, ct, kh, kw)
                 want_dh = fold.tap_conv_dh(ct, geom, weight, kh, kw)
                 want_dw = fold.tap_weight_grad(h, geom, ct, kh, kw)
                 torch.cuda.synchronize()
@@ -335,9 +373,9 @@ def check_backward_kernels(torch, fold, cuda_fold, gen, dev):
                 ok_dh = bool(torch.allclose(dh, want_dh, rtol=TOL, atol=TOL))
                 ok_dw = bool(torch.allclose(dw, want_dw, rtol=TOL, atol=TOL * scale))
                 tail = all(not bool(dh[k, :, t:].any()) for k, t in enumerate(geom.total.tolist()))
-                max_err[f"dh_{key}"] = max(max_err.get(f"dh_{key}", 0.0), err_dh)
-                route = "dw_mma" if dtype == torch.bfloat16 else "dw_f32"
-                max_err[f"{route}_{key}"] = max(max_err.get(f"{route}_{key}", 0.0), err_dw)
+                route = "mma" if dtype == torch.bfloat16 else "f32"
+                for name, err in ((f"dh_{route}_{key}", err_dh), (f"dw_{route}_{key}", err_dw)):
+                    max_err[name] = max(max_err.get(name, 0.0), err)
                 print(f"[kernel] {key} periods {list(periods)} {str(dtype)[6:]}: max |dh - plain| "
                       f"{err_dh:.3e} {'ok' if ok_dh else 'FAIL'}, dh rows beyond the fold 0: "
                       f"{tail}, max |dW - plain| {err_dw:.3e} of max |dW| {scale:.3e} "
@@ -355,8 +393,8 @@ def check_backward_kernels(torch, fold, cuda_fold, gen, dev):
                 ct_grid[k, :, t:] = 0.0
             run_dh, run_dw, extents = library_conv_bwd(torch, h32, ct_grid, periods, weight,
                                                        kh, kw, B_TRAIN)
-            dh = cuda_fold.tap_conv_dh_cuda(ct_grid, geom.periods, geom.cycles, weight, kh, kw)
-            dw = cuda_fold.tap_conv_dw_cuda(h32, geom.periods, geom.cycles, ct_grid, kh, kw, P_MAX)
+            dh = cuda_fold.tap_conv_dh_cuda(ct_grid, geom, weight, kh, kw)
+            dw = cuda_fold.tap_conv_dw_cuda(h32, geom, ct_grid, kh, kw)
             err_dh = max(float((dh[k, :, : cyc * p] - ref.permute(0, 2, 3, 1).reshape(
                 B_TRAIN, cyc * p, C)).abs().max()) for k, (ref, (cyc, p)) in
                 enumerate(zip(run_dh(), extents)))
@@ -370,28 +408,30 @@ def check_backward_kernels(torch, fold, cuda_fold, gen, dev):
 
 
 def time_forward(torch, F, fold, cuda_fold, h, geom, periods, weight, bias, kh, kw):
-    """:func:`measure` of the forward kernel on these bf16 inputs."""
+    """:func:`measure` of the forward kernel on these inputs; the route is
+    that of their dtype."""
 
     run, _ = library_conv(torch, F, h, periods, weight.to(h.dtype), bias.to(h.dtype), kh, kw)
+    dtype = "bfloat16" if h.dtype == torch.bfloat16 else "float32"
     return measure(
-        torch, lambda: cuda_fold.tap_conv_cuda(h, geom.periods, geom.cycles, weight, bias, kh, kw),
-        lambda: fold.tap_conv(h, geom, weight, bias, kh, kw), run,
-        bound(periods, kh, kw, "bfloat16"))
+        torch,
+        lambda: cuda_fold.tap_conv_cuda(h, geom, weight, bias, kh, kw),
+        lambda: fold.tap_conv(h, geom, weight, bias, kh, kw), run, bound(periods, kh, kw, dtype))
 
 
 def time_backward(torch, fold, cuda_fold, h, ct, geom, periods, weight, kh, kw,
                   kinds=("dh", "dw")):
     """:func:`measure` of the dh and dW kernels (``kinds``) on these inputs,
-    by kind; dW takes the route of their dtype."""
+    by kind; each takes the route of their dtype."""
 
     run_dh, run_dw, _ = library_conv_bwd(torch, h, ct, periods, weight.to(h.dtype), kh, kw,
                                          h.shape[1])
     dtype = "bfloat16" if h.dtype == torch.bfloat16 else "float32"
     out = {}
     for kind, kernel, plain, lib in (
-        ("dh", lambda: cuda_fold.tap_conv_dh_cuda(ct, geom.periods, geom.cycles, weight, kh, kw),
+        ("dh", lambda: cuda_fold.tap_conv_dh_cuda(ct, geom, weight, kh, kw),
          lambda: fold.tap_conv_dh(ct, geom, weight, kh, kw), run_dh),
-        ("dw", lambda: cuda_fold.tap_conv_dw_cuda(h, geom.periods, geom.cycles, ct, kh, kw, P_MAX),
+        ("dw", lambda: cuda_fold.tap_conv_dw_cuda(h, geom, ct, kh, kw),
          lambda: fold.tap_weight_grad(h, geom, ct, kh, kw), run_dw),
     ):
         if kind not in kinds:
@@ -466,9 +506,8 @@ def train_phase(torch, np, modules, cfg, params, dev):
         hook.remove()
 
     torch.cuda.reset_peak_memory_stats()
-    counters = (cuda_fold.launches, cuda_fold.launches_dh, cuda_fold.launches_dw,
-                cuda_fold.launches_dw_mma)
-    for counter in counters:
+    counters = path_counters(cuda_fold)
+    for counter in counters.values():
         counter.clear()  # the training path's launches, from here ...
     step_ms = []
     for batch in host_batches[WARMUP_STEPS:]:
@@ -477,11 +516,11 @@ def train_phase(torch, np, modules, cfg, params, dev):
         torch.cuda.synchronize()
         step_ms.append(1e3 * (time.perf_counter() - t0))
         losses.append(loss)
-    counts = [dict(c) for c in counters]  # ... to here
+    counts = {name: dict(c) for name, c in counters.items()}  # ... to here
     peak_mib = torch.cuda.max_memory_allocated() / 2**20
     losses = torch.stack(losses).cpu().numpy()
     check(bool(np.isfinite(losses).all()), "non-finite training loss")
-    for name, got in zip(("tap_conv_fwd", "tap_conv_dh", "tap_conv_dw", "tap_conv_dw_mma"), counts):
+    for name, got in counts.items():  # every launch on the tensor-core routes
         for kh, kw in KERNEL_SIZES:
             n = got.get(f"{kh}x{kw}", 0)
             check(n == TIMED_STEPS * LAUNCHES_PER_PASS // len(KERNEL_SIZES),
@@ -492,8 +531,7 @@ def train_phase(torch, np, modules, cfg, params, dev):
           f"steps over {len(train)} batches an epoch): step ms {spread(np, step_ms)}")
     print(f"[train] windows/s at the p50 {B_TRAIN / p50 * 1e3:.1f}, peak device memory "
           f"{peak_mib:.1f} MiB, host gather {gather_ms:.3f} ms a batch (before the timing), "
-          f"launches fwd {counts[0]} dh {counts[1]} dW {counts[2]} (tensor-core route "
-          f"{counts[3]}), selected periods "
+          f"launches {counts}, selected periods "
           f"{sorted(set(selected))}, loss first {losses[0]:.4f} last {losses[-1]:.4f}, "
           f"mask_true {float(stats['mask_true']):.0f} of {float(stats['mask_total']):.0f}")
 
@@ -528,7 +566,8 @@ def train_phase(torch, np, modules, cfg, params, dev):
 
 def train_parity(torch, np, engine_mod, losses_mod, cuda_fold, cfg, params, batch_cpu):
     """Phase 7, parity: one float32 step with dropout 0, card against CPU.
-    Returns the dW launches of the card's step by size (the CUDA-core route)."""
+    Returns the card step's launches of each kernel by size: the CUDA-core
+    routes, 12 each, and none on a tensor-core route."""
 
     cfg32 = dataclasses.replace(cfg, compute_dtype="float32", dropout=0.0)
     out = {}
@@ -536,16 +575,17 @@ def train_parity(torch, np, engine_mod, losses_mod, cuda_fold, cfg, params, batc
         eng = engine_mod.Engine(cfg32, params, device=device, **ENGINE)
         eng.model.train()
         batch = {k: None if v is None else v.to(device) for k, v in batch_cpu.items()}
-        cuda_fold.launches_dw.clear()  # the float32 step's dW launches, from here ...
-        cuda_fold.launches_dw_mma.clear()
+        counters = path_counters(cuda_fold)
+        for counter in counters.values():
+            counter.clear()  # the float32 step's launches, from here ...
         loss, _ = eng._loss(batch, None)
         loss.backward()
         if device == "cuda":
-            dw_f32 = dict(cuda_fold.launches_dw)  # ... to here
-            check(not cuda_fold.launches_dw_mma and all(
-                dw_f32.get(f"{kh}x{kw}", 0) == LAUNCHES_PER_PASS // len(KERNEL_SIZES)
-                for kh, kw in KERNEL_SIZES), f"float32 step dW launches {dw_f32}, "
-                f"tensor-core {dict(cuda_fold.launches_dw_mma)}")
+            f32 = {name: dict(c) for name, c in counters.items()}  # ... to here
+            per = LAUNCHES_PER_PASS // len(KERNEL_SIZES)
+            check(all(f32[name].get(f"{kh}x{kw}", 0) == (0 if name.endswith("_mma") else per)
+                      for name in f32 for kh, kw in KERNEL_SIZES),
+                  f"float32 step launches {f32}: 12 of each CUDA-core kernel, no tensor-core one")
         out[device] = (float(loss.detach()), {k: p.grad.cpu() for k, p in
                                               eng.model.named_parameters()})
     (loss_gpu, g_gpu), (loss_cpu, g_cpu) = out["cuda"], out["cpu"]
@@ -571,7 +611,16 @@ def train_parity(torch, np, engine_mod, losses_mod, cuda_fold, cfg, params, batc
     print(f"[train] NB-NLL card vs CPU: {nll['cuda']:.7f} vs {nll['cpu']:.7f}, "
           f"difference {diff:.3e}")
     check(diff <= 1e-5 * max(1.0, abs(nll["cpu"])), f"NB-NLL card vs CPU {diff:.3e}")
-    return dw_f32
+    return f32
+
+
+def path_counters(cuda_fold) -> dict:
+    """The launch counters of the fold-conv kernels: every route of each
+    kernel, and the tensor-core one."""
+
+    return {"tap_conv_fwd": cuda_fold.launches, "tap_conv_fwd_mma": cuda_fold.launches_mma,
+            "tap_conv_dh": cuda_fold.launches_dh, "tap_conv_dh_mma": cuda_fold.launches_dh_mma,
+            "tap_conv_dw": cuda_fold.launches_dw, "tap_conv_dw_mma": cuda_fold.launches_dw_mma}
 
 
 def main() -> int:
@@ -608,29 +657,34 @@ def main() -> int:
     print(f"[build] {len(libs)} source(s) in {time.perf_counter() - t0:.2f} s")
     for name, path in libs.items():
         print(f"[build] {name} -> {path.relative_to(REPO)}")
+        kernel = "?"
         for line in path.with_suffix(".log").read_text().splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"[build]   {line.strip()}")
+            if "Compiling entry function" in line:
+                kernel = kernel_label(line)
+            elif "registers" in line or "spill" in line:
+                print(f"[build]   {kernel}: {line.strip()}")
 
     # 3. each kernel against its plain version --------------------------------
     gen = torch.Generator(device=dev).manual_seed(0)
-    max_err = {f"{kh}x{kw}": 0.0 for kh, kw in KERNEL_SIZES}
+    max_err = {}
     for kh, kw in KERNEL_SIZES:
+        check_fold_plan(cuda_fold, 1, B, kh, kw)
         weight = torch.randn((kh, kw, C, C), generator=gen, device=dev) * 0.3
         bias = torch.randn((C,), generator=gen, device=dev) * 0.1
         for periods in PERIOD_SETS:
-            geom = fold.make_geometry(torch.tensor(periods, dtype=torch.int32, device=dev), L, L - 1)
+            geom = fold.make_geometry(torch.tensor(periods, dtype=torch.int32, device=dev), L, P_MAX)
             check(geom.Lp == LP, f"Lp {geom.Lp} != {LP}")
             # every row holds data, the tail beyond L too: later convs read it
             h32 = torch.randn((K, B, LP, C), generator=gen, device=dev)
             for dtype in (torch.bfloat16, torch.float32):
                 h = h32.to(dtype)
-                got = cuda_fold.tap_conv_cuda(h, geom.periods, geom.cycles, weight, bias, kh, kw)
+                got = cuda_fold.tap_conv_cuda(h, geom, weight, bias, kh, kw)
                 want = fold.tap_conv(h, geom, weight, bias, kh, kw)
                 torch.cuda.synchronize()
                 err = float((got - want).abs().max())
                 ok = bool(torch.allclose(got, want, rtol=TOL, atol=TOL))
-                max_err[f"{kh}x{kw}"] = max(max_err[f"{kh}x{kw}"], err)
+                name = f"fwd_{'mma' if dtype == torch.bfloat16 else 'f32'}_{kh}x{kw}"
+                max_err[name] = max(max_err.get(name, 0.0), err)
                 print(f"[kernel] {kh}x{kw} periods {list(periods)} {str(dtype)[6:]}: "
                       f"max |kernel - plain| {err:.3e} {'ok' if ok else 'FAIL'}")
                 check(ok, f"tap_conv_fwd {kh}x{kw} {periods} {dtype} disagrees with the plain "
@@ -641,7 +695,7 @@ def main() -> int:
                     print(f"[kernel]   time: {described(t)}")
             # the fold identity itself: the kernel equals cuDNN over the exact grid
             run, unfold = library_conv(torch, F, h32, periods, weight, bias, kh, kw)
-            got = cuda_fold.tap_conv_cuda(h32, geom.periods, geom.cycles, weight, bias, kh, kw)
+            got = cuda_fold.tap_conv_cuda(h32, geom, weight, bias, kh, kw)
             err = max(float((got[k, :, : ref.shape[1]] - ref).abs().max())
                       for k, ref in enumerate(unfold(run())))
             print(f"[kernel] {kh}x{kw} periods {list(periods)} float32: "
@@ -689,25 +743,28 @@ def main() -> int:
     served = sorted({tuple(int(p) for p in per.tolist()) for _, per in selected})
     torch.cuda.reset_peak_memory_stats()
 
-    cuda_fold.launches.clear()  # the main path's launches, from here ...
+    for counter in path_counters(cuda_fold).values():
+        counter.clear()  # the main path's launches, from here ...
     latencies, outs = [], []
     for _ in range(REQUESTS):
         t0 = time.perf_counter()
         outs.append(fc.forecast(history, dates=dates))
         latencies.append(1e3 * (time.perf_counter() - t0))
-    counts = dict(cuda_fold.launches)  # ... to here
+    counts, counts_mma = dict(cuda_fold.launches), dict(cuda_fold.launches_mma)  # ... to here
     peak_mib = torch.cuda.max_memory_allocated() / 2**20
 
     for out in outs:
         check(out.shape == (cfg.pred_len, B), f"forecast shape {out.shape}")
         check(bool(np.isfinite(out).all()) and bool((out >= 0).all()), "non-finite or negative")
     for kh, kw in KERNEL_SIZES:
-        n = counts.get(f"{kh}x{kw}", 0)
-        check(n == REQUESTS * LAUNCHES_PER_PASS // len(KERNEL_SIZES),
-              f"tap_conv_fwd {kh}x{kw} launched {n} times in {REQUESTS} requests")
+        n, n_mma = counts.get(f"{kh}x{kw}", 0), counts_mma.get(f"{kh}x{kw}", 0)
+        check(n == n_mma == REQUESTS * LAUNCHES_PER_PASS // len(KERNEL_SIZES),
+              f"tap_conv_fwd {kh}x{kw} launched {n} times in {REQUESTS} requests, {n_mma} on "
+              f"the tensor-core route")
     check(sum(counts.values()) == REQUESTS * LAUNCHES_PER_PASS, f"launches {counts}")
     p50 = float(np.median(latencies))
-    print(f"[serve] {REQUESTS} requests of {B} series x {T} days: launches {counts}, "
+    print(f"[serve] {REQUESTS} requests of {B} series x {T} days: launches {counts} "
+          f"(tensor-core route {counts_mma}), "
           f"latency ms {spread(np, latencies)}, "
           f"peak device memory {peak_mib:.1f} MiB, selected periods {served}")
     print(f"[serve] forecast range [{float(first.min()):.3f}, {float(first.max()):.3f}], "
@@ -752,29 +809,37 @@ def main() -> int:
 
     # 7. train at the flagship width -----------------------------------------------
     trained = train_phase(torch, np, (windows, engine_mod, optim, cuda_fold), cfg, params, dev)
-    dw_f32_counts = train_parity(torch, np, engine_mod, losses_mod, cuda_fold, cfg, params,
+    f32_counts = train_parity(torch, np, engine_mod, losses_mod, cuda_fold, cfg, params,
                                  trained["parity_batch"])
     profile(torch, trained["step"], PROFILED_STEPS, "step", trained["p50"])
 
-    # 8. timing at the periods each path selected -----------------------------------
+    # 8. timing at the periods each path selected, both routes -------------------------
+    # the float32 routes run on the float32 path (the card-vs-CPU step), not the bf16 one
+    from_f32 = {"launches_from": "float32 parity step"}
     kernels = []
     for kh, kw in KERNEL_SIZES:
+        key = f"{kh}x{kw}"
         weight = torch.randn((kh, kw, C, C), generator=gen, device=dev) * 0.3
         bias = torch.randn((C,), generator=gen, device=dev) * 0.1
         h = torch.randn((K, B, LP, C), generator=gen, device=dev).to(torch.bfloat16)
-        rows = []
+        rows = {"mma": [], "f32": []}
         for periods in served:
-            geom = fold.make_geometry(torch.tensor(periods, dtype=torch.int32, device=dev), L, L - 1)
-            rows.append(time_forward(torch, F, fold, cuda_fold, h, geom, periods, weight, bias,
-                                     kh, kw))
-            print(f"[time] {kh}x{kw} periods {list(periods)} bf16: {described(rows[-1])}")
-        kernels.append({
-            "name": f"tap_conv_fwd_{kh}x{kw}", "route": "cuda", "source": SOURCE,
-            "replaces": REPLACES, "launches": counts[f"{kh}x{kw}"],
-            "max_abs_err": max_err[f"{kh}x{kw}"], **mean_of(np, rows),
-            "periods": [list(p) for p in served],
-            "launches_train": trained["counts"][0][f"{kh}x{kw}"],
-        })
+            geom = fold.make_geometry(torch.tensor(periods, dtype=torch.int32, device=dev), L, P_MAX)
+            for route, x in (("mma", h), ("f32", h.float())):  # the same values in both types
+                rows[route].append(time_forward(torch, F, fold, cuda_fold, x, geom, periods,
+                                                weight, bias, kh, kw))
+                print(f"[time] fwd_{route} {key} periods {list(periods)} "
+                      f"{'bf16' if route == 'mma' else 'float32'}: {described(rows[route][-1])}")
+        for route, source, launched, extra in (
+                ("mma", SOURCE_MMA, counts_mma[key],
+                 {"launches_train": trained["counts"]["tap_conv_fwd_mma"][key]}),
+                ("f32", SOURCE, f32_counts["tap_conv_fwd"][key], from_f32)):
+            kernels.append({
+                "name": f"tap_conv_fwd_{route}_{key}", "route": "cuda", "source": source,
+                "replaces": REPLACES, "launches": launched,
+                "max_abs_err": max_err[f"fwd_{route}_{key}"], **mean_of(np, rows[route]),
+                "periods": [list(p) for p in served], **extra,
+            })
     for kh, kw in KERNEL_SIZES:
         key = f"{kh}x{kw}"
         weight = torch.randn((kh, kw, C, C), generator=gen, device=dev) * 0.3
@@ -782,28 +847,30 @@ def main() -> int:
                  for _ in range(2))
         rows = []
         for periods in trained["periods"]:
-            geom = fold.make_geometry(torch.tensor(periods, dtype=torch.int32, device=dev), L, L - 1)
-            t = time_backward(torch, fold, cuda_fold, h, ct, geom, periods, weight, kh, kw)
-            t["dw_mma"] = t.pop("dw")
-            # the float32 route (the CUDA-core kernel) on the same values
-            t["dw_f32"] = time_backward(torch, fold, cuda_fold, h.float(), ct.float(), geom,
-                                        periods, weight, kh, kw, kinds=("dw",))["dw"]
+            geom = fold.make_geometry(torch.tensor(periods, dtype=torch.int32, device=dev), L, P_MAX)
+            t = {f"{kind}_mma": v for kind, v in time_backward(
+                torch, fold, cuda_fold, h, ct, geom, periods, weight, kh, kw).items()}
+            # the float32 routes (the CUDA-core kernels) on the same values
+            t.update({f"{kind}_f32": v for kind, v in time_backward(
+                torch, fold, cuda_fold, h.float(), ct.float(), geom, periods, weight, kh,
+                kw).items()})
             rows.append(t)
-            for kind in ("dh", "dw_mma", "dw_f32"):
+            for kind in ("dh_mma", "dh_f32", "dw_mma", "dw_f32"):
                 print(f"[time] {kind} {key} periods {list(periods)} "
-                      f"{'float32' if kind == 'dw_f32' else 'bf16'} B={B_TRAIN}: "
+                      f"{'bf16' if kind.endswith('mma') else 'float32'} B={B_TRAIN}: "
                       f"{described(t[kind])}")
-        launched = {"dh": trained["counts"][1][key], "dw_mma": trained["counts"][3][key],
-                    "dw_f32": dw_f32_counts[key]}
-        for kind, replaces in (("dh", REPLACES_DH), ("dw_mma", REPLACES_DW),
-                               ("dw_f32", REPLACES_DW)):
+        for kind, replaces, source in (("dh_mma", REPLACES_DH, SOURCE_MMA),
+                                       ("dh_f32", REPLACES_DH, SOURCE_BWD),
+                                       ("dw_mma", REPLACES_DW, SOURCE_BWD),
+                                       ("dw_f32", REPLACES_DW, SOURCE_BWD)):
+            mma = kind.endswith("mma")
+            launched = (trained["counts"] if mma else f32_counts)[
+                f"tap_conv_{kind[:2]}{'_mma' if mma else ''}"][key]
             kernels.append({
-                "name": f"tap_conv_{kind}_{key}", "route": "cuda", "source": SOURCE_BWD,
-                "replaces": replaces, "launches": launched[kind],
+                "name": f"tap_conv_{kind}_{key}", "route": "cuda", "source": source,
+                "replaces": replaces, "launches": launched,
                 "max_abs_err": bwd_err[f"{kind}_{key}"], **mean_of(np, [r[kind] for r in rows]),
-                "periods": [list(p) for p in trained["periods"]],
-                # the float32 route runs on the float32 path (the card-vs-CPU step), not the bf16 one
-                **({"launches_from": "float32 parity step"} if kind == "dw_f32" else {}),
+                "periods": [list(p) for p in trained["periods"]], **({} if mma else from_f32),
             })
 
     print(json.dumps({"kernels": kernels}))

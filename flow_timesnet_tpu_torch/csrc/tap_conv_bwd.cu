@@ -3,7 +3,8 @@
 //
 // tap_conv_dh replaces flow_timesnet_tpu/ops/pallas_fold.py::
 // _tap_conv_pallas_impl with sign=-1 (the TPU kernel of the Pallas
-// backward). tap_conv_dw replaces the XLA contraction
+// backward) in float32; in bf16 that is tap_conv_mma.cu's tensor-core
+// template, instantiated for sign=-1. tap_conv_dw replaces the XLA contraction
 // flow_timesnet_tpu/ops/fold.py::_tap_weight_grad, which the Pallas backward
 // keeps in XLA too; on the card its only alternative would be the plain
 // version, so it is written by hand beside the adjoint. Both compute the XLA
@@ -31,8 +32,9 @@
 // cycles: forward outputs at rows [total, Lp) read the grid, so their
 // cotangent flows back into it. dh rows [total, Lp) come out exactly 0.
 //
-// Design of tap_conv_dh (a simple first version; no wgmma or TMA yet): it
-// mirrors the forward kernel: one block per (k, b) sequence and tile of
+// Design of tap_conv_dh (float32 only, on the CUDA cores, whose float32
+// FMAs keep the products exact; TF32 tensor cores would keep about three
+// digits): it mirrors tap_conv_fwd.cu's float32 kernel: one block per (k, b) sequence and tile of
 // rows, the whole cotangent sequence staged in shared memory as float32, one
 // kernel row of W staged at a time, transposed to [kw, Cout, Cin] so that the
 // lanes of a warp (consecutive ci) read consecutive W words while they share
@@ -70,6 +72,8 @@
 #include <algorithm>
 #include <cstdint>
 
+#include "mma_ptx.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
@@ -88,12 +92,8 @@ constexpr int kMmaMaxWarps = 16;  // one warp per tap of a kernel row: kw <= 16
 constexpr int kMmaStages = 4;  // staged sequences in the ring: three loads in flight
 constexpr int kMmaTargetWarps = 8 * 132;  // pass 1: about 8 warps per SM in all
 
-__device__ __forceinline__ float to_float(float v) { return v; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 v) { return __bfloat162float(v); }
-
-template <typename T>
 __global__ void __launch_bounds__(kThreads)
-tap_conv_dh_kernel(const T* __restrict__ ct, const T* __restrict__ w,
+tap_conv_dh_kernel(const float* __restrict__ ct, const float* __restrict__ w,
                    const int* __restrict__ periods, const int* __restrict__ cycles,
                    float* __restrict__ dh, int B, int Lp, int Cin, int Cout, int kh, int kw,
                    int rows_per_tile) {
@@ -110,8 +110,8 @@ tap_conv_dh_kernel(const T* __restrict__ ct, const T* __restrict__ w,
   const int total = cycles[k] * p;
   const int rh = kh / 2, rw = kw / 2;
 
-  const T* ct_seq = ct + static_cast<size_t>(seq) * Lp * Cout;
-  for (int i = threadIdx.x; i < Lp * Cout; i += kThreads) ct_s[i] = to_float(ct_seq[i]);
+  const float* ct_seq = ct + static_cast<size_t>(seq) * Lp * Cout;
+  for (int i = threadIdx.x; i < Lp * Cout; i += kThreads) ct_s[i] = ct_seq[i];
 
   float acc[kOutsPerThread];
 #pragma unroll
@@ -120,10 +120,10 @@ tap_conv_dh_kernel(const T* __restrict__ ct, const T* __restrict__ w,
   const int row_elems = kw * Cin * Cout;
   for (int dc = -rh; dc <= rh; ++dc) {
     __syncthreads();  // the previous W row is consumed; ct_s is complete
-    const T* w_row = w + static_cast<size_t>(dc + rh) * row_elems;
+    const float* w_row = w + static_cast<size_t>(dc + rh) * row_elems;
     for (int i = threadIdx.x; i < row_elems; i += kThreads) {
       const int j = i / (Cin * Cout), ci = (i / Cout) % Cin, co = i % Cout;
-      w_s[(j * Cout + co) * Cin + ci] = to_float(w_row[i]);
+      w_s[(j * Cout + co) * Cin + ci] = w_row[i];
     }
     __syncthreads();
 #pragma unroll
@@ -233,40 +233,9 @@ tap_conv_dw_reduce_kernel(const float* __restrict__ partial, float* __restrict__
   dw[i] = a;
 }
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_addr(dst)), "l"(src)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
 // wait until at most kMmaStages - 2 groups of this thread are in flight
 __device__ __forceinline__ void cp_async_wait_ring() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(kMmaStages - 2) : "memory");
-}
-
-// Four 8x8 bf16 matrices, transposed: lane l names row l % 8 of matrix l / 8
-// and receives r[j] = the pair (row 2 * (l % 4) + {0, 1}, column l / 4) of
-// matrix j, low half first.
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
-}
-
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
-      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
 // Pass 1 of dW in bf16, on the tensor cores. It replaces the XLA contraction
@@ -487,23 +456,21 @@ int dw_chunks(int K, int B, int kh) {
   return (n_seq + per_chunk - 1) / per_chunk;
 }
 
-template <typename T>
-int launch_dh(const void* ct, const void* w, const int* periods, const int* cycles, float* dh,
+int launch_dh(const float* ct, const float* w, const int* periods, const int* cycles, float* dh,
               int K, int B, int Lp, int Cin, int Cout, int kh, int kw, cudaStream_t stream) {
   if (bad_shape(K, B, Lp, Cin, Cout, kh, kw) || Cin > kOutsPerBlock) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const size_t smem = sizeof(float) * (static_cast<size_t>(Lp) * Cout +
                                        static_cast<size_t>(kw) * Cin * Cout);
-  cudaError_t err = reserve_smem(tap_conv_dh_kernel<T>, smem);
+  cudaError_t err = reserve_smem(tap_conv_dh_kernel, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int rows_per_tile = std::min(Lp, kOutsPerBlock / Cin);
   const int tiles = (Lp + rows_per_tile - 1) / rows_per_tile;
   const long long blocks = static_cast<long long>(K) * B * tiles;
   if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
-  tap_conv_dh_kernel<T><<<static_cast<unsigned>(blocks), kThreads, smem, stream>>>(
-      static_cast<const T*>(ct), static_cast<const T*>(w), periods, cycles, dh, B, Lp, Cin,
-      Cout, kh, kw, rows_per_tile);
+  tap_conv_dh_kernel<<<static_cast<unsigned>(blocks), kThreads, smem, stream>>>(
+      ct, w, periods, cycles, dh, B, Lp, Cin, Cout, kh, kw, rows_per_tile);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -584,21 +551,17 @@ int dw_mma_plan(int K, int B, int Lp, int Cin, int Cout, int kh, int kw, int p_m
 
 }  // namespace
 
-// ct: [K, B, Lp, Cout] and w: [kh, kw, Cin, Cout], both bf16 (is_bf16 != 0)
-// or both float32; periods, cycles: [K] int32; dh: [K, B, Lp, Cin] float32.
-// All contiguous, on the current device. Returns a cudaError_t value: 0 on a
-// successful launch.
-extern "C" int tap_conv_dh(const void* ct, int is_bf16, const void* w, const void* periods,
+// The float32 route of dh (bf16 is tap_conv_mma.cu's tap_conv_dh_mma).
+// ct: [K, B, Lp, Cout] and w: [kh, kw, Cin, Cout] float32; periods, cycles:
+// [K] int32; dh: [K, B, Lp, Cin] float32. All contiguous, on the current
+// device. Returns a cudaError_t value: 0 on a successful launch.
+extern "C" int tap_conv_dh(const void* ct, const void* w, const void* periods,
                            const void* cycles, void* dh, int K, int B, int Lp, int Cin,
                            int Cout, int kh, int kw, void* stream) {
-  const auto* per = static_cast<const int*>(periods);
-  const auto* cyc = static_cast<const int*>(cycles);
-  auto* o = static_cast<float*>(dh);
-  auto s = static_cast<cudaStream_t>(stream);
-  if (is_bf16) {
-    return launch_dh<__nv_bfloat16>(ct, w, per, cyc, o, K, B, Lp, Cin, Cout, kh, kw, s);
-  }
-  return launch_dh<float>(ct, w, per, cyc, o, K, B, Lp, Cin, Cout, kh, kw, s);
+  return launch_dh(static_cast<const float*>(ct), static_cast<const float*>(w),
+                   static_cast<const int*>(periods), static_cast<const int*>(cycles),
+                   static_cast<float*>(dh), K, B, Lp, Cin, Cout, kh, kw,
+                   static_cast<cudaStream_t>(stream));
 }
 
 // The number of chunks tap_conv_dw splits the K*B sequences into: its

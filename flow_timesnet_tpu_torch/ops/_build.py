@@ -3,7 +3,8 @@
 Each source under ``flow_timesnet_tpu_torch/csrc/`` exposes a plain C
 interface, so ``nvcc`` compiles it in seconds without PyTorch's headers. The
 library lands in ``build/flow_timesnet_tpu_torch/`` at the repository root,
-named by a hash of the source and the flags, so an edited source is rebuilt
+named by a hash of the source, the shared headers (``csrc/*.cuh``) and the
+flags, so an edited source or header is rebuilt
 and an unchanged one is loaded as it is. Nothing is built at import time.
 """
 
@@ -41,10 +42,15 @@ def find_nvcc() -> str:
 
 
 def library_path(source: str) -> Path:
-    """Where the library built from ``csrc/<source>`` lives for this content."""
+    """Where the library built from ``csrc/<source>`` lives for this content:
+    the source, every header of ``csrc/`` (the sources include them) and the
+    flags."""
 
     digest = hashlib.sha256()
     digest.update((CSRC_DIR / source).read_bytes())
+    for header in sorted(CSRC_DIR.glob("*.cuh")):
+        digest.update(header.name.encode())
+        digest.update(header.read_bytes())
     digest.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{Path(source).stem}-{digest.hexdigest()[:16]}.so"
 

@@ -1,11 +1,16 @@
-"""Fold convolution on the card: the wrappers around ``csrc/tap_conv_fwd.cu``
-and ``csrc/tap_conv_bwd.cu``, and the autograd Function that joins them.
+"""Fold convolution on the card: the wrappers around ``csrc/tap_conv_fwd.cu``,
+``csrc/tap_conv_bwd.cu`` and ``csrc/tap_conv_mma.cu``, and the autograd
+Function that joins them.
 
 Counterpart of ``flow_timesnet_tpu/ops/pallas_fold.py::tap_conv_pallas`` and
 of the custom VJP of ``flow_timesnet_tpu/ops/fold.py::tap_conv``.
 :func:`tap_conv` runs :class:`TapConv`: on a CUDA tensor its forward is the
 forward kernel and its backward the dh-adjoint and dW kernels (or a launch
 raises); on a CPU tensor both are the plain versions of ``ops/fold.py``.
+Each kernel has two routes, chosen by dtype, and neither gives way to the
+other: bf16 runs on the tensor cores (``tap_conv_mma.cu`` for the forward
+and dh, ``tap_conv_dw_mma`` for dW), float32 on the CUDA cores, whose
+float32 FMAs keep the products exact.
 Autograd never differentiates the plain version's gathers, whose transpose
 would be the scatter the JAX package's custom VJP avoids. ``chip_smoke.py``
 holds each kernel against its plain version on the card, and the CPU tests
@@ -32,11 +37,14 @@ from .fold import tap_weight_grad as tap_weight_grad_plain
 
 SOURCE = "tap_conv_fwd.cu"
 SOURCE_BWD = "tap_conv_bwd.cu"
+SOURCE_MMA = "tap_conv_mma.cu"
 
 # Launches of each kernel, keyed by kernel size ("3x3", ...). Only the CUDA
 # path counts; the plain versions never do.
-launches: Counter = Counter()  # forward
-launches_dh: Counter = Counter()  # dh adjoint
+launches: Counter = Counter()  # forward, either route
+launches_mma: Counter = Counter()  # forward, the bf16 tensor-core route
+launches_dh: Counter = Counter()  # dh adjoint, either route
+launches_dh_mma: Counter = Counter()  # dh adjoint, the bf16 tensor-core route
 launches_dw: Counter = Counter()  # weight gradient, either route
 launches_dw_mma: Counter = Counter()  # weight gradient, the bf16 tensor-core route
 
@@ -117,19 +125,157 @@ def dw_mma_plan(K: int, B: int, Lp: int, cin: int, cout: int, kh: int, kw: int,
     return DwMmaPlan(lp_pad, pad, tiles, chunks_per_k, per_chunk, kw, smem, K * chunks_per_k)
 
 
+# The plan of the bf16 forward and dh template, constant for constant as in
+# csrc/tap_conv_mma.cu (fold_mma_plan); a card test holds the two together.
+FOLD_MAX_WARPS = 16  # warps of a block
+FOLD_MAX_GROUPS = 15  # a group syncs on one of the named barriers 1-15
+FOLD_STAGES = 2  # a ring of staged items per group, where a group has more than one
+FOLD_TILES = (32, 16, 8)  # output channels of a block's tile, preferred first
+FOLD_ROW_TILES = (64, 32, 16)  # output rows of an item, preferred first
+SMEM_PER_SM = 233472  # shared memory of one SM of an H100
+SMEM_RESERVED = 1024  # what the runtime keeps of it per block
+WARPS_PER_SM = 64
+REGS_PER_SM = 65536
+REGS_CAP = REGS_PER_SM // (FOLD_MAX_WARPS * 32)  # the kernel's __launch_bounds__(512, 1)
+SMS = 132  # SMs of an H100 SXM: the chunks fill one wave of blocks
+
+
+def row_stride(cols: int) -> int:
+    """bf16 elements of a staged row of ``cols`` channels: 8 more when the row
+    holds an even number of 16-byte vectors, so that the 8 rows an ldmatrix
+    matrix reads start in 8 distinct 16-byte bank groups."""
+
+    return cols + (8 if (cols // 8) % 2 == 0 else 0)
+
+
+class FoldMmaPlan(NamedTuple):
+    """How ``tap_conv_fwd_mma`` / ``tap_conv_dh_mma`` cut one call, in the
+    order the C plan reports. An item is ``rt`` output rows of one sequence."""
+
+    lp_pad: int  # Lp rounded up to whole items
+    pad: int  # (kh // 2) * p_max + kw // 2: the largest |dc * p + dj|
+    rt: int  # output rows of an item (16, 32 or 64)
+    band: int  # 1: an item is staged as kh bands of rt + kw - 1 rows; 0: one window
+    buf_rows: int  # rows of a staged item
+    nt: int  # output channels of a block's tile (32, 16 or 8)
+    tiles: int  # channel tiles: ceil(Cy / nt)
+    groups: int  # items a block multiplies at once, rt // 16 warps each
+    warps: int  # warps of a block
+    stages: int  # staged items per group: 1 (every group has at most one) or FOLD_STAGES
+    chunks_per_k: int  # chunks of each candidate's items
+    per_chunk: int  # items of a chunk (the last one may hold fewer)
+    chunks: int  # K * chunks_per_k
+    smem: int  # dynamic shared memory of a block, bytes
+
+
+@functools.lru_cache(maxsize=64)  # a request or a step asks for the same few plans each time
+def fold_mma_plan(sign: int, K: int, B: int, Lp: int, cin: int, cout: int, kh: int, kw: int,
+                  p_max: int) -> FoldMmaPlan:
+    """The launch plan of the bf16 forward (``sign=+1``) or dh (``sign=-1``)
+    kernel, or a ``RuntimeError`` through :func:`_raise_on` for a shape it
+    cannot take (the kernel refuses the same shapes with ``cudaErrorInvalidValue``).
+
+    X (h or ct) has ``cx`` channels, the output ``cy``. A block stages its
+    tile of W, ``kh * kw`` taps of [ci][co] rows (forward: Cin rows of ``nt``
+    columns; dh: ``nt`` rows of Cout columns), and ``groups`` rings of
+    ``stages`` items. An item is one window of ``rt + 2 * pad`` rows or,
+    where that is more, ``kh`` bands of ``rt + kw - 1`` rows. The plan takes
+    the first tile, then item height, then the most groups, that fit in
+    ``MAX_SMEM_BYTES``; the chunks never straddle two candidates and fill one
+    wave of resident blocks. One staged item per group where that leaves
+    each group at most one item, else a ring of ``FOLD_STAGES``.
+    """
+
+    name = "tap_conv_fwd_mma" if sign > 0 else "tap_conv_dh_mma"
+    shape = f"K={K}, B={B}, Lp={Lp}, Cin={cin}, Cout={cout}, {kh}x{kw}, p_max={p_max}"
+    why = None
+    if sign not in (1, -1):
+        why = "sign must be +1 or -1"
+    elif min(K, B, Lp, cin, cout, kh, kw) <= 0 or kh % 2 == 0 or kw % 2 == 0:
+        why = "every extent must be positive and the kernel size odd"
+    elif cin % 16 or cout % 16:
+        why = "Cin and Cout must be multiples of 16 (the mma's k-depth)"
+    elif not 1 <= p_max <= Lp:
+        why = "p_max must lie in [1, Lp]"
+    if why is not None:
+        _raise_on(_INVALID_VALUE, name, f"{shape}: {why}")
+    one = _fold_plan_with(1, sign, K, B, Lp, cin, cout, kh, kw, p_max)
+    if one is not None and one.per_chunk <= one.groups:
+        return one
+    plan = _fold_plan_with(FOLD_STAGES, sign, K, B, Lp, cin, cout, kh, kw, p_max)
+    if plan is None:
+        _raise_on(_INVALID_VALUE, name, f"{shape}: W's slice and one staged item per group "
+                  f"need more than {MAX_SMEM_BYTES} bytes of shared memory at every tile, or "
+                  f"more than 65535 chunks")
+    return plan
+
+
+def _fold_plan_with(stages, sign, K, B, Lp, cin, cout, kh, kw, p_max) -> Optional[FoldMmaPlan]:
+    """:func:`fold_mma_plan` with ``stages`` staged items per group, or None
+    where nothing fits (``plan_with`` in the C source)."""
+
+    cx, cy = (cin, cout) if sign > 0 else (cout, cin)
+    pad = (kh // 2) * p_max + kw // 2
+    lp16 = -(-Lp // MMA_ROWS) * MMA_ROWS
+
+    def rows(rt):  # of a staged item: one window, or kh bands where fewer
+        return min(rt + 2 * pad, kh * (rt + kw - 1))
+
+    def smem_of(nt, rt, groups):
+        w_bytes = 2 * kh * kw * (cx * row_stride(nt) if sign > 0 else nt * row_stride(cx))
+        return w_bytes + groups * stages * 2 * rows(rt) * row_stride(cx)
+
+    # the first tile, then item height, then the most groups, that fit
+    order = ((nt, rt, groups) for nt in FOLD_TILES if nt <= cy
+             for rt in FOLD_ROW_TILES if rt <= lp16
+             for groups in range(min(FOLD_MAX_GROUPS, FOLD_MAX_WARPS // (rt // MMA_ROWS)), 0, -1))
+    fit = next((c for c in order if smem_of(*c) <= MAX_SMEM_BYTES), None)
+    if fit is None:
+        return None
+    nt, rt, groups = fit
+    smem, buf_rows, band = smem_of(*fit), rows(rt), int(kh * (rt + kw - 1) < rt + 2 * pad)
+    lp_pad = -(-Lp // rt) * rt
+    tiles = -(-cy // nt)
+    warps = groups * rt // MMA_ROWS
+    # blocks an SM surely holds: by warps, shared memory and registers at the cap
+    resident = max(1, min(WARPS_PER_SM // warps, SMEM_PER_SM // (smem + SMEM_RESERVED),
+                          REGS_PER_SM // (warps * 32 * REGS_CAP)))
+    want = max(1, -(-SMS * resident // tiles))  # chunks in all
+    items = B * (lp_pad // rt)
+    per_k = min(items, -(-want // K))
+    per_chunk = -(-items // per_k)
+    chunks_per_k = -(-items // per_chunk)
+    if K * chunks_per_k > 65535 or tiles > 65535:
+        return None
+    return FoldMmaPlan(lp_pad, pad, rt, band, buf_rows, nt, tiles, groups, warps, stages,
+                       chunks_per_k, per_chunk, K * chunks_per_k, smem)
+
+
 @functools.cache
 def _kernel_fn():
     fn = _build.load(SOURCE).tap_conv_fwd
     fn.restype = _I
-    fn.argtypes = [_P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P]
+    fn.argtypes = [_P] * 6 + [_I] * 7 + [_P]
     return fn
+
+
+@functools.cache
+def _mma_fns():
+    lib = _build.load(SOURCE_MMA)
+    lib.tap_conv_mma_plan.restype = _I
+    lib.tap_conv_mma_plan.argtypes = [_I] * 9 + [_P]
+    lib.tap_conv_fwd_mma.restype = _I
+    lib.tap_conv_fwd_mma.argtypes = [_P] * 6 + [_I] * 8 + [_P]
+    lib.tap_conv_dh_mma.restype = _I
+    lib.tap_conv_dh_mma.argtypes = [_P] * 5 + [_I] * 8 + [_P]
+    return lib
 
 
 @functools.cache
 def _bwd_fns():
     lib = _build.load(SOURCE_BWD)
     lib.tap_conv_dh.restype = _I
-    lib.tap_conv_dh.argtypes = [_P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P]
+    lib.tap_conv_dh.argtypes = [_P] * 5 + [_I] * 7 + [_P]
     lib.tap_conv_dw_chunks.restype = _I
     lib.tap_conv_dw_chunks.argtypes = [_I, _I, _I]
     lib.tap_conv_dw.restype = _I
@@ -152,6 +298,23 @@ def dw_mma_plan_of_kernel(K: int, B: int, Lp: int, cin: int, cout: int, kh: int,
     return DwMmaPlan(*out)
 
 
+def fold_mma_plan_of_kernel(sign: int, K: int, B: int, Lp: int, cin: int, cout: int, kh: int,
+                            kw: int, p_max: int) -> Optional[FoldMmaPlan]:
+    """The plan ``csrc/tap_conv_mma.cu`` itself makes, or None where it
+    refuses the shape: what :func:`fold_mma_plan` mirrors (builds the library)."""
+
+    out = (ctypes.c_int * len(FoldMmaPlan._fields))()
+    if _mma_fns().tap_conv_mma_plan(sign, K, B, Lp, cin, cout, kh, kw, p_max, out) != 0:
+        return None
+    return FoldMmaPlan(*out)
+
+
+def _aligned(x: torch.Tensor) -> torch.Tensor:
+    """``x``, or a copy of it where its data does not start on 16 bytes (cp.async)."""
+
+    return x if x.data_ptr() % 16 == 0 else x.clone()
+
+
 def _check(name: str, x: torch.Tensor, kh: int, kw: int) -> None:
     """What every kernel needs of its [K, B, Lp, C] input and kernel size."""
 
@@ -165,12 +328,21 @@ def _check(name: str, x: torch.Tensor, kh: int, kw: int) -> None:
         raise ValueError(f"kernel size must be odd, got {kh}x{kw}")
 
 
-def _check_geometry(name: str, K: int, periods, cycles, device, *others) -> None:
-    for label, v in (("periods", periods), ("cycles", cycles)):
+def _check_geometry(name: str, geom: FoldGeometry, x: torch.Tensor, *others) -> int:
+    """What every kernel needs of the geometry of its [K, B, Lp, C] input
+    ``x``; returns ``p_max``, the bound on its periods (``make_geometry``'s
+    ``p_cap``, ``Lp - L``), which sizes the zero rows the tensor-core
+    kernels stage."""
+
+    K, Lp = int(x.shape[0]), int(x.shape[2])
+    if geom.Lp != Lp:
+        raise ValueError(f"{name}: the input has {Lp} rows, the geometry {geom.Lp}")
+    for label, v in (("periods", geom.periods), ("cycles", geom.cycles)):
         if v.dtype != torch.int32 or tuple(v.shape) != (K,) or not v.is_contiguous():
             raise ValueError(f"{label} must be int32 [{K}], got {v.dtype} {tuple(v.shape)}")
-    if any(t.device != device for t in (periods, cycles, *others)):
+    if any(t.device != x.device for t in (geom.periods, geom.cycles, *others)):
         raise ValueError(f"all {name} arguments must be on one device")
+    return geom.Lp - geom.L
 
 
 def _raise_on(err: int, name: str, shape: str) -> None:
@@ -182,8 +354,7 @@ def _raise_on(err: int, name: str, shape: str) -> None:
 
 def tap_conv_cuda(
     h: torch.Tensor,
-    periods: torch.Tensor,
-    cycles: torch.Tensor,
+    geom: FoldGeometry,
     kernel: torch.Tensor,
     bias: torch.Tensor,
     kh: int,
@@ -192,9 +363,19 @@ def tap_conv_cuda(
     """Launch the forward kernel; every argument lies on one CUDA device.
 
     ``h`` [K, B, Lp, Cin] bf16 or float32; ``kernel`` [kh, kw, Cin, Cout] is
-    rounded to ``h.dtype`` as in the plain version; ``bias`` [Cout];
-    ``periods``/``cycles`` [K] int32 from :func:`make_geometry`. Returns
-    [K, B, Lp, Cout] float32.
+    rounded to ``h.dtype`` as in the plain version; ``bias`` [Cout]; ``geom``
+    from :func:`make_geometry` over the same Lp. Returns
+    [K, B, Lp, Cout] float32. The dtype picks the route, and neither route
+    gives way to the other:
+
+    - bf16: the tensor-core template ``tap_conv_fwd_mma`` (bf16 products are
+      exact in float32, summed in float32). A shape it cannot take
+      (:func:`fold_mma_plan`, with ``p_max = geom.Lp - geom.L``) raises
+      ``RuntimeError``.
+    - float32: the CUDA-core kernel ``tap_conv_fwd``, whose float32 FMAs keep
+      the products exact (the tensor cores would round them to TF32).
+
+    ``launches`` counts both routes, ``launches_mma`` the tensor-core one.
     """
 
     _check("tap_conv_cuda", h, kh, kw)
@@ -204,27 +385,34 @@ def tap_conv_cuda(
     Cout = int(kernel.shape[3])
     if tuple(bias.shape) != (Cout,):
         raise ValueError(f"bias must be [{Cout}], got {tuple(bias.shape)}")
-    _check_geometry("tap_conv_cuda", K, periods, cycles, h.device, kernel, bias)
+    p_max = _check_geometry("tap_conv_cuda", geom, h, kernel, bias)
 
-    w = kernel.to(h.dtype).contiguous()
+    mma = h.dtype == torch.bfloat16
+    if mma:
+        fold_mma_plan(1, K, B, Lp, Cin, Cout, kh, kw, p_max)  # raises on what it cannot take
+    w = _aligned(kernel.to(h.dtype).contiguous())
+    x = _aligned(h) if mma else h
     b = bias.float().contiguous()
     out = torch.empty((K, B, Lp, Cout), dtype=torch.float32, device=h.device)
+    ptrs = (x.data_ptr(), w.data_ptr(), b.data_ptr(), geom.periods.data_ptr(),
+            geom.cycles.data_ptr(), out.data_ptr())
     with torch.cuda.device(h.device):
         stream = torch.cuda.current_stream(h.device).cuda_stream
-        err = _kernel_fn()(
-            h.data_ptr(), int(h.dtype == torch.bfloat16), w.data_ptr(), b.data_ptr(),
-            periods.data_ptr(), cycles.data_ptr(), out.data_ptr(),
-            K, B, Lp, Cin, Cout, kh, kw, stream,
-        )
-    _raise_on(err, "tap_conv_fwd", f"K={K}, B={B}, Lp={Lp}, Cin={Cin}, Cout={Cout}, {kh}x{kw}")
+        if mma:
+            err = _mma_fns().tap_conv_fwd_mma(*ptrs, K, B, Lp, Cin, Cout, kh, kw, p_max, stream)
+        else:
+            err = _kernel_fn()(*ptrs, K, B, Lp, Cin, Cout, kh, kw, stream)
+    _raise_on(err, "tap_conv_fwd_mma" if mma else "tap_conv_fwd",
+              f"K={K}, B={B}, Lp={Lp}, Cin={Cin}, Cout={Cout}, {kh}x{kw}")
     launches[f"{kh}x{kw}"] += 1
+    if mma:
+        launches_mma[f"{kh}x{kw}"] += 1
     return out
 
 
 def tap_conv_dh_cuda(
     ct: torch.Tensor,
-    periods: torch.Tensor,
-    cycles: torch.Tensor,
+    geom: FoldGeometry,
     kernel: torch.Tensor,
     kh: int,
     kw: int,
@@ -233,7 +421,13 @@ def tap_conv_dh_cuda(
 
     ``ct`` [K, B, Lp, Cout] bf16 or float32; ``kernel`` [kh, kw, Cin, Cout]
     (the forward layout) is rounded to ``ct.dtype``. Returns [K, B, Lp, Cin]
-    float32; the caller casts it to the input's type.
+    float32, exactly 0 at and past each fold extent; the caller casts it to
+    the input's type. The routes are those of :func:`tap_conv_cuda`: bf16
+    runs the tensor-core template ``tap_conv_dh_mma`` (its shape limits as
+    there; what it cannot take raises ``RuntimeError``),
+    float32 the CUDA-core kernel ``tap_conv_dh``, with no fallback between
+    them. ``launches_dh`` counts both routes, ``launches_dh_mma`` the
+    tensor-core one.
     """
 
     _check("tap_conv_dh_cuda", ct, kh, kw)
@@ -241,30 +435,36 @@ def tap_conv_dh_cuda(
     if kernel.dim() != 4 or tuple(kernel.shape[:2]) != (kh, kw) or kernel.shape[3] != Cout:
         raise ValueError(f"kernel must be [{kh}, {kw}, Cin, {Cout}], got {tuple(kernel.shape)}")
     Cin = int(kernel.shape[2])
-    _check_geometry("tap_conv_dh_cuda", K, periods, cycles, ct.device, kernel)
+    p_max = _check_geometry("tap_conv_dh_cuda", geom, ct, kernel)
 
-    w = kernel.to(ct.dtype).contiguous()
+    mma = ct.dtype == torch.bfloat16
+    if mma:
+        fold_mma_plan(-1, K, B, Lp, Cin, Cout, kh, kw, p_max)  # raises on what it cannot take
+    w = _aligned(kernel.to(ct.dtype).contiguous())
+    x = _aligned(ct) if mma else ct
     dh = torch.empty((K, B, Lp, Cin), dtype=torch.float32, device=ct.device)
+    ptrs = (x.data_ptr(), w.data_ptr(), geom.periods.data_ptr(), geom.cycles.data_ptr(),
+            dh.data_ptr())
     with torch.cuda.device(ct.device):
         stream = torch.cuda.current_stream(ct.device).cuda_stream
-        err = _bwd_fns().tap_conv_dh(
-            ct.data_ptr(), int(ct.dtype == torch.bfloat16), w.data_ptr(),
-            periods.data_ptr(), cycles.data_ptr(), dh.data_ptr(),
-            K, B, Lp, Cin, Cout, kh, kw, stream,
-        )
-    _raise_on(err, "tap_conv_dh", f"K={K}, B={B}, Lp={Lp}, Cin={Cin}, Cout={Cout}, {kh}x{kw}")
+        if mma:
+            err = _mma_fns().tap_conv_dh_mma(*ptrs, K, B, Lp, Cin, Cout, kh, kw, p_max, stream)
+        else:
+            err = _bwd_fns().tap_conv_dh(*ptrs, K, B, Lp, Cin, Cout, kh, kw, stream)
+    _raise_on(err, "tap_conv_dh_mma" if mma else "tap_conv_dh",
+              f"K={K}, B={B}, Lp={Lp}, Cin={Cin}, Cout={Cout}, {kh}x{kw}")
     launches_dh[f"{kh}x{kw}"] += 1
+    if mma:
+        launches_dh_mma[f"{kh}x{kw}"] += 1
     return dh
 
 
 def tap_conv_dw_cuda(
     h: torch.Tensor,
-    periods: torch.Tensor,
-    cycles: torch.Tensor,
+    geom: FoldGeometry,
     ct: torch.Tensor,
     kh: int,
     kw: int,
-    p_max: Optional[int] = None,
 ) -> torch.Tensor:
     """Launch the weight-gradient kernel: :func:`ops.fold.tap_weight_grad` on the card.
 
@@ -274,9 +474,8 @@ def tap_conv_dw_cuda(
 
     - bf16: the tensor-core kernel ``tap_conv_dw_mma`` (bf16 products are
       exact in float32, summed in float32). A shape it cannot take
-      (:func:`dw_mma_plan`) raises ``RuntimeError``. ``p_max`` bounds the
-      periods (``make_geometry``'s ``p_cap``; default ``Lp - 1``, which
-      holds for every geometry) and sizes the zero rows it stages.
+      (:func:`dw_mma_plan`, with ``p_max = geom.Lp - geom.L``) raises
+      ``RuntimeError``.
     - float32: the CUDA-core kernel ``tap_conv_dw``, whose float32 FMAs keep
       the products exact (the tensor cores would round them to TF32).
 
@@ -293,18 +492,17 @@ def tap_conv_dw_cuda(
     if tuple(ct.shape[:3]) != (K, B, Lp) or ct.dtype != h.dtype:
         raise ValueError(f"ct must be [{K}, {B}, {Lp}, Cout] in {h.dtype}, "
                          f"got {ct.dtype} {tuple(ct.shape)}")
-    _check_geometry("tap_conv_dw_cuda", K, periods, cycles, h.device, ct)
+    p_max = _check_geometry("tap_conv_dw_cuda", geom, h, ct)
 
     lib = _bwd_fns()
     mma = h.dtype == torch.bfloat16
-    p_max = max(1, Lp - 1) if p_max is None else int(p_max)
     if mma:
         chunks = dw_mma_plan(K, B, Lp, Cin, Cout, kh, kw, p_max).chunks
     else:
         chunks = lib.tap_conv_dw_chunks(K, B, kh)
     partial = torch.empty((chunks, kh, kw, Cin, Cout), dtype=torch.float32, device=h.device)
     dw = torch.empty((kh, kw, Cin, Cout), dtype=torch.float32, device=h.device)
-    ptrs = (h.data_ptr(), ct.data_ptr(), periods.data_ptr(), cycles.data_ptr(),
+    ptrs = (h.data_ptr(), ct.data_ptr(), geom.periods.data_ptr(), geom.cycles.data_ptr(),
             partial.data_ptr(), dw.data_ptr())
     with torch.cuda.device(h.device):
         stream = torch.cuda.current_stream(h.device).cuda_stream
@@ -335,7 +533,7 @@ class TapConv(torch.autograd.Function):
         ctx.save_for_backward(h, kernel)
         ctx.geom, ctx.kh, ctx.kw = geom, kh, kw
         if h.device.type == "cuda":
-            return tap_conv_cuda(h, geom.periods, geom.cycles, kernel, bias, kh, kw)
+            return tap_conv_cuda(h, geom, kernel, bias, kh, kw)
         return tap_conv_plain(h, geom, kernel, bias, kh, kw)
 
     @staticmethod
@@ -347,10 +545,9 @@ class TapConv(torch.autograd.Function):
         dh = dw = db = None
         if h.device.type == "cuda":
             if need_h:
-                dh = tap_conv_dh_cuda(ct_dt, geom.periods, geom.cycles, kernel, kh, kw)
+                dh = tap_conv_dh_cuda(ct_dt, geom, kernel, kh, kw)
             if need_w:
-                dw = tap_conv_dw_cuda(h, geom.periods, geom.cycles, ct_dt, kh, kw,
-                                      p_max=geom.Lp - geom.L)
+                dw = tap_conv_dw_cuda(h, geom, ct_dt, kh, kw)
         else:
             if need_h:
                 dh = tap_conv_dh_plain(ct_dt, geom, kernel, kh, kw)

@@ -176,3 +176,55 @@ def assert_grads_close(got, want, rtol):
     for name, g in got.items():
         assert np.isfinite(g).all(), name
         np.testing.assert_allclose(g, want[name], rtol=rtol, atol=rtol * scale, err_msg=name)
+
+
+# --- the tensor cores' fragment layouts, for the numpy models of the kernels --
+# mma.sync m16n8k16 with bf16 operands (PTX ISA): lane l has g = l // 4 and
+# q = l % 4; each register holds a pair of consecutive bf16 values.
+
+def ldmatrix(smem, addresses, trans=False, n=4):
+    """ldmatrix.sync.aligned.m8n8.x{n}[.trans].b16 on a 2-D array: lane l names
+    row l % 8 of matrix l // 8 (8 consecutive elements from ``addresses[l]``,
+    a (row, column) pair; lanes past 8 n are not read). In register j lane l
+    gets matrix j's elements (l // 4, 2 (l % 4) + half), or with ``trans``
+    (2 (l % 4) + half, l // 4). Returns [32, n, 2]."""
+
+    out = np.empty((32, n, 2), smem.dtype)
+    for j in range(n):
+        mat = np.stack([smem[r, c:c + 8] for r, c in addresses[8 * j:8 * j + 8]])
+        for lane in range(32):
+            for half in range(2):
+                a, b = lane // 4, 2 * (lane % 4) + half
+                out[lane, j, half] = mat[b, a] if trans else mat[a, b]
+    return out
+
+
+def a_matrix(frag):
+    """The 16 x 16 A (m, k) that an m16n8k16 A fragment [32, 4, 2] holds:
+    registers (row g, k 2q), (row g + 8, k 2q), (row g, k 8 + 2q), (row g + 8, k 8 + 2q)."""
+
+    a = np.full((16, 16), np.nan, frag.dtype)
+    for lane in range(32):
+        g, k = lane // 4, 2 * (lane % 4)
+        for reg, (dm, dk) in enumerate(((0, 0), (8, 0), (0, 8), (8, 8))):
+            a[g + dm, k + dk:k + dk + 2] = frag[lane, reg]
+    return a
+
+
+def b_matrix(frag):
+    """The 16 x 8 B (k, n) that an m16n8k16 B fragment [32, 2, 2] holds:
+    registers (k 2q, n g) and (k 8 + 2q, n g)."""
+
+    b = np.full((16, 8), np.nan, frag.dtype)
+    for lane in range(32):
+        for reg in range(2):
+            k = 2 * (lane % 4) + 8 * reg
+            b[k:k + 2, lane // 4] = frag[lane, reg]
+    return b
+
+
+def a_fragment_rows(lane):
+    """The rows of an m-tile that lane's A registers 0-3 hold: g, g + 8, g, g + 8."""
+
+    g = lane // 4
+    return (g, g + 8, g, g + 8)

@@ -42,10 +42,14 @@ def test_tap_conv_kernel_matches_plain(cuda, kh, kw, periods, dtype):
     h, kernel, bias = _inputs(1, len(periods), B, L, geom.Lp, C, kh, kw)
     h_t = torch.from_numpy(h).to(cuda).to(dtype)
     k_t, b_t = torch.from_numpy(kernel).to(cuda), torch.from_numpy(bias).to(cuda)
-    before = cuda_fold.launches[f"{kh}x{kw}"]
+    key = f"{kh}x{kw}"
+    before = (cuda_fold.launches[key], cuda_fold.launches_mma[key])
     got = cuda_fold.tap_conv(h_t, geom, k_t, b_t, kh, kw)
     torch.cuda.synchronize()
-    assert cuda_fold.launches[f"{kh}x{kw}"] == before + 1
+    # bf16 takes the tensor-core route, float32 the CUDA-core one
+    mma = int(dtype == torch.bfloat16)
+    assert (cuda_fold.launches[key], cuda_fold.launches_mma[key]) == (before[0] + 1,
+                                                                      before[1] + mma)
     want = fold.tap_conv(h_t, geom, k_t, b_t, kh, kw)
     assert got.dtype == torch.float32 and got.shape == want.shape
     # bf16 x bf16 products are exact in float32: only the summation order differs
@@ -64,6 +68,11 @@ def test_tap_conv_kernel_rejects_what_it_cannot_take(cuda):
                            torch.zeros(4, device=cuda), 2, 2)
     with pytest.raises(ValueError, match="device"):
         cuda_fold.tap_conv(h, geom, torch.zeros(3, 3, 4, 4), torch.zeros(4), 3, 3)
+    # the geometry sizes the kernels' zero rows: it must be that of the input
+    with pytest.raises(ValueError, match="rows"):
+        cuda_fold.tap_conv_cuda(h[:, :, 1:].contiguous(), geom,
+                                torch.zeros(3, 3, 4, 4, device=cuda), torch.zeros(4, device=cuda),
+                                3, 3)
     # beyond the kernel's capacity (2048 output channels per block): the
     # kernel itself refuses with cudaErrorInvalidValue
     with pytest.raises(RuntimeError, match="cudaError_t 1 "):
@@ -83,15 +92,16 @@ def test_backward_kernels_match_plain(cuda, kh, kw, periods, dtype):
     h_t, ct_t = (torch.from_numpy(a).to(cuda).to(dtype) for a in (h, ct))
     k_t = torch.from_numpy(kernel).to(cuda)
     key = f"{kh}x{kw}"
-    before = (cuda_fold.launches_dh[key], cuda_fold.launches_dw[key],
-              cuda_fold.launches_dw_mma[key])
-    dh = cuda_fold.tap_conv_dh_cuda(ct_t, geom.periods, geom.cycles, k_t, kh, kw)
-    dw = cuda_fold.tap_conv_dw_cuda(h_t, geom.periods, geom.cycles, ct_t, kh, kw, p_max=L - 1)
+    counters = (cuda_fold.launches_dh, cuda_fold.launches_dh_mma, cuda_fold.launches_dw,
+                cuda_fold.launches_dw_mma)
+    before = [c[key] for c in counters]
+    dh = cuda_fold.tap_conv_dh_cuda(ct_t, geom, k_t, kh, kw)
+    dw = cuda_fold.tap_conv_dw_cuda(h_t, geom, ct_t, kh, kw)
     torch.cuda.synchronize()
-    # bf16 takes the tensor-core route, float32 the CUDA-core one
+    # bf16 takes the tensor-core routes, float32 the CUDA-core ones
     mma = int(dtype == torch.bfloat16)
-    assert (cuda_fold.launches_dh[key], cuda_fold.launches_dw[key],
-            cuda_fold.launches_dw_mma[key]) == (before[0] + 1, before[1] + 1, before[2] + mma)
+    assert [c[key] for c in counters] == [before[0] + 1, before[1] + mma, before[2] + 1,
+                                          before[3] + mma]
     want_dh = fold.tap_conv_dh(ct_t, geom, k_t, kh, kw)
     want_dw = fold.tap_weight_grad(h_t, geom, ct_t, kh, kw)
     assert dh.dtype == dw.dtype == torch.float32
@@ -101,7 +111,7 @@ def test_backward_kernels_match_plain(cuda, kh, kw, periods, dtype):
     for k, total in enumerate(geom.total.tolist()):
         assert not dh[k, :, total:].any()
     # fixed-order reduction: the same bits from run to run
-    again = cuda_fold.tap_conv_dw_cuda(h_t, geom.periods, geom.cycles, ct_t, kh, kw, p_max=L - 1)
+    again = cuda_fold.tap_conv_dw_cuda(h_t, geom, ct_t, kh, kw)
     assert torch.equal(dw, again)
 
 
@@ -118,8 +128,8 @@ def test_dw_tensor_core_route_matches_plain(cuda, kh, kw, cin, cout):
     h, ct = (torch.from_numpy(rng.standard_normal((2, B, geom.Lp, c)).astype(np.float32))
              .to(cuda).bfloat16() for c in (cin, cout))
     before = cuda_fold.launches_dw_mma[f"{kh}x{kw}"]
-    dw = cuda_fold.tap_conv_dw_cuda(h, geom.periods, geom.cycles, ct, kh, kw, p_max=L - 1)
-    again = cuda_fold.tap_conv_dw_cuda(h, geom.periods, geom.cycles, ct, kh, kw, p_max=L - 1)
+    dw = cuda_fold.tap_conv_dw_cuda(h, geom, ct, kh, kw)
+    again = cuda_fold.tap_conv_dw_cuda(h, geom, ct, kh, kw)
     torch.cuda.synchronize()
     assert cuda_fold.launches_dw_mma[f"{kh}x{kw}"] == before + 2
     want = fold.tap_weight_grad(h, geom, ct, kh, kw)
@@ -156,9 +166,9 @@ def test_dw_tensor_core_route_refuses_and_never_falls_back(cuda):
     ct = torch.zeros((1, 2, geom.Lp, 32), device=cuda, dtype=torch.bfloat16)
     before = (sum(cuda_fold.launches_dw.values()), sum(cuda_fold.launches_dw_mma.values()))
     with pytest.raises(RuntimeError, match="cudaError_t 1 .*Cin must be a multiple of 16"):
-        cuda_fold.tap_conv_dw_cuda(h, geom.periods, geom.cycles, ct, 3, 3)
+        cuda_fold.tap_conv_dw_cuda(h, geom, ct, 3, 3)
     # the same shape in float32 takes the CUDA-core route
-    dw = cuda_fold.tap_conv_dw_cuda(h.float(), geom.periods, geom.cycles, ct.float(), 3, 3)
+    dw = cuda_fold.tap_conv_dw_cuda(h.float(), geom, ct.float(), 3, 3)
     torch.cuda.synchronize()
     assert dw.shape == (3, 3, 24, 32)
     assert (sum(cuda_fold.launches_dw.values()),
@@ -188,15 +198,137 @@ def test_backward_kernels_reject_what_they_cannot_take(cuda):
     ct = torch.zeros((1, 2, geom.Lp, 4), device=cuda)
     w = torch.zeros(3, 3, 4, 4, device=cuda)
     with pytest.raises(TypeError):
-        cuda_fold.tap_conv_dh_cuda(ct.half(), geom.periods, geom.cycles, w, 3, 3)
+        cuda_fold.tap_conv_dh_cuda(ct.half(), geom, w, 3, 3)
     with pytest.raises(ValueError, match="kernel"):
-        cuda_fold.tap_conv_dh_cuda(ct, geom.periods, geom.cycles, w[..., :3], 3, 3)
+        cuda_fold.tap_conv_dh_cuda(ct, geom, w[..., :3], 3, 3)
     with pytest.raises(ValueError, match="ct must be"):
-        cuda_fold.tap_conv_dw_cuda(ct, geom.periods, geom.cycles, ct.bfloat16(), 3, 3)
+        cuda_fold.tap_conv_dw_cuda(ct, geom, ct.bfloat16(), 3, 3)
     with pytest.raises(ValueError, match="CUDA tensors"):
-        cuda_fold.tap_conv_dw_cuda(ct.cpu(), geom.periods, geom.cycles, ct, 3, 3)
+        cuda_fold.tap_conv_dw_cuda(ct.cpu(), geom, ct, 3, 3)
     # 48 output channels do not divide the dW kernel's 256 threads: the
     # kernel itself refuses with cudaErrorInvalidValue
     with pytest.raises(RuntimeError, match="cudaError_t 1 "):
-        cuda_fold.tap_conv_dw_cuda(ct, geom.periods, geom.cycles,
+        cuda_fold.tap_conv_dw_cuda(ct, geom,
                                    torch.zeros((1, 2, geom.Lp, 48), device=cuda), 3, 3)
+
+
+def _mma_route(cuda, sign, B, L, periods, cin, cout, kh, kw, seed):
+    """The bf16 tensor-core forward (sign +1) or dh (sign -1) at these
+    shapes against the plain version, launched twice: the same bits both
+    times, one tensor-core launch each, dh 0 at and past each fold extent."""
+
+    geom = fold.make_geometry(torch.tensor(periods, dtype=torch.int32, device=cuda), L, L - 1)
+    rng = np.random.default_rng(seed)
+    x = torch.from_numpy(rng.standard_normal((len(periods), B, geom.Lp, cin if sign > 0 else cout))
+                         .astype(np.float32)).to(cuda).bfloat16()
+    w = torch.from_numpy((rng.standard_normal((kh, kw, cin, cout)) * 0.3).astype(np.float32)).to(cuda)
+    bias = torch.from_numpy((rng.standard_normal(cout) * 0.1).astype(np.float32)).to(cuda)
+    key = f"{kh}x{kw}"
+    counter = cuda_fold.launches_mma if sign > 0 else cuda_fold.launches_dh_mma
+    before = counter[key]
+    if sign > 0:
+        runs = [cuda_fold.tap_conv_cuda(x, geom, w, bias, kh, kw) for _ in range(2)]
+        want = fold.tap_conv(x, geom, w, bias, kh, kw)
+    else:
+        runs = [cuda_fold.tap_conv_dh_cuda(x, geom, w, kh, kw) for _ in range(2)]
+        want = fold.tap_conv_dh(x, geom, w, kh, kw)
+        for k, total in enumerate(geom.total.tolist()):
+            assert not runs[0][k, :, total:].any()
+    torch.cuda.synchronize()
+    assert counter[key] == before + 2
+    torch.testing.assert_close(runs[0], want, rtol=1e-4, atol=1e-4)
+    assert torch.equal(runs[0], runs[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c", [16, 32, 48, 64])
+@pytest.mark.parametrize("kh,kw", [(3, 3), (7, 7)])
+@pytest.mark.parametrize("sign", [1, -1], ids=["fwd", "dh"])
+def test_tensor_core_routes_match_plain(cuda, sign, kh, kw, c):
+    _mma_route(cuda, sign, 16, 28, [7, 27], c, c, kh, kw, seed=c + kh)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c,kh", [(128, 3), (96, 5), (80, 7)])
+@pytest.mark.parametrize("sign", [1, -1], ids=["fwd", "dh"])
+def test_tensor_core_routes_take_the_channel_edges(cuda, sign, c, kh):
+    """The widest mid the CUDA-core kernels took at Lp=55, at B=16."""
+
+    _mma_route(cuda, sign, 16, 28, [4, 27], c, c, kh, kh, seed=c)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sign", [1, -1], ids=["fwd", "dh"])
+def test_tensor_core_routes_stage_bands_for_long_sequences(cuda, sign):
+    """L=100 (Lp=199, p_cap 99), Cin != Cout: 64-row items staged as bands."""
+
+    assert cuda_fold.fold_mma_plan(sign, 2, 4, 199, 32, 48, 5, 5, 99).band == 1
+    _mma_route(cuda, sign, 4, 100, [99, 13], 32, 48, 5, 5, seed=9)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [
+    (1, 2, 192, 55, 32, 32, 3, 3, 27), (1, 2, 192, 55, 32, 32, 5, 5, 27),
+    (1, 2, 192, 55, 32, 32, 7, 7, 27), (-1, 2, 256, 55, 32, 32, 3, 3, 27),
+    (-1, 2, 256, 55, 32, 32, 5, 5, 27), (-1, 2, 256, 55, 32, 32, 7, 7, 27),
+    (1, 2, 16, 55, 128, 128, 3, 3, 27), (-1, 2, 16, 55, 96, 96, 5, 5, 27),
+    (1, 2, 16, 55, 80, 80, 7, 7, 27), (-1, 2, 16, 55, 80, 80, 7, 7, 27),
+    (1, 4, 64, 1023, 32, 32, 5, 5, 511), (-1, 3, 7, 35, 64, 16, 5, 3, 17),
+    (1, 2, 4, 55, 24, 32, 3, 3, 27), (-1, 2, 4, 55, 32, 40, 3, 3, 27),
+    (1, 2, 4, 55, 32, 32, 3, 3, 56), (1, 2, 4, 55, 256, 256, 7, 7, 27),
+])
+def test_fold_mma_plan_mirrors_the_kernel(cuda, shape):
+    """ops/cuda_fold.py::fold_mma_plan gives the plan csrc/tap_conv_mma.cu
+    makes, and refuses what it refuses."""
+
+    got = cuda_fold.fold_mma_plan_of_kernel(*shape)
+    if got is None:
+        with pytest.raises(RuntimeError, match="cudaError_t 1 "):
+            cuda_fold.fold_mma_plan(*shape)
+    else:
+        assert cuda_fold.fold_mma_plan(*shape) == got
+
+
+@pytest.mark.cuda
+def test_tensor_core_routes_refuse_and_never_fall_back(cuda):
+    """A bf16 shape the template cannot take (Cin = 24) raises for the
+    forward and dh; the same shape in float32 takes the CUDA-core routes,
+    and the tensor-core counters stay where they were."""
+
+    geom = fold.make_geometry(torch.tensor([4], dtype=torch.int32, device=cuda), 8, 7)
+    h = torch.zeros((1, 2, geom.Lp, 24), device=cuda, dtype=torch.bfloat16)
+    ct = torch.zeros((1, 2, geom.Lp, 32), device=cuda, dtype=torch.bfloat16)
+    w = torch.zeros((3, 3, 24, 32), device=cuda)
+    b = torch.zeros(32, device=cuda)
+    counters = (cuda_fold.launches, cuda_fold.launches_mma, cuda_fold.launches_dh,
+                cuda_fold.launches_dh_mma)
+    before = [sum(c.values()) for c in counters]
+    with pytest.raises(RuntimeError, match="cudaError_t 1 .*Cin and Cout must be multiples of 16"):
+        cuda_fold.tap_conv_cuda(h, geom, w, b, 3, 3)
+    with pytest.raises(RuntimeError, match="cudaError_t 1 .*Cin and Cout must be multiples of 16"):
+        cuda_fold.tap_conv_dh_cuda(ct, geom, w, 3, 3)
+    assert [sum(c.values()) for c in counters] == before
+    out = cuda_fold.tap_conv_cuda(h.float(), geom, w, b, 3, 3)
+    dh = cuda_fold.tap_conv_dh_cuda(ct.float(), geom, w, 3, 3)
+    torch.cuda.synchronize()
+    assert out.shape == (1, 2, geom.Lp, 32) and dh.shape == (1, 2, geom.Lp, 24)
+    assert [sum(c.values()) for c in counters] == [before[0] + 1, before[1], before[2] + 1,
+                                                   before[3]]
+
+
+@pytest.mark.cuda
+def test_tensor_core_routes_take_unaligned_views(cuda):
+    """An input whose data does not start on 16 bytes (a view into a larger
+    buffer) is copied by the wrapper, not refused (cp.async reads 16 bytes)."""
+
+    geom = fold.make_geometry(torch.tensor([7, 27], dtype=torch.int32, device=cuda), 28, 27)
+    n = 2 * 4 * geom.Lp * 32
+    flat = torch.randn(n + 4, device=cuda).bfloat16()
+    x = flat[4:].view(2, 4, geom.Lp, 32)  # 8 bytes past an aligned start
+    assert x.data_ptr() % 16 == 8
+    w = torch.randn(3, 3, 32, 32, device=cuda) * 0.3
+    b = torch.zeros(32, device=cuda)
+    got = cuda_fold.tap_conv_cuda(x, geom, w, b, 3, 3)
+    torch.testing.assert_close(got, fold.tap_conv(x, geom, w, b, 3, 3), rtol=1e-4, atol=1e-4)
+    got = cuda_fold.tap_conv_dh_cuda(x, geom, w, 3, 3)
+    torch.testing.assert_close(got, fold.tap_conv_dh(x, geom, w, 3, 3), rtol=1e-4, atol=1e-4)

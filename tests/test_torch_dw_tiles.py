@@ -32,6 +32,7 @@ jnp = pytest.importorskip("jax.numpy")
 
 from flow_timesnet_tpu.ops import fold as jfold  # noqa: E402
 from flow_timesnet_tpu_torch.ops import cuda_fold, fold  # noqa: E402
+from port_helpers import a_matrix, b_matrix, ldmatrix  # noqa: E402
 
 ROWS = cuda_fold.MMA_ROWS
 TOL = 2e-5
@@ -70,42 +71,6 @@ def lane_masks(row_tab, col_tab, Lp, cycles, p, dc, dj, ks, lane):
             if t < Lp and 0 <= r < cycles and 0 <= c < p:
                 masks[reg] |= 0xFFFF0000 if half else 0x0000FFFF
     return masks
-
-
-def ldmatrix_x4_trans(smem, addresses):
-    """ldmatrix.sync.aligned.m8n8.x4.trans.b16: lane l names row l % 8 of
-    matrix l // 8 (8 consecutive elements from ``addresses[l]``) and gets, in
-    register j, matrix j's elements (2 (l % 4) + half, l // 4). [32, 4, 2]."""
-
-    out = np.empty((32, 4, 2), smem.dtype)
-    for j in range(4):
-        mat = np.stack([smem[r, c:c + 8] for r, c in addresses[8 * j:8 * j + 8]])
-        for lane in range(32):
-            for half in range(2):
-                out[lane, j, half] = mat[2 * (lane % 4) + half, lane // 4]
-    return out
-
-
-def a_matrix(frag):
-    """The 16 x 16 A (m, k) that an m16n8k16 A fragment [32, 4, 2] holds."""
-
-    a = np.full((16, 16), np.nan, frag.dtype)
-    for lane in range(32):
-        g, k = lane // 4, 2 * (lane % 4)
-        for reg, (dm, dk) in enumerate(((0, 0), (8, 0), (0, 8), (8, 8))):
-            a[g + dm, k + dk:k + dk + 2] = frag[lane, reg]
-    return a
-
-
-def b_matrix(frag):
-    """The 16 x 8 B (k, n) that an m16n8k16 B fragment [32, 2, 2] holds."""
-
-    b = np.full((16, 8), np.nan, frag.dtype)
-    for lane in range(32):
-        for reg in range(2):
-            k = 2 * (lane % 4) + 8 * reg
-            b[k:k + 2, lane // 4] = frag[lane, reg]
-    return b
 
 
 # --- the model of the whole kernel -------------------------------------------
@@ -235,12 +200,12 @@ def test_fragment_addresses_load_the_mma_operands():
     h_s = rng.standard_normal((64, cin + cuda_fold.MMA_ROW_PAD)).astype(np.float32)
     ct_s = rng.standard_normal((64, cout + cuda_fold.MMA_ROW_PAD)).astype(np.float32)
 
-    a_frag = ldmatrix_x4_trans(h_s, [(t0 + a_address(l)[0], ci0 + a_address(l)[1])
-                                     for l in range(32)])
+    a_frag = ldmatrix(h_s, [(t0 + a_address(l)[0], ci0 + a_address(l)[1]) for l in range(32)],
+                      trans=True)
     np.testing.assert_array_equal(a_matrix(a_frag), h_s[t0:t0 + 16, ci0:ci0 + 16].T)
 
-    b_frag = ldmatrix_x4_trans(ct_s, [(t0 + b_address(l)[0], co0 + b_address(l)[1])
-                                      for l in range(32)])
+    b_frag = ldmatrix(ct_s, [(t0 + b_address(l)[0], co0 + b_address(l)[1]) for l in range(32)],
+                      trans=True)
     for nt in range(2):  # registers (0, 1) hold n-tile co0, (2, 3) n-tile co0 + 8
         np.testing.assert_array_equal(b_matrix(b_frag[:, 2 * nt:2 * nt + 2]),
                                       ct_s[t0:t0 + 16, co0 + 8 * nt:co0 + 8 * nt + 8])

@@ -110,5 +110,5 @@ def test_wrapper_rejects_other_devices():
     with pytest.raises(ValueError, match="cuda or cpu"):
         cuda_fold.tap_conv(h, geom, torch.zeros(3, 3, 2, 2), torch.zeros(2), 3, 3)
     with pytest.raises(ValueError, match="CUDA tensors"):
-        cuda_fold.tap_conv_cuda(torch.zeros((1, 1, geom.Lp, 2)), geom.periods, geom.cycles,
+        cuda_fold.tap_conv_cuda(torch.zeros((1, 1, geom.Lp, 2)), geom,
                                 torch.zeros(3, 3, 2, 2), torch.zeros(2), 3, 3)
