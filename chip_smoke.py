@@ -31,11 +31,12 @@ Phases, each of which fails the run (non-zero exit, no result line):
    their plain versions at the training shape (K=2, B=256, Lp=55, 32
    channels) for the three sizes, three period sets and bf16 and float32
    (dh within 1e-4, rows past each fold extent exactly 0; dW within rtol
-   1e-4 and 1e-4 of its largest value, as it sums 28,160 products). bf16 dh
-   and dW take their tensor-core kernels, whose plans must equal the
-   wrapper's mirrors of them; float32 the CUDA-core kernels, held against
-   cuDNN's convolution backward over the exact fold grids within 1e-3 (of
-   the largest dW);
+   1e-4 and 1e-4 of its largest value, as it sums 28,160 products), each
+   launched twice with the same bits both times. bf16 dh and dW take their
+   tensor-core kernels, float32 the CUDA-core kernels; every plan must
+   equal the wrapper's mirror of it. float32 is also held against cuDNN's
+   convolution backward over the exact fold grids within 1e-3 (of the
+   largest dW);
 7. train: the flagship at full width and depth takes 5 + 100 timed
    ``Engine.train_step`` calls at B=256 on seeded windows of 192 series x
    365 days (``SlidingWindowSource`` -> ``WindowBatcher`` ->
@@ -48,12 +49,15 @@ Phases, each of which fails the run (non-zero exit, no result line):
    within 1e-5 relative, gradients within 1e-4 of the largest, the NB-NLL
    alone within 1e-5), its forward, dh and dW on the CUDA-core routes (12
    launches each, none on a tensor-core route); then device time per step
-   by kernel over 20 profiled steps;
+   by kernel over 20 profiled steps, of the bf16 step and of a float32 one
+   (``compute_dtype="float32"``, the JAX package's default: 20 timed steps,
+   then 20 profiled), each with the fold conv's device time per step;
 8. timing: each kernel, both routes, at the periods its path selected
    (served requests for the forward, training steps for the backward),
    beside its plain
    version, cuDNN over the exact fold grids (a yardstick the port never
-   calls) and its bound on the card. Times are device time (torch.profiler's
+   calls) and its bound on the card, the float32 dh and dW also beside
+   the times of their previous design. Times are device time (torch.profiler's
    kernel time, mean of 100 calls; a profiler session that loses records is
    taken again, and the run fails if they keep being lost); the kernel's and
    cuDNN's calls are also timed back to back by CUDA events, which adds the
@@ -90,6 +94,10 @@ REQUESTS = 200  # timed requests per serving measurement (about 12 ms each)
 PROFILED = 50  # requests under the profiler
 PROFILER_TRIES = 5  # profiler sessions a device time may take before the run fails
 LAUNCHES_PER_PASS = 12  # 2 layers x 2 inception blocks x 3 branches, per forward or backward
+# device us of the previous design of the float32 dh and dW kernels at these
+# shapes and periods on an H100 80GB HBM3 at 700 W (PERF.md's kernel table,
+# "Before"), printed beside this run's
+BEFORE_F32_US = {"dh": (64.80, 140.00, 235.46), "dw": (171.02, 194.47, 336.00)}
 REPLACES = "flow_timesnet_tpu/ops/pallas_fold.py:174"
 REPLACES_DH = "flow_timesnet_tpu/ops/pallas_fold.py:174 (sign=-1, 133-138)"
 SOURCE_MMA = "flow_timesnet_tpu_torch/csrc/tap_conv_mma.cu"
@@ -146,6 +154,17 @@ def flagship_config(timesnet):
         use_constant_context_bias=False, time_features=8, id_vocab=B,
         compute_dtype="bfloat16",
     )
+
+
+def flagship_params(torch, convert, cfg) -> dict:
+    """Seeded random weights of the flagship, with non-zero heads."""
+
+    params = convert.init_params(cfg, torch.Generator().manual_seed(0))
+    heads = torch.Generator().manual_seed(1)
+    for name in ("mu_head.kernel", "sigma_head.kernel", "context_coeff.kernel",
+                 "late_bias_head.kernel"):
+        params[name] = torch.randn(params[name].shape, generator=heads) * 0.05
+    return params
 
 
 def spread(np, values) -> str:
@@ -354,6 +373,14 @@ def check_backward_kernels(torch, fold, cuda_fold, gen, dev):
         print(f"[kernel] dW {key} bf16 tensor-core plan (the kernel's own): {plan._asdict()}, "
               f"scratch {4 * plan.scratch_elems(kh, kw, C, C) / 1e6:.2f} MB")
         check_fold_plan(cuda_fold, -1, B_TRAIN, kh, kw)
+        dh_plan = cuda_fold.dh_f32_plan(K, B_TRAIN, LP, C, C, kh, kw, P_MAX)
+        dw_plan = cuda_fold.dw_f32_plan(K, B_TRAIN, LP, C, C, kh, kw)
+        check(cuda_fold.dh_f32_plan_of_kernel(K, B_TRAIN, LP, C, C, kh, kw, P_MAX) == dh_plan and
+              cuda_fold.dw_f32_plan_of_kernel(K, B_TRAIN, LP, C, C, kh, kw) == dw_plan,
+              f"float32 dh or dW {key}: the wrapper's plan differs from the kernel's")
+        print(f"[kernel] dh {key} float32 plan (the kernel's own): {dh_plan._asdict()}")
+        print(f"[kernel] dW {key} float32 plan (the kernel's own): {dw_plan._asdict()}, "
+              f"scratch {4 * dw_plan.scratch_elems(kh, kw, C, C) / 1e6:.2f} MB")
         weight = torch.randn((kh, kw, C, C), generator=gen, device=dev) * 0.3
         for periods in PERIOD_SETS:
             geom = fold.make_geometry(torch.tensor(periods, dtype=torch.int32, device=dev), L, P_MAX)
@@ -364,6 +391,8 @@ def check_backward_kernels(torch, fold, cuda_fold, gen, dev):
                 h, ct = h32.to(dtype), ct32.to(dtype)
                 dh = cuda_fold.tap_conv_dh_cuda(ct, geom, weight, kh, kw)
                 dw = cuda_fold.tap_conv_dw_cuda(h, geom, ct, kh, kw)
+                same = (torch.equal(dh, cuda_fold.tap_conv_dh_cuda(ct, geom, weight, kh, kw)) and
+                        torch.equal(dw, cuda_fold.tap_conv_dw_cuda(h, geom, ct, kh, kw)))
                 want_dh = fold.tap_conv_dh(ct, geom, weight, kh, kw)
                 want_dw = fold.tap_weight_grad(h, geom, ct, kh, kw)
                 torch.cuda.synchronize()
@@ -379,7 +408,8 @@ def check_backward_kernels(torch, fold, cuda_fold, gen, dev):
                 print(f"[kernel] {key} periods {list(periods)} {str(dtype)[6:]}: max |dh - plain| "
                       f"{err_dh:.3e} {'ok' if ok_dh else 'FAIL'}, dh rows beyond the fold 0: "
                       f"{tail}, max |dW - plain| {err_dw:.3e} of max |dW| {scale:.3e} "
-                      f"{'ok' if ok_dw else 'FAIL'}")
+                      f"{'ok' if ok_dw else 'FAIL'}, the same bits twice: {same}")
+                check(same, f"dh or dW {key} {periods} {dtype}: the bits differ from run to run")
                 check(ok_dh and tail, f"tap_conv_dh {key} {periods} {dtype}: {err_dh:.3e}")
                 check(ok_dw, f"tap_conv_dw {key} {periods} {dtype}: {err_dw:.3e} of {scale:.3e}")
                 if dtype == torch.bfloat16:  # the training path's type: time it here too
@@ -561,7 +591,34 @@ def train_phase(torch, np, modules, cfg, params, dev):
         host_batches[0], floor=sigma[host_batches[0].series_ids.reshape(-1)].reshape(-1, 1, 1),
         device="cpu")
     return dict(counts=counts, p50=p50, periods=sorted(set(selected)), step=step,
-                parity_batch=parity_batch)
+                parity_batch=parity_batch, fixed=fixed, lr=lr)
+
+
+def float32_steps(torch, np, engine_mod, cfg, params, batch, lr, dev):
+    """Phase 7, float32: the flagship at full width with
+    ``compute_dtype="float32"`` (the JAX package's default, which runs the
+    CUDA-core fold-conv kernels) takes 5 + 20 timed steps on one batch, then
+    20 under the profiler: device time per step and the fold conv's."""
+
+    eng = engine_mod.Engine(dataclasses.replace(cfg, compute_dtype="float32"), params, **ENGINE)
+    state = eng.init_state()
+    gen = torch.Generator(device=dev).manual_seed(1)
+
+    def step():
+        eng.train_step(state, lr, gen, batch)
+
+    for _ in range(WARMUP_STEPS):
+        step()
+    torch.cuda.synchronize()
+    step_ms = []
+    for _ in range(PROFILED_STEPS):
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        step_ms.append(1e3 * (time.perf_counter() - t0))
+    p50 = float(np.median(step_ms))
+    print(f"[train] float32 steps of {B_TRAIN} windows on one batch: step ms {spread(np, step_ms)}")
+    profile(torch, step, PROFILED_STEPS, "float32 step", p50)
 
 
 def train_parity(torch, np, engine_mod, losses_mod, cuda_fold, cfg, params, batch_cpu):
@@ -704,13 +761,9 @@ def main() -> int:
 
     # 4. serve at the flagship width -------------------------------------------
     cfg = flagship_config(timesnet)
-    params = convert.init_params(cfg, torch.Generator().manual_seed(0))
+    params = flagship_params(torch, convert, cfg)
     n_params = sum(v.numel() for v in params.values())
     check(n_params == 2_536_356, f"flagship parameter count {n_params}")
-    heads = torch.Generator().manual_seed(1)
-    for name in ("mu_head.kernel", "sigma_head.kernel", "context_coeff.kernel",
-                 "late_bias_head.kernel"):
-        params[name] = torch.randn(params[name].shape, generator=heads) * 0.05
 
     rng = np.random.default_rng(0)
     T = 28
@@ -859,6 +912,13 @@ def main() -> int:
                 print(f"[time] {kind} {key} periods {list(periods)} "
                       f"{'bf16' if kind.endswith('mma') else 'float32'} B={B_TRAIN}: "
                       f"{described(t[kind])}")
+        for kind in ("dh", "dw"):
+            mean = mean_of(np, [r[f"{kind}_f32"] for r in rows])
+            print(f"[time] {kind}_f32 {key} over the periods {trained['periods']}: kernel "
+                  f"{mean['ms'] * 1e3:.2f} us against the previous design's "
+                  f"{BEFORE_F32_US[kind][KERNEL_SIZES.index((kh, kw))]:.2f} us, cuDNN "
+                  f"{mean['library_ms'] * 1e3:.2f} us, bound {mean['bound_ms'] * 1e3:.3f} us "
+                  f"({mean['ms'] / mean['library_ms']:.2f}x cuDNN)")
         for kind, replaces, source in (("dh_mma", REPLACES_DH, SOURCE_MMA),
                                        ("dh_f32", REPLACES_DH, SOURCE_BWD),
                                        ("dw_mma", REPLACES_DW, SOURCE_BWD),
@@ -872,6 +932,10 @@ def main() -> int:
                 "max_abs_err": bwd_err[f"{kind}_{key}"], **mean_of(np, [r[kind] for r in rows]),
                 "periods": [list(p) for p in trained["periods"]], **({} if mma else from_f32),
             })
+
+    # the float32 step's profile, after the kernel timings: a profiler session
+    # of a whole step, just before them, made later sessions lose records
+    float32_steps(torch, np, engine_mod, cfg, params, trained["fixed"], trained["lr"], dev)
 
     print(json.dumps({"kernels": kernels}))
     print(card)
@@ -907,6 +971,10 @@ def profile(torch, run, n: int, unit: str, p50_ms: float) -> None:
     if busy_ms <= 0:
         print("[profile] device time not measured (the profiler saw no device activity)")
         return
+    fold_conv = [e for e in events if "tap_conv" in e.key]
+    print(f"[profile] fold conv ({unit}): "
+          f"{sum(e.self_device_time_total for e in fold_conv) / n:.2f} us per {unit} in "
+          f"{sum(e.count for e in fold_conv) / n:.0f} launches of {len(fold_conv)} kernels")
     launches = sum(e.count for e in events) / n
     print(f"[profile] {n} {unit}s: device busy {busy_ms:.3f} ms per {unit} in "
           f"{launches:.0f} launches of {len(events)} kernels: "

@@ -1,4 +1,4 @@
-// PTX helpers shared by the tensor-core kernels (tap_conv_bwd.cu's dW and
+// PTX helpers shared by the staged kernels (tap_conv_bwd.cu's dh and dW and
 // tap_conv_mma.cu's forward and dh): cp.async copies into shared memory,
 // ldmatrix fragment loads and the bf16 mma.sync m16n8k16 with float32 sums.
 // ops/_build.py hashes every csrc/*.cuh into each library's name, so an edit
@@ -24,6 +24,12 @@ __device__ __forceinline__ uint32_t smem_addr(const void* p) {
 
 __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_addr(dst)), "l"(src)
+               : "memory");
+}
+
+// 4 bytes (one float): for rows whose channels are not a multiple of 4
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(smem_addr(dst)), "l"(src)
                : "memory");
 }
 

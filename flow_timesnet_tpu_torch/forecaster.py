@@ -5,11 +5,13 @@ Counterpart of ``flow_timesnet_tpu/forecaster.py`` (``forecast`` and
 loading the JAX package's artifact directory (a flax msgpack checkpoint, a
 YAML config, pickled scalers) and ``forecast_quantiles`` are later slices.
 History is a ``[T, n]`` numpy array; calendar features come from optional
-daily ``datetime64`` dates aligned with its rows.
+``datetime64`` stamps aligned with its rows, stepped into the future by the
+model's frequency.
 """
 
 from __future__ import annotations
 
+import re
 from dataclasses import replace
 from typing import Any, Dict, List, Mapping, Optional, Sequence, Tuple
 
@@ -20,6 +22,49 @@ from .data.pivot import ScalerDict, inverse_transform, transform_array
 from .data.time_features import build_time_features
 from .engine import Engine
 from .models.timesnet import TimesNetConfig
+
+# pandas' fixed-width aliases of the grids data/pivot.py keeps -> numpy units
+_FIXED_UNITS = {"D": "D", "h": "h", "H": "h", "min": "m", "T": "m", "s": "s", "S": "s"}
+_WEEKDAYS = ("MON", "TUE", "WED", "THU", "FRI", "SAT", "SUN")
+
+
+def future_stamps(freq: Optional[str], stamps: np.ndarray, horizon: int) -> np.ndarray:
+    """The ``horizon`` stamps after ``stamps[-1]``, as ``pd.date_range(last +
+    to_offset(freq), periods=horizon, freq=freq)`` gives them, without pandas.
+
+    ``freq`` is a pandas alias with a fixed step: an optional multiple, then
+    ``D``, ``h``/``H``, ``min``/``T``, ``s``/``S``, or ``W``/``W-<DAY>``
+    (weeks anchored on a weekday, ``W`` on Sunday: the first future stamp
+    rolls forward to that weekday, as pandas' does). With no ``freq`` the
+    step is inferred from ``stamps`` when they are evenly spaced, as
+    ``pd.infer_freq`` does. Raises ``ValueError`` on an alias with no fixed
+    step (``MS``, ``M``, ``B``, ...) and on uneven stamps with no ``freq``,
+    where the JAX package drops the calendar marks without a word.
+    ``stamps`` are ``datetime64[s]``; so is the result.
+    """
+
+    last = stamps[-1]
+    if freq is None:
+        steps = np.diff(stamps)
+        if len(stamps) < 3 or not (steps > np.timedelta64(0, "s")).all() or (steps != steps[0]).any():
+            raise ValueError("the history's stamps are not evenly spaced and the model has no "
+                             "freq: pass the freq it was trained with")
+        return last + steps[0] * np.arange(1, horizon + 1)
+    m = re.fullmatch(r"(\d*)(D|h|H|min|T|s|S|W(?:-(MON|TUE|WED|THU|FRI|SAT|SUN))?)", freq.strip())
+    if m is None or (m.group(1) and int(m.group(1)) == 0):
+        raise ValueError(f"freq {freq!r} has no fixed step: the port takes an optional multiple "
+                         "and D, h, min, s or W[-<DAY>]")
+    n = int(m.group(1) or 1)
+    unit = m.group(2)
+    if not unit.startswith("W"):
+        return last + np.timedelta64(n, _FIXED_UNITS[unit]).astype("m8[s]") * np.arange(1, horizon + 1)
+    # pandas' Week(weekday): a stamp off the anchor rolls forward to it, then n - 1 more weeks
+    anchor = _WEEKDAYS.index(m.group(3) or "SUN")
+    weekday = (last.astype("datetime64[D]").astype(np.int64) + 3) % 7  # 1970-01-01: Thursday
+    roll = (anchor - weekday) % 7 or 7
+    week = np.timedelta64(7, "D").astype("m8[s]")
+    first = last + np.timedelta64(int(roll), "D").astype("m8[s]") + (n - 1) * week
+    return first + n * week * np.arange(horizon)
 
 
 def _expand_embedding(
@@ -55,6 +100,10 @@ class Forecaster:
         sigma_vector: per-series dispersion floors [len(ids)] or None.
         time_feature_config: the calendar-feature config the model was
             trained with, or None when it takes no calendar features.
+        freq: the pandas alias of the model's time grid (the artifact's
+            time-feature ``freq``), which steps the forecast calendar; None
+            infers it from evenly spaced history stamps (see
+            :func:`future_stamps`).
         device: ``"cuda"`` (the default, which raises when no card is
             present) or ``"cpu"``.
     """
@@ -69,6 +118,7 @@ class Forecaster:
         static_features: Optional[np.ndarray] = None,
         sigma_vector: Optional[np.ndarray] = None,
         time_feature_config: Optional[Mapping[str, Any]] = None,
+        freq: Optional[str] = None,
         device="cuda",
     ) -> None:
         self.ids: List[str] = list(ids)
@@ -89,6 +139,7 @@ class Forecaster:
         self.time_feature_config = (
             None if time_feature_config is None else dict(time_feature_config)
         )
+        self.freq = freq
 
     @property
     def input_len(self) -> int:
@@ -163,12 +214,12 @@ class Forecaster:
         if self.time_feature_config is not None:
             if dates is None:
                 raise ValueError("model was trained with time features; pass the history's dates")
-            days = np.asarray(dates).astype("datetime64[D]")
-            if days.shape != (values.shape[0],):
-                raise ValueError("dates must hold one date per history row")
-            future = days[-1] + np.arange(1, horizon + 1).astype("timedelta64[D]")
+            stamps = np.asarray(dates).astype("datetime64[s]")
+            if stamps.shape != (values.shape[0],):
+                raise ValueError("dates must hold one stamp per history row")
+            future = future_stamps(self.freq, stamps, horizon)
             marks = build_time_features(
-                np.concatenate([days[-L:], future]), {**self.time_feature_config, "enabled": True}
+                np.concatenate([stamps[-L:], future]), {**self.time_feature_config, "enabled": True}
             )
             if marks.shape[1] != cfg.time_features:
                 raise ValueError(

@@ -10,7 +10,10 @@ raises); on a CPU tensor both are the plain versions of ``ops/fold.py``.
 Each kernel has two routes, chosen by dtype, and neither gives way to the
 other: bf16 runs on the tensor cores (``tap_conv_mma.cu`` for the forward
 and dh, ``tap_conv_dw_mma`` for dW), float32 on the CUDA cores, whose
-float32 FMAs keep the products exact.
+float32 FMAs keep the products exact. Every kernel but the float32 forward
+has a launch plan, mirrored here constant for constant
+(:func:`fold_mma_plan`, :func:`dw_mma_plan`, :func:`dh_f32_plan`,
+:func:`dw_f32_plan`), so that the CPU tests can model the kernel's cuts.
 Autograd never differentiates the plain version's gathers, whose transpose
 would be the scatter the JAX package's custom VJP avoids. ``chip_smoke.py``
 holds each kernel against its plain version on the card, and the CPU tests
@@ -251,6 +254,176 @@ def _fold_plan_with(stages, sign, K, B, Lp, cin, cout, kh, kw, p_max) -> Optiona
                        chunks_per_k, per_chunk, K * chunks_per_k, smem)
 
 
+# The plans of the float32 dh and dW kernels, constant for constant as in
+# csrc/tap_conv_bwd.cu (dh_f32_plan, dw_f32_plan); a card test holds them together.
+F32_ROWS = 64  # dW: rows of an item, a 64-row tile of one sequence
+F32_MAX_WARPS = 16  # warps of a block
+DH_MAX_GROUPS = 15  # dh: a group syncs on one of the named barriers 1-15
+DH_TILES = (32, 16, 8)  # dh: input channels of a block's tile
+DH_ROW_TILES = (64, 32, 16)  # dh: output rows of an item, preferred first
+DW_TILE = 32  # dW: a warp's tile, 32 ci x 32 co
+DW_STAGES = 2  # dW: staged rounds (an item for each split) in a block's ring
+
+
+def f32_stride(cols: int) -> int:
+    """floats of a staged float32 row of ``cols`` channels: whole float4s, an
+    odd number of them, so that 8 consecutive rows start in 8 distinct bank
+    groups."""
+
+    return ((cols + 3) // 4 | 1) * 4
+
+
+def dh_warp_rows(nt: int) -> int:
+    """Rows a warp of the float32 dh kernel owns at a tile of ``nt`` input
+    channels: its lanes are 32 / (nt / 4) rows by nt / 4 groups of 4
+    channels, 4 rows a lane."""
+
+    return 4 * (32 // (nt // 4))
+
+
+class DhF32Plan(NamedTuple):
+    """How the float32 ``tap_conv_dh`` cuts one call, in the order its C plan
+    reports. An item is ``rt`` output rows of one sequence."""
+
+    lp_pad: int  # Lp rounded up to whole items
+    pad: int  # (kh // 2) * p_max + kw // 2: the largest |dc * p + dj|
+    rt: int  # output rows of an item (64, 32 or 16)
+    band: int  # 1: an item is staged as kh bands of rt + kw - 1 rows; 0: one window
+    buf_rows: int  # rows of a staged item
+    sc: int  # floats of a staged row of ct or W: f32_stride(Cout)
+    nt: int  # input channels of a block's tile (32, 16 or 8)
+    tiles: int  # channel tiles: ceil(Cin / nt)
+    groups: int  # items a block multiplies at once, max(1, rt // dh_warp_rows(nt)) warps each
+    warps: int  # warps of a block
+    per_chunk: int  # items of a chunk (the last one may hold fewer)
+    chunks: int  # chunks of the K * B * lp_pad / rt items, candidates interleaved
+    smem: int  # dynamic shared memory of a block, bytes
+
+
+@functools.lru_cache(maxsize=64)  # a step asks for the same few plans each time
+def dh_f32_plan(K: int, B: int, Lp: int, cin: int, cout: int, kh: int, kw: int,
+                p_max: int) -> DhF32Plan:
+    """The launch plan of the float32 dh kernel, or a ``RuntimeError``
+    through :func:`_raise_on` for a shape it cannot take (the kernel refuses
+    the same shapes with ``cudaErrorInvalidValue``).
+
+    A block stages its tile of ``nt`` input channels of W once, ``kh * kw``
+    taps of ``nt`` [ci][co] rows, beside ``groups`` staged items (one window
+    of ``min(Lp, rt + 2 * pad)`` rows or ``kh`` bands of ``rt + kw - 1``, the
+    fewer) and one zero row, every row :func:`f32_stride` floats. Of the
+    tiles (32 and 16 only where Cin reaches them, 8 always) it takes the one
+    with room for the most warps, ties to the wider, each with the first
+    item height (64, 32, 16) and then the most groups that fit in
+    ``MAX_SMEM_BYTES``. Item i is row tile (i // K) % n_rt of sequence
+    (i % K, i // K // n_rt): the candidates alternate, so every chunk holds
+    both periods alike, and the chunks fill one wave of resident blocks,
+    registers counted at the launch bounds' cap.
+    """
+
+    shape = f"K={K}, B={B}, Lp={Lp}, Cin={cin}, Cout={cout}, {kh}x{kw}, p_max={p_max}"
+    why = None
+    if min(K, B, Lp, cin, cout, kh, kw) <= 0 or kh % 2 == 0 or kw % 2 == 0:
+        why = "every extent must be positive and the kernel size odd"
+    elif not 1 <= p_max <= Lp:
+        why = "p_max must lie in [1, Lp]"
+    if why is not None:
+        _raise_on(_INVALID_VALUE, "tap_conv_dh", f"{shape}: {why}")
+    pad = (kh // 2) * p_max + kw // 2
+    sc = f32_stride(cout)
+    best = None  # (warps, nt, rt, groups, window, bands, smem)
+    for nt in DH_TILES:
+        if nt > cin and nt != 8:
+            continue
+        for rt in DH_ROW_TILES:  # the first item height at which a group fits
+            window, bands = min(Lp, rt + 2 * pad), kh * (rt + kw - 1)
+            tpi = max(1, rt // dh_warp_rows(nt))  # warps of a group: an item's row tiles
+            fit = next((g for g in range(min(DH_MAX_GROUPS, F32_MAX_WARPS // tpi), 0, -1)
+                        if 4 * (kh * kw * nt + g * min(window, bands) + 1) * sc
+                        <= MAX_SMEM_BYTES), None)
+            if fit is not None:
+                if best is None or fit * tpi > best[0]:
+                    best = (fit * tpi, nt, rt, fit, window, bands,
+                            4 * (kh * kw * nt + fit * min(window, bands) + 1) * sc)
+                break
+    if best is None:
+        _raise_on(_INVALID_VALUE, "tap_conv_dh", f"{shape}: W's tile at 8 channels and one staged "
+                  f"item need more than {MAX_SMEM_BYTES} bytes of shared memory")
+    warps, nt, rt, groups, window, bands, smem = best
+    lp_pad, tiles = -(-Lp // rt) * rt, -(-cin // nt)
+    resident = max(1, min(WARPS_PER_SM // warps, SMEM_PER_SM // (smem + SMEM_RESERVED),
+                          REGS_PER_SM // (warps * 32 * REGS_CAP)))
+    items = K * B * (lp_pad // rt)
+    per_chunk = -(-items // min(items, max(1, -(-SMS * resident // tiles))))
+    chunks = -(-items // per_chunk)
+    if chunks > 65535 or tiles > 65535:
+        _raise_on(_INVALID_VALUE, "tap_conv_dh", f"{shape}: more than 65535 chunks")
+    return DhF32Plan(lp_pad, pad, rt, int(bands < window), min(window, bands), sc, nt, tiles,
+                     groups, warps, per_chunk, chunks, smem)
+
+
+class DwF32Plan(NamedTuple):
+    """How the float32 ``tap_conv_dw`` cuts one call, in the order its C plan
+    reports. A block is (channel tile, tap group, chunk); its warps are
+    ``taps`` taps of every kernel row times ``splits``, one item each in a
+    round."""
+
+    tiles: int  # 32 x 32 channel tiles of dW
+    tap_groups: int  # groups of up to 16 taps of a kernel row, a block each
+    taps: int  # taps of a group: ceil(kw / tap_groups)
+    splits: int  # warps that share a tap, an item each: min(16 // taps, per_chunk)
+    warps: int  # taps * splits
+    chunks_per_k: int  # chunks of each candidate's B * ceil(Lp / 64) items
+    per_chunk: int  # items of a chunk (the last one may hold fewer)
+    chunks: int  # K * chunks_per_k
+    smem: int  # dynamic shared memory of a block, bytes
+
+    def scratch_elems(self, kh: int, kw: int, cin: int, cout: int) -> int:
+        """float32 partials pass 1 writes: one [kh, kw, Cin, Cout] per chunk."""
+
+        return self.chunks * kh * kw * cin * cout
+
+
+@functools.lru_cache(maxsize=64)
+def dw_f32_plan(K: int, B: int, Lp: int, cin: int, cout: int, kh: int, kw: int) -> DwF32Plan:
+    """The launch plan of the float32 dW kernel, or a ``RuntimeError``
+    through :func:`_raise_on` for a shape it cannot take.
+
+    A block stages, for each kernel row and round of ``splits`` items, ct's
+    64 rows and h's band of ``64 + taps - 1`` rows of its 32 x 32 channel
+    tile for each item into a ring of ``DW_STAGES`` rounds, beside
+    ``(splits - 1) * taps`` tiles where the splits sum; ``splits`` is
+    ``min(16 // taps, per_chunk)``, or fewer where that passes
+    ``MAX_SMEM_BYTES``. One block an SM: ``132 // (tiles * tap_groups)``
+    chunks in all, aligned to K.
+    """
+
+    shape = f"K={K}, B={B}, Lp={Lp}, Cin={cin}, Cout={cout}, {kh}x{kw}"
+    if min(K, B, Lp, cin, cout, kh, kw) <= 0 or kh % 2 == 0 or kw % 2 == 0:
+        _raise_on(_INVALID_VALUE, "tap_conv_dw",
+                  f"{shape}: every extent must be positive and the kernel size odd")
+    tiles = -(-cin // DW_TILE) * -(-cout // DW_TILE)
+    tap_groups = -(-kw // F32_MAX_WARPS)
+    taps = -(-kw // tap_groups)
+    # chunks of a candidate's items (none straddles two), one block an SM in all
+    items = B * -(-Lp // F32_ROWS)
+    per_k = min(items, -(-max(1, SMS // (tiles * tap_groups)) // K))
+    per_chunk = -(-items // per_k)
+    chunks_per_k = -(-items // per_chunk)
+    if K * chunks_per_k > 65535:
+        _raise_on(_INVALID_VALUE, "tap_conv_dw", f"{shape}: more than 65535 chunks")
+
+    def smem_of(splits):
+        return 4 * (DW_STAGES * splits * (2 * F32_ROWS + taps - 1) * DW_TILE
+                    + (splits - 1) * taps * DW_TILE * DW_TILE)
+
+    splits = min(F32_MAX_WARPS // taps, per_chunk)
+    while smem_of(splits) > MAX_SMEM_BYTES:  # one split always fits
+        splits -= 1
+    smem = smem_of(splits)
+    return DwF32Plan(tiles, tap_groups, taps, splits, taps * splits, chunks_per_k, per_chunk,
+                     K * chunks_per_k, smem)
+
+
 @functools.cache
 def _kernel_fn():
     fn = _build.load(SOURCE).tap_conv_fwd
@@ -274,10 +447,12 @@ def _mma_fns():
 @functools.cache
 def _bwd_fns():
     lib = _build.load(SOURCE_BWD)
+    lib.tap_conv_dh_plan.restype = _I
+    lib.tap_conv_dh_plan.argtypes = [_I] * 8 + [_P]
     lib.tap_conv_dh.restype = _I
-    lib.tap_conv_dh.argtypes = [_P] * 5 + [_I] * 7 + [_P]
-    lib.tap_conv_dw_chunks.restype = _I
-    lib.tap_conv_dw_chunks.argtypes = [_I, _I, _I]
+    lib.tap_conv_dh.argtypes = [_P] * 5 + [_I] * 8 + [_P]
+    lib.tap_conv_dw_plan.restype = _I
+    lib.tap_conv_dw_plan.argtypes = [_I] * 7 + [_P]
     lib.tap_conv_dw.restype = _I
     lib.tap_conv_dw.argtypes = [_P] * 6 + [_I] * 7 + [_P]
     lib.tap_conv_dw_mma_plan.restype = _I
@@ -296,6 +471,29 @@ def dw_mma_plan_of_kernel(K: int, B: int, Lp: int, cin: int, cout: int, kh: int,
     if _bwd_fns().tap_conv_dw_mma_plan(K, B, Lp, cin, cout, kh, kw, p_max, out) != 0:
         return None
     return DwMmaPlan(*out)
+
+
+def dh_f32_plan_of_kernel(K: int, B: int, Lp: int, cin: int, cout: int, kh: int, kw: int,
+                          p_max: int) -> Optional[DhF32Plan]:
+    """The float32 dh plan ``csrc/tap_conv_bwd.cu`` itself makes, or None
+    where it refuses the shape: what :func:`dh_f32_plan` mirrors (builds the
+    library)."""
+
+    out = (ctypes.c_int * len(DhF32Plan._fields))()
+    if _bwd_fns().tap_conv_dh_plan(K, B, Lp, cin, cout, kh, kw, p_max, out) != 0:
+        return None
+    return DhF32Plan(*out)
+
+
+def dw_f32_plan_of_kernel(K: int, B: int, Lp: int, cin: int, cout: int, kh: int,
+                          kw: int) -> Optional[DwF32Plan]:
+    """The float32 dW plan ``csrc/tap_conv_bwd.cu`` itself makes, or None
+    where it refuses the shape: what :func:`dw_f32_plan` mirrors."""
+
+    out = (ctypes.c_int * len(DwF32Plan._fields))()
+    if _bwd_fns().tap_conv_dw_plan(K, B, Lp, cin, cout, kh, kw, out) != 0:
+        return None
+    return DwF32Plan(*out)
 
 
 def fold_mma_plan_of_kernel(sign: int, K: int, B: int, Lp: int, cin: int, cout: int, kh: int,
@@ -424,10 +622,10 @@ def tap_conv_dh_cuda(
     float32, exactly 0 at and past each fold extent; the caller casts it to
     the input's type. The routes are those of :func:`tap_conv_cuda`: bf16
     runs the tensor-core template ``tap_conv_dh_mma`` (its shape limits as
-    there; what it cannot take raises ``RuntimeError``),
-    float32 the CUDA-core kernel ``tap_conv_dh``, with no fallback between
-    them. ``launches_dh`` counts both routes, ``launches_dh_mma`` the
-    tensor-core one.
+    there), float32 the CUDA-core kernel ``tap_conv_dh`` (its limits:
+    :func:`dh_f32_plan`), with no fallback between them: a shape a route
+    cannot take raises ``RuntimeError``. ``launches_dh`` counts both routes,
+    ``launches_dh_mma`` the tensor-core one.
     """
 
     _check("tap_conv_dh_cuda", ct, kh, kw)
@@ -438,10 +636,12 @@ def tap_conv_dh_cuda(
     p_max = _check_geometry("tap_conv_dh_cuda", geom, ct, kernel)
 
     mma = ct.dtype == torch.bfloat16
-    if mma:
-        fold_mma_plan(-1, K, B, Lp, Cin, Cout, kh, kw, p_max)  # raises on what it cannot take
+    if mma:  # each raises on what its kernel cannot take
+        fold_mma_plan(-1, K, B, Lp, Cin, Cout, kh, kw, p_max)
+    else:
+        dh_f32_plan(K, B, Lp, Cin, Cout, kh, kw, p_max)
     w = _aligned(kernel.to(ct.dtype).contiguous())
-    x = _aligned(ct) if mma else ct
+    x = _aligned(ct)
     dh = torch.empty((K, B, Lp, Cin), dtype=torch.float32, device=ct.device)
     ptrs = (x.data_ptr(), w.data_ptr(), geom.periods.data_ptr(), geom.cycles.data_ptr(),
             dh.data_ptr())
@@ -450,7 +650,7 @@ def tap_conv_dh_cuda(
         if mma:
             err = _mma_fns().tap_conv_dh_mma(*ptrs, K, B, Lp, Cin, Cout, kh, kw, p_max, stream)
         else:
-            err = _bwd_fns().tap_conv_dh(*ptrs, K, B, Lp, Cin, Cout, kh, kw, stream)
+            err = _bwd_fns().tap_conv_dh(*ptrs, K, B, Lp, Cin, Cout, kh, kw, p_max, stream)
     _raise_on(err, "tap_conv_dh_mma" if mma else "tap_conv_dh",
               f"K={K}, B={B}, Lp={Lp}, Cin={Cin}, Cout={Cout}, {kh}x{kw}")
     launches_dh[f"{kh}x{kw}"] += 1
@@ -477,7 +677,8 @@ def tap_conv_dw_cuda(
       (:func:`dw_mma_plan`, with ``p_max = geom.Lp - geom.L``) raises
       ``RuntimeError``.
     - float32: the CUDA-core kernel ``tap_conv_dw``, whose float32 FMAs keep
-      the products exact (the tensor cores would round them to TF32).
+      the products exact (the tensor cores would round them to TF32). Its
+      plan is :func:`dw_f32_plan`.
 
     Both sum per-chunk partials in a fixed order (no float atomics), so the
     result is the same from run to run; the wrapper allocates their scratch
@@ -499,10 +700,11 @@ def tap_conv_dw_cuda(
     if mma:
         chunks = dw_mma_plan(K, B, Lp, Cin, Cout, kh, kw, p_max).chunks
     else:
-        chunks = lib.tap_conv_dw_chunks(K, B, kh)
+        chunks = dw_f32_plan(K, B, Lp, Cin, Cout, kh, kw).chunks
     partial = torch.empty((chunks, kh, kw, Cin, Cout), dtype=torch.float32, device=h.device)
     dw = torch.empty((kh, kw, Cin, Cout), dtype=torch.float32, device=h.device)
-    ptrs = (h.data_ptr(), ct.data_ptr(), geom.periods.data_ptr(), geom.cycles.data_ptr(),
+    x, y = _aligned(h), _aligned(ct)
+    ptrs = (x.data_ptr(), y.data_ptr(), geom.periods.data_ptr(), geom.cycles.data_ptr(),
             partial.data_ptr(), dw.data_ptr())
     with torch.cuda.device(h.device):
         stream = torch.cuda.current_stream(h.device).cuda_stream

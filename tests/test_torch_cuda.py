@@ -205,11 +205,100 @@ def test_backward_kernels_reject_what_they_cannot_take(cuda):
         cuda_fold.tap_conv_dw_cuda(ct, geom, ct.bfloat16(), 3, 3)
     with pytest.raises(ValueError, match="CUDA tensors"):
         cuda_fold.tap_conv_dw_cuda(ct.cpu(), geom, ct, 3, 3)
-    # 48 output channels do not divide the dW kernel's 256 threads: the
-    # kernel itself refuses with cudaErrorInvalidValue
-    with pytest.raises(RuntimeError, match="cudaError_t 1 "):
-        cuda_fold.tap_conv_dw_cuda(ct, geom,
-                                   torch.zeros((1, 2, geom.Lp, 48), device=cuda), 3, 3)
+    # float32 dh: W's 8-channel tile of 256 x 256 at 7x7 and one staged item
+    # pass 227 KB; the plan refuses before any launch, and nothing stands in
+    before = (sum(cuda_fold.launches_dh.values()), sum(cuda_fold.launches_dh_mma.values()))
+    wide = fold.make_geometry(torch.tensor([7, 27], dtype=torch.int32, device=cuda), 28, 27)
+    with pytest.raises(RuntimeError, match="cudaError_t 1 .*more than 232448 bytes"):
+        cuda_fold.tap_conv_dh_cuda(torch.zeros((2, 2, wide.Lp, 256), device=cuda), wide,
+                                   torch.zeros(7, 7, 256, 256, device=cuda), 7, 7)
+    assert (sum(cuda_fold.launches_dh.values()),
+            sum(cuda_fold.launches_dh_mma.values())) == before
+    # float32 dW takes any channels now: 48 output channels (which the first
+    # design's 256 threads refused), in a partial 32 x 32 tile
+    h = torch.randn((1, 2, geom.Lp, 4), device=cuda)
+    ct48 = torch.randn((1, 2, geom.Lp, 48), device=cuda)
+    dw = cuda_fold.tap_conv_dw_cuda(h, geom, ct48, 3, 3)
+    torch.testing.assert_close(dw, fold.tap_weight_grad(h, geom, ct48, 3, 3), rtol=1e-4,
+                               atol=1e-4)
+
+
+def _f32_routes(cuda, B, L, periods, cin, cout, kh, kw, seed):
+    """The float32 dh and dW kernels at these shapes against the plain
+    versions, each launched twice: the same bits both times, one CUDA-core
+    launch each and none on a tensor-core route, dh 0 at and past each fold
+    extent."""
+
+    geom = fold.make_geometry(torch.tensor(periods, dtype=torch.int32, device=cuda), L, L - 1)
+    rng = np.random.default_rng(seed)
+    h, ct = (torch.from_numpy(rng.standard_normal((len(periods), B, geom.Lp, c))
+                              .astype(np.float32)).to(cuda) for c in (cin, cout))
+    w = torch.from_numpy((rng.standard_normal((kh, kw, cin, cout)) * 0.3).astype(np.float32)).to(cuda)
+    key = f"{kh}x{kw}"
+    counters = (cuda_fold.launches_dh, cuda_fold.launches_dh_mma, cuda_fold.launches_dw,
+                cuda_fold.launches_dw_mma)
+    before = [c[key] for c in counters]
+    dh = [cuda_fold.tap_conv_dh_cuda(ct, geom, w, kh, kw) for _ in range(2)]
+    dw = [cuda_fold.tap_conv_dw_cuda(h, geom, ct, kh, kw) for _ in range(2)]
+    torch.cuda.synchronize()
+    assert [c[key] for c in counters] == [before[0] + 2, before[1], before[2] + 2, before[3]]
+    want_dh = fold.tap_conv_dh(ct, geom, w, kh, kw)
+    want_dw = fold.tap_weight_grad(h, geom, ct, kh, kw)
+    torch.testing.assert_close(dh[0], want_dh, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(dw[0], want_dw, rtol=1e-4, atol=1e-4 * float(want_dw.abs().max()))
+    for k, total in enumerate(geom.total.tolist()):
+        assert not dh[0][k, :, total:].any()
+    assert torch.equal(dh[0], dh[1]) and torch.equal(dw[0], dw[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cin,cout", [(16, 16), (48, 48), (64, 64), (48, 32), (32, 64), (64, 24),
+                                      (18, 30)])
+@pytest.mark.parametrize("kh,kw", [(3, 3), (7, 7)])
+def test_f32_backward_routes_match_plain(cuda, kh, kw, cin, cout):
+    """Channels 16-64, Cin != Cout both ways, Cin = 64 at 7x7 (which the first
+    float32 dW refused), widths that take 4-byte copies, at B=16."""
+
+    _f32_routes(cuda, 16, 28, [7, 27], cin, cout, kh, kw, seed=cin + cout + kh)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kh", [3, 5])
+def test_f32_backward_routes_take_the_long_context_shape(cuda, kh):
+    """configs/long_context.yaml's fold: L=512 (Lp=1023, p_cap 511), K=4,
+    mid 32, 3x3 and 5x5: dh staged as kh bands of 64-row items."""
+
+    assert cuda_fold.dh_f32_plan(4, 4, 1023, 32, 32, kh, kh, 511).band == 1
+    _f32_routes(cuda, 4, 512, [511, 168, 24, 7], 32, 32, kh, kh, seed=kh)
+
+
+@pytest.mark.cuda
+def test_f32_dh_takes_short_items(cuda):
+    """Mid 61 at 7x7, L=245: 32-row items, 8-channel tiles, bands."""
+
+    plan = cuda_fold.dh_f32_plan(2, 2, 489, 61, 61, 7, 7, 244)
+    assert (plan.nt, plan.rt, plan.band) == (8, 32, 1)
+    _f32_routes(cuda, 2, 245, [244, 30], 61, 61, 7, 7, seed=5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [
+    (2, 256, 55, 32, 32, 3, 3, 27), (2, 256, 55, 32, 32, 5, 5, 27), (2, 256, 55, 32, 32, 7, 7, 27),
+    (2, 256, 55, 64, 64, 7, 7, 27), (2, 16, 55, 48, 32, 3, 3, 27), (4, 64, 1023, 32, 32, 5, 5, 511),
+    (2, 16, 489, 61, 61, 7, 7, 244), (3, 7, 35, 18, 30, 5, 3, 17), (2, 4, 55, 256, 256, 7, 7, 27),
+    (2, 4, 55, 32, 32, 3, 3, 56), (2, 4, 55, 8, 8, 1, 35, 27),
+])
+def test_f32_plans_mirror_the_kernel(cuda, shape):
+    """ops/cuda_fold.py::dh_f32_plan and dw_f32_plan give the plans
+    csrc/tap_conv_bwd.cu makes, and refuse what it refuses."""
+
+    got = cuda_fold.dh_f32_plan_of_kernel(*shape)
+    if got is None:
+        with pytest.raises(RuntimeError, match="cudaError_t 1 "):
+            cuda_fold.dh_f32_plan(*shape)
+    else:
+        assert cuda_fold.dh_f32_plan(*shape) == got
+    assert cuda_fold.dw_f32_plan(*shape[:7]) == cuda_fold.dw_f32_plan_of_kernel(*shape[:7])
 
 
 def _mma_route(cuda, sign, B, L, periods, cin, cout, kh, kw, seed):
