@@ -13,15 +13,18 @@ Phases, each of which fails the run (non-zero exit, no result line):
 3. kernels: the fold-conv forward against its plain PyTorch version on the
    card at the serving shape (K=2 candidates, B=192 series, L=28, Lp=55,
    32 channels) for 3x3, 5x5 and 7x7, three period sets and bf16 (the
-   tensor-core template, whose plan must equal the wrapper's mirror of it)
-   and float32 (the CUDA-core kernel), within 1e-4, and in float32 against
-   cuDNN over the exact fold grids within 1e-3;
+   tensor-core template) and float32 (the CUDA-core kernel), within 1e-4
+   over every row of Lp, and in float32 against cuDNN over the exact fold
+   grids within 1e-3; the float32 kernel gives the same bits twice, and
+   each route's plan (at B=192 and B=256) must equal the wrapper's mirror
+   of it;
 4. serve: a ``Forecaster`` at the full width of the flagship model
    (``configs/demand_benchmark.yaml``: d_model 128, d_ff 512, two layers,
    2,536,356 parameters, bf16 conv islands) with seeded random weights
    answers 200 timed requests of 192 series x 28 days; the forward must be
    launched 12 times per request, all on the tensor-core route, the forecasts must be finite and >= 0,
-   and a float32 request must match the same request on the CPU within 1e-4.
+   and a float32 request must match the same request on the CPU within 1e-4,
+   its forward launched 12 times, none on the tensor-core route.
    Then 200 requests interleaved with 200 forwards on the request's own
    device inputs split the request into host and forward;
 5. profile: device time per request by kernel (torch.profiler, 50
@@ -56,8 +59,10 @@ Phases, each of which fails the run (non-zero exit, no result line):
    (served requests for the forward, training steps for the backward),
    beside its plain
    version, cuDNN over the exact fold grids (a yardstick the port never
-   calls) and its bound on the card, the float32 dh and dW also beside
-   the times of their previous design. Times are device time (torch.profiler's
+   calls) and its bound on the card, the float32 forward, dh and dW also
+   beside the times of their previous design (the float32 forward also at
+   B=256 on the training path's periods, where a float32 step runs it; the
+   ``kernels`` line keeps B=192). Times are device time (torch.profiler's
    kernel time, mean of 100 calls; a profiler session that loses records is
    taken again, and the run fails if they keep being lost); the kernel's and
    cuDNN's calls are also timed back to back by CUDA events, which adds the
@@ -94,10 +99,11 @@ REQUESTS = 200  # timed requests per serving measurement (about 12 ms each)
 PROFILED = 50  # requests under the profiler
 PROFILER_TRIES = 5  # profiler sessions a device time may take before the run fails
 LAUNCHES_PER_PASS = 12  # 2 layers x 2 inception blocks x 3 branches, per forward or backward
-# device us of the previous design of the float32 dh and dW kernels at these
-# shapes and periods on an H100 80GB HBM3 at 700 W (PERF.md's kernel table,
-# "Before"), printed beside this run's
-BEFORE_F32_US = {"dh": (64.80, 140.00, 235.46), "dw": (171.02, 194.47, 336.00)}
+# device us of the previous design of the float32 forward (B=192, the served
+# periods), dh and dW (B=256, the training periods) kernels on an H100 80GB
+# HBM3 at 700 W (PERF.md's kernel table, "Before"), printed beside this run's
+BEFORE_F32_US = {"fwd": (46.61, 78.29, 125.42), "dh": (64.80, 140.00, 235.46),
+                 "dw": (171.02, 194.47, 336.00)}
 REPLACES = "flow_timesnet_tpu/ops/pallas_fold.py:174"
 REPLACES_DH = "flow_timesnet_tpu/ops/pallas_fold.py:174 (sign=-1, 133-138)"
 SOURCE_MMA = "flow_timesnet_tpu_torch/csrc/tap_conv_mma.cu"
@@ -304,10 +310,11 @@ def library_conv(torch, F, h, periods, weight, bias, kh, kw):
     that scatters their output back to the [K, B, Lp, Cout] fold layout."""
 
     grids, calls = [], []
+    batch = h.shape[1]
     w = weight.permute(3, 2, 0, 1).contiguous()  # HWIO -> OIHW
     for k, p in enumerate(periods):
         cycles = -(-L // p)
-        grid = h[k, :, : cycles * p].reshape(B, cycles, p, C).permute(0, 3, 1, 2).contiguous()
+        grid = h[k, :, : cycles * p].reshape(batch, cycles, p, C).permute(0, 3, 1, 2).contiguous()
         grids.append((grid, cycles, p))
         calls.append(lambda g=grid: F.conv2d(g, w, bias, padding=(kh // 2, kw // 2)))
 
@@ -315,7 +322,8 @@ def library_conv(torch, F, h, periods, weight, bias, kh, kw):
         return [c() for c in calls]
 
     def unfold(outs):
-        return [o.permute(0, 2, 3, 1).reshape(B, cyc * p, C) for o, (_, cyc, p) in zip(outs, grids)]
+        return [o.permute(0, 2, 3, 1).reshape(batch, cyc * p, C)
+                for o, (_, cyc, p) in zip(outs, grids)]
 
     return run, unfold
 
@@ -357,6 +365,17 @@ def check_fold_plan(cuda_fold, sign: int, batch: int, kh: int, kw: int) -> None:
     check(cuda_fold.fold_mma_plan_of_kernel(sign, K, batch, LP, C, C, kh, kw, P_MAX) == plan,
           f"{name} {kh}x{kw}: the wrapper's plan differs from the kernel's")
     print(f"[kernel] {name} {kh}x{kw} plan (the kernel's own): {plan._asdict()}")
+
+
+def check_fwd_f32_plan(cuda_fold, batch: int, kh: int, kw: int) -> None:
+    """The float32 forward's plan at this shape: the wrapper's mirror must
+    equal the kernel's own."""
+
+    plan = cuda_fold.fwd_f32_plan(K, batch, LP, C, C, kh, kw, P_MAX)
+    check(cuda_fold.fwd_f32_plan_of_kernel(K, batch, LP, C, C, kh, kw, P_MAX) == plan,
+          f"tap_conv_fwd {kh}x{kw} B={batch}: the wrapper's plan differs from the kernel's")
+    print(f"[kernel] tap_conv_fwd {kh}x{kw} float32 B={batch} plan (the kernel's own): "
+          f"{plan._asdict()}")
 
 
 def check_backward_kernels(torch, fold, cuda_fold, gen, dev):
@@ -437,6 +456,28 @@ def check_backward_kernels(torch, fold, cuda_fold, gen, dev):
     return max_err
 
 
+def check_forward(torch, fold, cuda_fold, h, geom, weight, bias, kh, kw, label: str) -> float:
+    """Holds the forward kernel of h's dtype against its plain version over
+    every row of Lp, and the float32 kernel (fixed order of summation)
+    against a second launch for the same bits. Fails the run on either;
+    returns the largest difference."""
+
+    got = cuda_fold.tap_conv_cuda(h, geom, weight, bias, kh, kw)
+    want = fold.tap_conv(h, geom, weight, bias, kh, kw)
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    ok = bool(torch.allclose(got, want, rtol=TOL, atol=TOL))
+    f32 = h.dtype == torch.float32
+    same = not f32 or torch.equal(got, cuda_fold.tap_conv_cuda(h, geom, weight, bias, kh, kw))
+    print(f"[kernel] {label} {str(h.dtype)[6:]}: max |kernel - plain| {err:.3e} over all "
+          f"{h.shape[2]} rows {'ok' if ok else 'FAIL'}"
+          + (f", the same bits twice: {same}" if f32 else ""))
+    check(ok, f"tap_conv_fwd {label} {h.dtype} disagrees with the plain version: "
+              f"{err:.3e} > {TOL}")
+    check(same, f"tap_conv_fwd {label} float32: the bits differ from run to run")
+    return err
+
+
 def time_forward(torch, F, fold, cuda_fold, h, geom, periods, weight, bias, kh, kw):
     """:func:`measure` of the forward kernel on these inputs; the route is
     that of their dtype."""
@@ -446,7 +487,20 @@ def time_forward(torch, F, fold, cuda_fold, h, geom, periods, weight, bias, kh, 
     return measure(
         torch,
         lambda: cuda_fold.tap_conv_cuda(h, geom, weight, bias, kh, kw),
-        lambda: fold.tap_conv(h, geom, weight, bias, kh, kw), run, bound(periods, kh, kw, dtype))
+        lambda: fold.tap_conv(h, geom, weight, bias, kh, kw), run,
+        bound(periods, kh, kw, dtype, h.shape[1]))
+
+
+def before_line(np, kind: str, key: str, rows, periods, batch: int) -> str:
+    """A float32 kernel's mean over the period sets beside its previous
+    design's time, cuDNN's and its bound."""
+
+    mean = mean_of(np, rows)
+    return (f"[time] {kind}_f32 {key} B={batch} over the periods {periods}: kernel "
+            f"{mean['ms'] * 1e3:.2f} us against the previous design's "
+            f"{BEFORE_F32_US[kind][[f'{a}x{b}' for a, b in KERNEL_SIZES].index(key)]:.2f} us, "
+            f"cuDNN {mean['library_ms'] * 1e3:.2f} us, bound {mean['bound_ms'] * 1e3:.3f} us "
+            f"({mean['ms'] / mean['library_ms']:.2f}x cuDNN)")
 
 
 def time_backward(torch, fold, cuda_fold, h, ct, geom, periods, weight, kh, kw,
@@ -726,6 +780,8 @@ def main() -> int:
     max_err = {}
     for kh, kw in KERNEL_SIZES:
         check_fold_plan(cuda_fold, 1, B, kh, kw)
+        for batch in (B, B_TRAIN):  # served requests and float32 training steps
+            check_fwd_f32_plan(cuda_fold, batch, kh, kw)
         weight = torch.randn((kh, kw, C, C), generator=gen, device=dev) * 0.3
         bias = torch.randn((C,), generator=gen, device=dev) * 0.1
         for periods in PERIOD_SETS:
@@ -735,17 +791,10 @@ def main() -> int:
             h32 = torch.randn((K, B, LP, C), generator=gen, device=dev)
             for dtype in (torch.bfloat16, torch.float32):
                 h = h32.to(dtype)
-                got = cuda_fold.tap_conv_cuda(h, geom, weight, bias, kh, kw)
-                want = fold.tap_conv(h, geom, weight, bias, kh, kw)
-                torch.cuda.synchronize()
-                err = float((got - want).abs().max())
-                ok = bool(torch.allclose(got, want, rtol=TOL, atol=TOL))
                 name = f"fwd_{'mma' if dtype == torch.bfloat16 else 'f32'}_{kh}x{kw}"
+                err = check_forward(torch, fold, cuda_fold, h, geom, weight, bias, kh, kw,
+                                    f"{kh}x{kw} periods {list(periods)}")
                 max_err[name] = max(max_err.get(name, 0.0), err)
-                print(f"[kernel] {kh}x{kw} periods {list(periods)} {str(dtype)[6:]}: "
-                      f"max |kernel - plain| {err:.3e} {'ok' if ok else 'FAIL'}")
-                check(ok, f"tap_conv_fwd {kh}x{kw} {periods} {dtype} disagrees with the plain "
-                          f"version: {err:.3e} > {TOL}")
                 if dtype == torch.bfloat16:  # the serving path's type: time it here too
                     t = time_forward(torch, F, fold, cuda_fold, h, geom, periods, weight, bias,
                                      kh, kw)
@@ -758,6 +807,10 @@ def main() -> int:
             print(f"[kernel] {kh}x{kw} periods {list(periods)} float32: "
                   f"max |kernel - cuDNN over the exact grids| {err:.3e}")
             check(err <= 1e-3, f"{kh}x{kw} {periods}: kernel vs cuDNN grid conv {err:.3e}")
+            # the float32 step's batch has a plan of its own (every group of 4 takes an item)
+            check_forward(torch, fold, cuda_fold,
+                          torch.randn((K, B_TRAIN, LP, C), generator=gen, device=dev), geom,
+                          weight, bias, kh, kw, f"{kh}x{kw} periods {list(periods)} B={B_TRAIN}")
 
     # 4. serve at the flagship width -------------------------------------------
     cfg = flagship_config(timesnet)
@@ -842,13 +895,25 @@ def main() -> int:
     print(f"[layers] forward alone (the request's device inputs) ms {spread(np, fwd)}")
     print(f"[layers] request minus forward, pair by pair, ms {spread(np, host)}")
 
-    # float32 on the card against float32 on the CPU, same request
+    # float32 on the card against float32 on the CPU, same request; on the
+    # card its forward takes the CUDA-core kernel, 12 launches, none on the
+    # tensor-core route
     cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
     raw = {}
     for device in ("cuda", "cpu"):
         f32 = forecaster.Forecaster(params, cfg32, ids, scaler, "zscore", static, sigma, tf_cfg,
                                     device=device)
+        for counter in path_counters(cuda_fold).values():
+            counter.clear()  # the float32 request's launches, from here ...
         raw[device] = f32._forecast_raw(history, dates=dates)[:2]
+        if device == "cuda":
+            got = {name: dict(c) for name, c in path_counters(cuda_fold).items()}  # ... to here
+            per = LAUNCHES_PER_PASS // len(KERNEL_SIZES)
+            print(f"[serve] float32 request launches {got}")
+            check(all(got["tap_conv_fwd"].get(f"{kh}x{kw}", 0) == per and
+                      not got["tap_conv_fwd_mma"].get(f"{kh}x{kw}", 0) for kh, kw in KERNEL_SIZES)
+                  and sum(got["tap_conv_fwd"].values()) == LAUNCHES_PER_PASS,
+                  f"float32 request launches {got}: 12 of the CUDA-core forward, no tensor-core one")
     for name, a, b in zip(("rate", "dispersion"), raw["cuda"], raw["cpu"]):
         err = float(np.abs(a - b).max())
         print(f"[serve] float32 card vs CPU {name}: max abs diff {err:.3e}")
@@ -883,6 +948,7 @@ def main() -> int:
                                                 weight, bias, kh, kw))
                 print(f"[time] fwd_{route} {key} periods {list(periods)} "
                       f"{'bf16' if route == 'mma' else 'float32'}: {described(rows[route][-1])}")
+        print(before_line(np, "fwd", key, rows["f32"], served, B))
         for route, source, launched, extra in (
                 ("mma", SOURCE_MMA, counts_mma[key],
                  {"launches_train": trained["counts"]["tap_conv_fwd_mma"][key]}),
@@ -913,12 +979,23 @@ def main() -> int:
                       f"{'bf16' if kind.endswith('mma') else 'float32'} B={B_TRAIN}: "
                       f"{described(t[kind])}")
         for kind in ("dh", "dw"):
-            mean = mean_of(np, [r[f"{kind}_f32"] for r in rows])
-            print(f"[time] {kind}_f32 {key} over the periods {trained['periods']}: kernel "
-                  f"{mean['ms'] * 1e3:.2f} us against the previous design's "
-                  f"{BEFORE_F32_US[kind][KERNEL_SIZES.index((kh, kw))]:.2f} us, cuDNN "
-                  f"{mean['library_ms'] * 1e3:.2f} us, bound {mean['bound_ms'] * 1e3:.3f} us "
-                  f"({mean['ms'] / mean['library_ms']:.2f}x cuDNN)")
+            print(before_line(np, kind, key, [r[f"{kind}_f32"] for r in rows], trained["periods"],
+                              B_TRAIN))
+        # the float32 forward where a float32 step runs it: B=256, the training periods
+        bias = torch.randn((C,), generator=gen, device=dev) * 0.1
+        fwd_train = []
+        for periods in trained["periods"]:
+            geom = fold.make_geometry(torch.tensor(periods, dtype=torch.int32, device=dev), L, P_MAX)
+            check_forward(torch, fold, cuda_fold, h.float(), geom, weight, bias, kh, kw,
+                          f"{kh}x{kw} training periods {list(periods)} B={B_TRAIN}")
+            fwd_train.append(time_forward(torch, F, fold, cuda_fold, h.float(), geom, periods,
+                                          weight, bias, kh, kw))
+            print(f"[time] fwd_f32 {key} periods {list(periods)} float32 B={B_TRAIN}: "
+                  f"{described(fwd_train[-1])}")
+        mean = mean_of(np, fwd_train)
+        print(f"[time] fwd_f32 {key} B={B_TRAIN} over the periods {trained['periods']}: kernel "
+              f"{mean['ms'] * 1e3:.2f} us, cuDNN {mean['library_ms'] * 1e3:.2f} us, bound "
+              f"{mean['bound_ms'] * 1e3:.3f} us ({mean['ms'] / mean['library_ms']:.2f}x cuDNN)")
         for kind, replaces, source in (("dh_mma", REPLACES_DH, SOURCE_MMA),
                                        ("dh_f32", REPLACES_DH, SOURCE_BWD),
                                        ("dw_mma", REPLACES_DW, SOURCE_BWD),

@@ -1,8 +1,9 @@
-// PTX helpers shared by the staged kernels (tap_conv_bwd.cu's dh and dW and
-// tap_conv_mma.cu's forward and dh): cp.async copies into shared memory,
-// ldmatrix fragment loads and the bf16 mma.sync m16n8k16 with float32 sums.
-// ops/_build.py hashes every csrc/*.cuh into each library's name, so an edit
-// here rebuilds both libraries.
+// PTX helpers shared by the staged kernels (tap_conv_fwd.cu's forward,
+// tap_conv_bwd.cu's dh and dW, tap_conv_mma.cu's forward and dh): cp.async
+// copies into shared memory, named barriers, ldmatrix fragment loads and the
+// bf16 mma.sync m16n8k16 with float32 sums. ops/_build.py hashes every
+// csrc/*.cuh into each library's name, so an edit here rebuilds every
+// library.
 //
 // Fragment conventions (PTX ISA, mma.m16n8k16 with .bf16): lane l has
 // g = l / 4 and q = l % 4. A (16 x 16, row-major) sits in 4 registers of
@@ -46,6 +47,18 @@ __device__ __forceinline__ void cp_async_commit() {
 
 __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// wait until at most N commit groups of this thread are in flight
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// the `threads` threads of a group of warps meet at named barrier group + 1
+// (barrier 0 is __syncthreads)
+__device__ __forceinline__ void group_barrier(int group, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(group + 1), "r"(threads) : "memory");
 }
 
 // Four 8x8 bf16 matrices: lane l names row l % 8 of matrix l / 8 and

@@ -131,23 +131,16 @@
 #include <algorithm>
 #include <cstdint>
 
-#include "mma_ptx.cuh"
+#include "f32_stage.cuh"
 
 namespace {
 
 constexpr int kThreads = 256;  // pass 2 of dW
-constexpr int kMaxSmemBytes = 232448;  // 227 KB: the most one block may use
-constexpr int kSmemPerSm = 233472;  // 228 KB a streaming multiprocessor
-constexpr int kSmemReserved = 1024;  // what the runtime keeps of it per block
-constexpr int kSms = 132;  // an H100 SXM
 
-// float32 (CUDA cores). ops/cuda_fold.py mirrors these and the plans below.
+// float32 (CUDA cores). ops/cuda_fold.py mirrors these, f32_stage.cuh's and
+// the plans below.
 constexpr int kF32Rows = 64;  // dW: rows of an item, a 64-row tile of one sequence
-constexpr int kF32MaxWarps = 16;  // warps of a block
-constexpr int kF32RegsCap = 65536 / (kF32MaxWarps * 32);  // __launch_bounds__(512, 1)
-constexpr int kDhMaxGroups = 15;  // dh: a group syncs on named barrier group + 1, of 1-15
 constexpr int kDhTiles[3] = {32, 16, 8};  // dh: input channels of a block's tile
-constexpr int kDhRowTiles[3] = {64, 32, 16};  // dh: output rows of an item, preferred first
 constexpr int kDwTile = 32;  // dW: a warp's tile, 32 ci x 32 co
 constexpr int kDwStages = 2;  // dW: staged rounds in the ring, one load in flight
 
@@ -159,51 +152,6 @@ constexpr int kRowPad = 8;       // bf16 added to each staged row: conflict-free
 constexpr int kMmaMaxWarps = 16;  // one warp per tap of a kernel row: kw <= 16
 constexpr int kMmaStages = 4;  // staged sequences in the ring: three loads in flight
 constexpr int kMmaTargetWarps = 8 * 132;  // pass 1: about 8 warps per SM in all
-
-// floats of a staged float32 row of `cols` channels: whole float4s, an odd
-// number of them, so that 8 consecutive rows start in 8 distinct bank groups
-__host__ __device__ constexpr int f32_stride(int cols) { return ((cols + 3) / 4 | 1) * 4; }
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-__device__ __forceinline__ void group_barrier(int group, int threads) {
-  asm volatile("bar.sync %0, %1;\n" ::"r"(group + 1), "r"(threads) : "memory");
-}
-
-// Rows [g0, g0 + n) of a [Lp, C] float32 sequence, columns [c0, c0 + cols)
-// that lie inside C, into dst rows of `stride` floats, asynchronously; rows
-// outside [0, Lp) are left as they are. vec: C % 4 == 0 and the sequence
-// starts on 16 bytes, so whole 16-byte vectors (c0 is a multiple of 4);
-// else 4-byte copies.
-__device__ __forceinline__ void stage_rows(float* dst, int stride, const float* seq, int Lp,
-                                           int C, int g0, int n, int c0, int cols, bool vec,
-                                           int tid, int nthr) {
-  const int lo = max(0, -g0), hi = min(n, Lp - g0);
-  const int w = min(cols, C - c0);
-  if (hi <= lo || w <= 0) return;
-  const float* src = seq + static_cast<size_t>(g0 + lo) * C + c0;
-  dst += lo * stride;
-  const int per_row = vec ? w / 4 : w;
-  // copy tid + j * nthr of (hi - lo) rows x per_row, its (row, unit) walked without a division
-  const int dr = nthr / per_row, du = nthr % per_row;
-  int r = tid / per_row, u = tid % per_row;
-  while (r < hi - lo) {
-    if (vec) {
-      cp_async16(dst + r * stride + 4 * u, src + static_cast<size_t>(r) * C + 4 * u);
-    } else {
-      cp_async4(dst + r * stride + u, src + static_cast<size_t>(r) * C + u);
-    }
-    r += dr;
-    u += du;
-    if (u >= per_row) {
-      u -= per_row;
-      ++r;
-    }
-  }
-}
 
 // The launch plan of tap_conv_dh_kernel; ops/cuda_fold.py::dh_f32_plan mirrors it.
 struct DhF32Plan {
@@ -761,14 +709,6 @@ bool bad_shape(int K, int B, int Lp, int Cin, int Cout, int kh, int kw) {
          kh % 2 == 0 || kw % 2 == 0;
 }
 
-template <typename Kernel>
-cudaError_t reserve_smem(Kernel* kernel, size_t smem) {
-  if (smem > static_cast<size_t>(kMaxSmemBytes)) return cudaErrorInvalidValue;
-  if (smem <= 48 * 1024) return cudaSuccess;
-  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              static_cast<int>(smem));
-}
-
 int launch_dw_reduce(const float* partial, float* dw, int n_elems, int chunks,
                      cudaStream_t stream) {
   tap_conv_dw_reduce_kernel<<<(n_elems + kThreads - 1) / kThreads, kThreads, 0, stream>>>(
@@ -778,7 +718,7 @@ int launch_dw_reduce(const float* partial, float* dw, int n_elems, int chunks,
 
 // 0, or cudaErrorInvalidValue for a shape tap_conv_dh_kernel cannot take:
 // p_max outside [1, Lp], W's tile at 8 channels and one staged 16-row item
-// above 227 KB, or more chunks than a grid holds. Of the channel tiles (32,
+// above 227 KB, or more items or chunks than it counts (f32_chunks). Of the channel tiles (32,
 // 16 or 8 channels; 32 and 16 only where Cin reaches them) it takes the one
 // with room for the most warps (ties: the wider), each with the first item
 // height and then the most groups that fit; the chunks fill one wave of
@@ -797,13 +737,13 @@ int dh_f32_plan(int K, int B, int Lp, int Cin, int Cout, int kh, int kw, int p_m
     if (nt > Cin && nt != 8) continue;
     const int wr = 512 / nt;  // a warp's rows: 4 * RG, RG = 32 / (nt / 4)
     bool fits = false;
-    for (int rt : kDhRowTiles) {
+    for (int rt : kF32RowTiles) {
       if (fits) break;
       const long long window = std::min<long long>(Lp, rt + 2 * pad);
       const long long bands = 1LL * kh * (rt + kw - 1);
       const long long rows = std::min(window, bands);
       const int tpi = std::max(1, rt / wr);
-      for (int groups = std::min(kDhMaxGroups, kF32MaxWarps / tpi); groups >= 1; --groups) {
+      for (int groups = std::min(kF32MaxGroups, kF32MaxWarps / tpi); groups >= 1; --groups) {
         const long long bytes = 4 * (taps * nt + groups * rows + 1) * sc;
         if (bytes > kMaxSmemBytes) continue;
         fits = true;
@@ -826,18 +766,10 @@ int dh_f32_plan(int K, int B, int Lp, int Cin, int Cout, int kh, int kw, int p_m
   q.sc = static_cast<int>(sc);
   q.tiles = (Cin + q.nt - 1) / q.nt;
   q.smem = static_cast<int>(smem);
-  const int resident = std::max(1, std::min({kF32MaxWarps * 4 / q.warps,
-                                             static_cast<int>(kSmemPerSm / (smem + kSmemReserved)),
-                                             65536 / (q.warps * 32 * kF32RegsCap)}));
-  const long long want = std::max(1, (kSms * resident + q.tiles - 1) / q.tiles);
-  const long long items = 1LL * K * B * (q.lp_pad / q.rt);
-  const long long per = (items + std::min(items, want) - 1) / std::min(items, want);
-  const long long chunks = (items + per - 1) / per;
-  if (chunks > 65535 || per > 0x7fffffffLL || q.tiles > 65535) {
+  if (!f32_chunks(1LL * K * B * (q.lp_pad / q.rt), q.warps, smem, q.tiles, &q.per_chunk,
+                  &q.chunks)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  q.per_chunk = static_cast<int>(per);
-  q.chunks = static_cast<int>(chunks);
   *plan = q;
   return 0;
 }
@@ -887,8 +819,6 @@ int launch_dh_nt(const float* ct, const float* w, const int* periods, const int*
       ct, w, periods, cycles, dh, K, B, Lp, Cin, Cout, kh, kw, p_max, q);
   return static_cast<int>(cudaGetLastError());
 }
-
-bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
 
 // The launch plan of tap_conv_dw_mma_kernel; mirrored by
 // ops/cuda_fold.py::dw_mma_plan.

@@ -118,10 +118,6 @@ __host__ __device__ constexpr int row_stride(int cols) {
   return cols + ((cols / 8) % 2 == 0 ? 8 : 0);
 }
 
-__device__ __forceinline__ void group_barrier(int group, int threads) {
-  asm volatile("bar.sync %0, %1;\n" ::"r"(group + 1), "r"(threads) : "memory");
-}
-
 // The launch plan; ops/cuda_fold.py::fold_mma_plan mirrors it.
 struct FoldMmaPlan {
   int lp_pad;        // Lp rounded up to whole items

@@ -10,10 +10,11 @@ raises); on a CPU tensor both are the plain versions of ``ops/fold.py``.
 Each kernel has two routes, chosen by dtype, and neither gives way to the
 other: bf16 runs on the tensor cores (``tap_conv_mma.cu`` for the forward
 and dh, ``tap_conv_dw_mma`` for dW), float32 on the CUDA cores, whose
-float32 FMAs keep the products exact. Every kernel but the float32 forward
-has a launch plan, mirrored here constant for constant
-(:func:`fold_mma_plan`, :func:`dw_mma_plan`, :func:`dh_f32_plan`,
-:func:`dw_f32_plan`), so that the CPU tests can model the kernel's cuts.
+float32 FMAs keep the products exact. Every kernel has a launch plan,
+mirrored here constant for constant (:func:`fold_mma_plan`,
+:func:`dw_mma_plan`, :func:`fwd_f32_plan`, :func:`dh_f32_plan`,
+:func:`dw_f32_plan`), so that the CPU tests can model the kernel's cuts and
+a shape a kernel cannot take raises before its launch.
 Autograd never differentiates the plain version's gathers, whose transpose
 would be the scatter the JAX package's custom VJP avoids. ``chip_smoke.py``
 holds each kernel against its plain version on the card, and the CPU tests
@@ -254,13 +255,15 @@ def _fold_plan_with(stages, sign, K, B, Lp, cin, cout, kh, kw, p_max) -> Optiona
                        chunks_per_k, per_chunk, K * chunks_per_k, smem)
 
 
-# The plans of the float32 dh and dW kernels, constant for constant as in
+# The plans of the float32 forward, dh and dW kernels, constant for constant
+# as in csrc/f32_stage.cuh, csrc/tap_conv_fwd.cu (fwd_f32_plan) and
 # csrc/tap_conv_bwd.cu (dh_f32_plan, dw_f32_plan); a card test holds them together.
 F32_ROWS = 64  # dW: rows of an item, a 64-row tile of one sequence
 F32_MAX_WARPS = 16  # warps of a block
-DH_MAX_GROUPS = 15  # dh: a group syncs on one of the named barriers 1-15
+F32_MAX_GROUPS = 15  # forward and dh: a group syncs on one of the named barriers 1-15
+F32_ROW_TILES = (64, 32, 16)  # forward and dh: output rows of an item, preferred first
+FWD_TILES = (32, 16, 8)  # forward: output channels of a block's tile, widest first
 DH_TILES = (32, 16, 8)  # dh: input channels of a block's tile
-DH_ROW_TILES = (64, 32, 16)  # dh: output rows of an item, preferred first
 DW_TILE = 32  # dW: a warp's tile, 32 ci x 32 co
 DW_STAGES = 2  # dW: staged rounds (an item for each split) in a block's ring
 
@@ -273,12 +276,130 @@ def f32_stride(cols: int) -> int:
     return ((cols + 3) // 4 | 1) * 4
 
 
-def dh_warp_rows(nt: int) -> int:
-    """Rows a warp of the float32 dh kernel owns at a tile of ``nt`` input
-    channels: its lanes are 32 / (nt / 4) rows by nt / 4 groups of 4
+def f32_warp_rows(nt: int) -> int:
+    """Rows a warp of the float32 forward or dh kernel owns at a tile of
+    ``nt`` channels: its lanes are 32 / (nt / 4) rows by nt / 4 groups of 4
     channels, 4 rows a lane."""
 
     return 4 * (32 // (nt // 4))
+
+
+def _f32_chunks(items: int, warps: int, smem: int, tiles: int) -> Optional[tuple]:
+    """(per_chunk, chunks) of a float32 forward or dh plan: ``items`` items
+    cut into chunks, a persistent block each, that fill one wave of resident
+    blocks of ``warps`` warps and ``smem`` bytes over ``tiles`` channel
+    tiles, registers counted at the launch bounds' cap; None where a grid,
+    or the kernels' int item count, cannot hold them (``f32_chunks`` in
+    ``csrc/f32_stage.cuh``)."""
+
+    resident = max(1, min(WARPS_PER_SM // warps, SMEM_PER_SM // (smem + SMEM_RESERVED),
+                          REGS_PER_SM // (warps * 32 * REGS_CAP)))
+    per_chunk = -(-items // min(items, max(1, -(-SMS * resident // tiles))))
+    chunks = -(-items // per_chunk)
+    if items > 0x7FFFFFFF or chunks > 65535 or tiles > 65535:
+        return None
+    return per_chunk, chunks
+
+
+class FwdF32Plan(NamedTuple):
+    """How the float32 ``tap_conv_fwd`` cuts one call, in the order its C
+    plan reports. An item is ``rt`` output rows of one sequence."""
+
+    lp_pad: int  # Lp rounded up to whole items
+    pad: int  # (kh // 2) * p_max + kw // 2: the largest |dc * p + dj|
+    rt: int  # output rows of an item (64, 32 or 16)
+    band: int  # 1: an item is staged as kr bands of rt + kw - 1 rows; 0: one window
+    buf_rows: int  # rows of a staged item
+    kr: int  # kernel rows of a pass: kh, or fewer where all of W's taps do not fit
+    kc: int  # input channels of a pass: Cin, or a multiple of 4 where Cin takes passes
+    passes: int  # passes of a block over its items: ceil(kh / kr) * ceil(Cin / kc)
+    sx: int  # floats of a staged row of h: f32_stride(kc)
+    nt: int  # output channels of a block's tile (32, 16 or 8)
+    tiles: int  # channel tiles: ceil(Cout / nt)
+    groups: int  # items a block multiplies at once, max(1, rt // f32_warp_rows(nt)) warps each
+    warps: int  # warps of a block
+    per_chunk: int  # items of a chunk (the last one may hold fewer)
+    chunks: int  # chunks of the K * B * lp_pad / rt items, candidates interleaved
+    smem: int  # dynamic shared memory of a block, bytes
+
+
+@functools.lru_cache(maxsize=64)  # a request or a step asks for the same few plans each time
+def fwd_f32_plan(K: int, B: int, Lp: int, cin: int, cout: int, kh: int, kw: int,
+                 p_max: int) -> FwdF32Plan:
+    """The launch plan of the float32 forward kernel, or a ``RuntimeError``
+    through :func:`_raise_on` for a shape it cannot take (the kernel refuses
+    the same shapes with ``cudaErrorInvalidValue``).
+
+    A block stages the ``nt``-column slice of W's [tap][ci] rows once a
+    pass, ``kr * kw`` taps of ``kc`` (rounded up to 4) rows of ``nt``
+    floats, beside ``groups`` staged items of h (one window of
+    ``min(Lp, rt + 2 * pad)`` rows or ``kr`` bands of ``rt + kw - 1``, the
+    fewer) and one zero row, each :func:`f32_stride` (``kc``) floats. It
+    takes the fewest passes over the kernel rows (slices of ``kr`` rows),
+    then over Cin (slices of ``kc`` channels), at which a tile fits: one
+    pass where it can. Of the tiles (32 and 16 only where Cout reaches
+    them, 8 always) it takes the one with room for the most warps, ties to
+    the wider, each with the first item height (64, 32, 16) and then the
+    most groups that fit in ``MAX_SMEM_BYTES``. Items and chunks are those
+    of :func:`dh_f32_plan`.
+    """
+
+    shape = f"K={K}, B={B}, Lp={Lp}, Cin={cin}, Cout={cout}, {kh}x{kw}, p_max={p_max}"
+    why = None
+    if min(K, B, Lp, cin, cout, kh, kw) <= 0 or kh % 2 == 0 or kw % 2 == 0:
+        why = "every extent must be positive and the kernel size odd"
+    elif not 1 <= p_max <= Lp:
+        why = "p_max must lie in [1, Lp]"
+    if why is not None:
+        _raise_on(_INVALID_VALUE, "tap_conv_fwd", f"{shape}: {why}")
+    pad = (kh // 2) * p_max + kw // 2
+
+    def smem_of(kr, kc, nt, rows, groups):  # W's slice, the staged items and the zero row
+        return 4 * (kr * kw * -(-kc // 4) * 4 * nt + (groups * rows + 1) * f32_stride(kc))
+
+    def best_tile(kr, kc):  # (warps, nt, rt, groups, window, bands, smem), or None
+        best = None
+        for nt in FWD_TILES:
+            if nt > cout and nt != 8:
+                continue
+            for rt in F32_ROW_TILES:  # the first item height at which a group fits
+                window, bands = min(Lp, rt + 2 * pad), kr * (rt + kw - 1)
+                tpi = max(1, rt // f32_warp_rows(nt))  # warps of a group: an item's row tiles
+                rows = min(window, bands)
+                fit = next((g for g in range(min(F32_MAX_GROUPS, F32_MAX_WARPS // tpi), 0, -1)
+                            if smem_of(kr, kc, nt, rows, g) <= MAX_SMEM_BYTES), None)
+                if fit is not None:
+                    if best is None or fit * tpi > best[0]:
+                        best = (fit * tpi, nt, rt, fit, window, bands,
+                                smem_of(kr, kc, nt, rows, fit))
+                    break
+        return best
+
+    def channels(ci_passes):  # of a slice: all of Cin, else a multiple of 4 (16-byte copies)
+        share = -(-cin // ci_passes)
+        return cin if ci_passes == 1 else -(-share // 4) * 4
+
+    # the fewest passes over the kernel rows, then over Cin, at which a tile fits
+    slices = ((-(-kh // row_passes), channels(ci_passes)) for row_passes in range(1, kh + 1)
+              for ci_passes in range(1, -(-cin // 4) + 1))
+    for kr, kc in slices:
+        best = best_tile(kr, kc)
+        if best is not None:
+            break
+    else:
+        _raise_on(_INVALID_VALUE, "tap_conv_fwd", f"{shape}: W's 8-column slice of one kernel "
+                  f"row at 4 input channels and one staged item need more than "
+                  f"{MAX_SMEM_BYTES} bytes of shared memory")
+    warps, nt, rt, groups, window, bands, smem = best
+    lp_pad, tiles = -(-Lp // rt) * rt, -(-cout // nt)
+    chunking = _f32_chunks(K * B * (lp_pad // rt), warps, smem, tiles)
+    if chunking is None or pad > 0x7FFFFFFF:
+        _raise_on(_INVALID_VALUE, "tap_conv_fwd", f"{shape}: more than 65535 chunks or tiles, "
+                  f"or 2**31 items or rows of tap offset")
+    per_chunk, chunks = chunking
+    return FwdF32Plan(lp_pad, pad, rt, int(bands < window), min(window, bands), kr, kc,
+                      -(-kh // kr) * -(-cin // kc), f32_stride(kc), nt, tiles, groups, warps,
+                      per_chunk, chunks, smem)
 
 
 class DhF32Plan(NamedTuple):
@@ -293,7 +414,7 @@ class DhF32Plan(NamedTuple):
     sc: int  # floats of a staged row of ct or W: f32_stride(Cout)
     nt: int  # input channels of a block's tile (32, 16 or 8)
     tiles: int  # channel tiles: ceil(Cin / nt)
-    groups: int  # items a block multiplies at once, max(1, rt // dh_warp_rows(nt)) warps each
+    groups: int  # items a block multiplies at once, max(1, rt // f32_warp_rows(nt)) warps each
     warps: int  # warps of a block
     per_chunk: int  # items of a chunk (the last one may hold fewer)
     chunks: int  # chunks of the K * B * lp_pad / rt items, candidates interleaved
@@ -334,10 +455,10 @@ def dh_f32_plan(K: int, B: int, Lp: int, cin: int, cout: int, kh: int, kw: int,
     for nt in DH_TILES:
         if nt > cin and nt != 8:
             continue
-        for rt in DH_ROW_TILES:  # the first item height at which a group fits
+        for rt in F32_ROW_TILES:  # the first item height at which a group fits
             window, bands = min(Lp, rt + 2 * pad), kh * (rt + kw - 1)
-            tpi = max(1, rt // dh_warp_rows(nt))  # warps of a group: an item's row tiles
-            fit = next((g for g in range(min(DH_MAX_GROUPS, F32_MAX_WARPS // tpi), 0, -1)
+            tpi = max(1, rt // f32_warp_rows(nt))  # warps of a group: an item's row tiles
+            fit = next((g for g in range(min(F32_MAX_GROUPS, F32_MAX_WARPS // tpi), 0, -1)
                         if 4 * (kh * kw * nt + g * min(window, bands) + 1) * sc
                         <= MAX_SMEM_BYTES), None)
             if fit is not None:
@@ -350,13 +471,11 @@ def dh_f32_plan(K: int, B: int, Lp: int, cin: int, cout: int, kh: int, kw: int,
                   f"item need more than {MAX_SMEM_BYTES} bytes of shared memory")
     warps, nt, rt, groups, window, bands, smem = best
     lp_pad, tiles = -(-Lp // rt) * rt, -(-cin // nt)
-    resident = max(1, min(WARPS_PER_SM // warps, SMEM_PER_SM // (smem + SMEM_RESERVED),
-                          REGS_PER_SM // (warps * 32 * REGS_CAP)))
-    items = K * B * (lp_pad // rt)
-    per_chunk = -(-items // min(items, max(1, -(-SMS * resident // tiles))))
-    chunks = -(-items // per_chunk)
-    if chunks > 65535 or tiles > 65535:
-        _raise_on(_INVALID_VALUE, "tap_conv_dh", f"{shape}: more than 65535 chunks")
+    chunking = _f32_chunks(K * B * (lp_pad // rt), warps, smem, tiles)
+    if chunking is None:
+        _raise_on(_INVALID_VALUE, "tap_conv_dh", f"{shape}: more than 65535 chunks or tiles, "
+                  f"or 2**31 items")
+    per_chunk, chunks = chunking
     return DhF32Plan(lp_pad, pad, rt, int(bands < window), min(window, bands), sc, nt, tiles,
                      groups, warps, per_chunk, chunks, smem)
 
@@ -425,11 +544,13 @@ def dw_f32_plan(K: int, B: int, Lp: int, cin: int, cout: int, kh: int, kw: int) 
 
 
 @functools.cache
-def _kernel_fn():
-    fn = _build.load(SOURCE).tap_conv_fwd
-    fn.restype = _I
-    fn.argtypes = [_P] * 6 + [_I] * 7 + [_P]
-    return fn
+def _fwd_fns():
+    lib = _build.load(SOURCE)
+    lib.tap_conv_fwd_plan.restype = _I
+    lib.tap_conv_fwd_plan.argtypes = [_I] * 8 + [_P]
+    lib.tap_conv_fwd.restype = _I
+    lib.tap_conv_fwd.argtypes = [_P] * 6 + [_I] * 8 + [_P]
+    return lib
 
 
 @functools.cache
@@ -471,6 +592,18 @@ def dw_mma_plan_of_kernel(K: int, B: int, Lp: int, cin: int, cout: int, kh: int,
     if _bwd_fns().tap_conv_dw_mma_plan(K, B, Lp, cin, cout, kh, kw, p_max, out) != 0:
         return None
     return DwMmaPlan(*out)
+
+
+def fwd_f32_plan_of_kernel(K: int, B: int, Lp: int, cin: int, cout: int, kh: int, kw: int,
+                           p_max: int) -> Optional[FwdF32Plan]:
+    """The float32 forward plan ``csrc/tap_conv_fwd.cu`` itself makes, or
+    None where it refuses the shape: what :func:`fwd_f32_plan` mirrors
+    (builds the library)."""
+
+    out = (ctypes.c_int * len(FwdF32Plan._fields))()
+    if _fwd_fns().tap_conv_fwd_plan(K, B, Lp, cin, cout, kh, kw, p_max, out) != 0:
+        return None
+    return FwdF32Plan(*out)
 
 
 def dh_f32_plan_of_kernel(K: int, B: int, Lp: int, cin: int, cout: int, kh: int, kw: int,
@@ -571,7 +704,8 @@ def tap_conv_cuda(
       (:func:`fold_mma_plan`, with ``p_max = geom.Lp - geom.L``) raises
       ``RuntimeError``.
     - float32: the CUDA-core kernel ``tap_conv_fwd``, whose float32 FMAs keep
-      the products exact (the tensor cores would round them to TF32).
+      the products exact (the tensor cores would round them to TF32). A
+      shape it cannot take (:func:`fwd_f32_plan`) raises ``RuntimeError``.
 
     ``launches`` counts both routes, ``launches_mma`` the tensor-core one.
     """
@@ -586,10 +720,12 @@ def tap_conv_cuda(
     p_max = _check_geometry("tap_conv_cuda", geom, h, kernel, bias)
 
     mma = h.dtype == torch.bfloat16
-    if mma:
-        fold_mma_plan(1, K, B, Lp, Cin, Cout, kh, kw, p_max)  # raises on what it cannot take
+    if mma:  # each raises on what its kernel cannot take
+        fold_mma_plan(1, K, B, Lp, Cin, Cout, kh, kw, p_max)
+    else:
+        fwd_f32_plan(K, B, Lp, Cin, Cout, kh, kw, p_max)
     w = _aligned(kernel.to(h.dtype).contiguous())
-    x = _aligned(h) if mma else h
+    x = _aligned(h)
     b = bias.float().contiguous()
     out = torch.empty((K, B, Lp, Cout), dtype=torch.float32, device=h.device)
     ptrs = (x.data_ptr(), w.data_ptr(), b.data_ptr(), geom.periods.data_ptr(),
@@ -599,7 +735,7 @@ def tap_conv_cuda(
         if mma:
             err = _mma_fns().tap_conv_fwd_mma(*ptrs, K, B, Lp, Cin, Cout, kh, kw, p_max, stream)
         else:
-            err = _kernel_fn()(*ptrs, K, B, Lp, Cin, Cout, kh, kw, stream)
+            err = _fwd_fns().tap_conv_fwd(*ptrs, K, B, Lp, Cin, Cout, kh, kw, p_max, stream)
     _raise_on(err, "tap_conv_fwd_mma" if mma else "tap_conv_fwd",
               f"K={K}, B={B}, Lp={Lp}, Cin={Cin}, Cout={Cout}, {kh}x{kw}")
     launches[f"{kh}x{kw}"] += 1

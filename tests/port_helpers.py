@@ -228,3 +228,12 @@ def a_fragment_rows(lane):
 
     g = lane // 4
     return (g, g + 8, g, g + 8)
+
+
+def float4_wavefronts(addresses):
+    """Shared-memory wavefronts of one 16-byte load of a warp, its lanes' float4
+    ``addresses`` (in float4s): the distinct ones, each 128-byte wavefront
+    serving at most one per bank group (address mod 8)."""
+
+    distinct = set(addresses)
+    return int(np.bincount([a % 8 for a in distinct], minlength=8).max())

@@ -73,11 +73,15 @@ def test_tap_conv_kernel_rejects_what_it_cannot_take(cuda):
         cuda_fold.tap_conv_cuda(h[:, :, 1:].contiguous(), geom,
                                 torch.zeros(3, 3, 4, 4, device=cuda), torch.zeros(4, device=cuda),
                                 3, 3)
-    # beyond the kernel's capacity (2048 output channels per block): the
-    # kernel itself refuses with cudaErrorInvalidValue
-    with pytest.raises(RuntimeError, match="cudaError_t 1 "):
-        cuda_fold.tap_conv(h, geom, torch.zeros(3, 3, 4, 4096, device=cuda),
-                           torch.zeros(4096, device=cuda), 3, 3)
+    # beyond the kernel's capacity (W's slice of one kernel row of 4,001 taps
+    # at 4 channels passes 227 KB; the 4,096 output channels the first float32
+    # kernel refused now take 128 tiles): its plan refuses with
+    # cudaErrorInvalidValue before any launch, and nothing stands in
+    before = sum(cuda_fold.launches.values())
+    with pytest.raises(RuntimeError, match="cudaError_t 1 .*more than 232448 bytes"):
+        cuda_fold.tap_conv(h, geom, torch.zeros(1, 4001, 4, 4, device=cuda),
+                           torch.zeros(4, device=cuda), 1, 4001)
+    assert sum(cuda_fold.launches.values()) == before
 
 
 @pytest.mark.cuda
@@ -301,6 +305,84 @@ def test_f32_plans_mirror_the_kernel(cuda, shape):
     assert cuda_fold.dw_f32_plan(*shape[:7]) == cuda_fold.dw_f32_plan_of_kernel(*shape[:7])
 
 
+def _f32_forward(cuda, B, L, periods, cin, cout, kh, kw, seed, p_cap=None):
+    """The float32 forward kernel at these shapes against the plain version,
+    launched twice: the same bits both times, one CUDA-core launch each and
+    none on the tensor-core route, every row of Lp compared."""
+
+    geom = fold.make_geometry(torch.tensor(periods, dtype=torch.int32, device=cuda), L,
+                              p_cap or L - 1)
+    rng = np.random.default_rng(seed)
+    h = torch.from_numpy(rng.standard_normal((len(periods), B, geom.Lp, cin))
+                         .astype(np.float32)).to(cuda)
+    w = torch.from_numpy((rng.standard_normal((kh, kw, cin, cout)) * 0.3).astype(np.float32)).to(cuda)
+    bias = torch.from_numpy((rng.standard_normal(cout) * 0.1).astype(np.float32)).to(cuda)
+    key = f"{kh}x{kw}"
+    before = (cuda_fold.launches[key], cuda_fold.launches_mma[key])
+    runs = [cuda_fold.tap_conv_cuda(h, geom, w, bias, kh, kw) for _ in range(2)]
+    torch.cuda.synchronize()
+    assert (cuda_fold.launches[key], cuda_fold.launches_mma[key]) == (before[0] + 2, before[1])
+    want = fold.tap_conv(h, geom, w, bias, kh, kw)
+    assert runs[0].shape == want.shape == (len(periods), B, geom.Lp, cout)
+    torch.testing.assert_close(runs[0], want, rtol=1e-4, atol=1e-4)
+    assert torch.equal(runs[0], runs[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cin,cout", [(16, 16), (48, 48), (64, 64), (48, 32), (32, 64), (64, 24),
+                                      (18, 30), (5, 3), (33, 1)])
+@pytest.mark.parametrize("kh,kw", [(3, 3), (7, 7)])
+def test_f32_forward_route_matches_plain(cuda, kh, kw, cin, cout):
+    """Channels 1-64, Cin != Cout both ways, widths that take 4-byte copies,
+    Cout below the narrowest tile, at B=16."""
+
+    _f32_forward(cuda, 16, 28, [7, 27], cin, cout, kh, kw, seed=cin + cout + kh)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kh", [3, 5])
+def test_f32_forward_route_takes_the_long_context_shape(cuda, kh):
+    """configs/long_context.yaml's fold: L=512 (Lp=1023, p_cap 511), K=4,
+    mid 32: 64-row items staged as kh bands."""
+
+    assert cuda_fold.fwd_f32_plan(4, 4, 1023, 32, 32, kh, kh, 511).band == 1
+    _f32_forward(cuda, 4, 512, [511, 168, 24, 7], 32, 32, kh, kh, seed=kh)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,L,p_cap,periods,cin,cout,kh,kw", [
+    (1, 10, 10, [10], 2000, 1, 3, 3),  # Cin in 4 slices of 500
+    (2, 50, 50, [50, 7], 1, 3, 61, 61),  # 61 kernel rows in 3 slices of 21
+])
+def test_f32_forward_route_takes_passes(cuda, B, L, p_cap, periods, cin, cout, kh, kw):
+    """Shapes the first float32 forward took that one pass cannot: the
+    block makes one pass over its items for each slice of input channels
+    or kernel rows, each adding to what it wrote in the pass before."""
+
+    assert cuda_fold.fwd_f32_plan(len(periods), B, L + p_cap, cin, cout, kh, kw, p_cap).passes > 1
+    _f32_forward(cuda, B, L, periods, cin, cout, kh, kw, seed=cin, p_cap=p_cap)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [
+    (2, 192, 55, 32, 32, 3, 3, 27), (2, 192, 55, 32, 32, 5, 5, 27), (2, 192, 55, 32, 32, 7, 7, 27),
+    (2, 256, 55, 32, 32, 7, 7, 27), (2, 16, 55, 48, 32, 3, 3, 27), (4, 64, 1023, 32, 32, 5, 5, 511),
+    (2, 16, 489, 61, 61, 7, 7, 244), (3, 7, 35, 18, 30, 5, 3, 17), (2, 4, 55, 33, 1, 7, 7, 27),
+    (1, 1, 20, 2000, 1, 3, 3, 10), (1, 2, 100, 1, 3, 61, 61, 50), (1, 2, 15, 4, 4096, 3, 3, 7),
+    (2, 4, 55, 32, 32, 3, 3, 56), (1, 2, 15, 4, 4, 1, 4001, 7),
+])
+def test_fwd_f32_plan_mirrors_the_kernel(cuda, shape):
+    """ops/cuda_fold.py::fwd_f32_plan gives the plan csrc/tap_conv_fwd.cu
+    makes, and refuses what it refuses."""
+
+    got = cuda_fold.fwd_f32_plan_of_kernel(*shape)
+    if got is None:
+        with pytest.raises(RuntimeError, match="cudaError_t 1 "):
+            cuda_fold.fwd_f32_plan(*shape)
+    else:
+        assert cuda_fold.fwd_f32_plan(*shape) == got
+
+
 def _mma_route(cuda, sign, B, L, periods, cin, cout, kh, kw, seed):
     """The bf16 tensor-core forward (sign +1) or dh (sign -1) at these
     shapes against the plain version, launched twice: the same bits both
@@ -403,6 +485,21 @@ def test_tensor_core_routes_refuse_and_never_fall_back(cuda):
     assert out.shape == (1, 2, geom.Lp, 32) and dh.shape == (1, 2, geom.Lp, 24)
     assert [sum(c.values()) for c in counters] == [before[0] + 1, before[1], before[2] + 1,
                                                    before[3]]
+
+
+@pytest.mark.cuda
+def test_f32_forward_takes_unaligned_views(cuda):
+    """A float32 input whose data does not start on 16 bytes is copied by the
+    wrapper, not refused (cp.async reads 16 bytes), as on the bf16 route."""
+
+    geom = fold.make_geometry(torch.tensor([7, 27], dtype=torch.int32, device=cuda), 28, 27)
+    flat = torch.randn(2 * 4 * geom.Lp * 32 + 2, device=cuda)
+    x = flat[2:].view(2, 4, geom.Lp, 32)  # 8 bytes past an aligned start
+    assert x.data_ptr() % 16 == 8
+    w = torch.randn(3, 3, 32, 32, device=cuda) * 0.3
+    b = torch.randn(32, device=cuda)
+    got = cuda_fold.tap_conv_cuda(x, geom, w, b, 3, 3)
+    torch.testing.assert_close(got, fold.tap_conv(x, geom, w, b, 3, 3), rtol=1e-4, atol=1e-4)
 
 
 @pytest.mark.cuda

@@ -41,6 +41,7 @@ jnp = pytest.importorskip("jax.numpy")
 from flow_timesnet_tpu.ops import fold as jfold  # noqa: E402
 from flow_timesnet_tpu.ops.pallas_fold import tap_conv_pallas  # noqa: E402
 from flow_timesnet_tpu_torch.ops import cuda_fold, fold  # noqa: E402
+from port_helpers import float4_wavefronts  # noqa: E402
 
 ROWS = cuda_fold.F32_ROWS
 TILE = cuda_fold.DW_TILE
@@ -61,7 +62,7 @@ def dh_lanes(nt):
     consecutive rows (of an item, or past it where the item is shorter)."""
 
     cg = nt // 4
-    assert cuda_fold.dh_warp_rows(nt) == 4 * (32 // cg)
+    assert cuda_fold.f32_warp_rows(nt) == 4 * (32 // cg)
     return cg, 32 // cg, 4 * (32 // cg)
 
 
@@ -399,15 +400,6 @@ def test_dw_never_reads_h_past_the_fold():
 
 # --- lanes and shared-memory loads ---------------------------------------------------
 
-def _wavefronts(addresses):
-    """Wavefronts of one 16-byte load of a warp: distinct float4 addresses,
-    each 128-byte wavefront serving at most one per bank group (address mod 8)."""
-
-    distinct = set(addresses)
-    per_group = np.bincount([a % 8 for a in distinct], minlength=8)
-    return int(per_group.max())
-
-
 @pytest.mark.parametrize("nt", cuda_fold.DH_TILES)
 def test_dh_lanes_cover_the_warp_tile_and_load_without_conflicts(nt):
     """Lane l has rg = l % RG and cg = l // RG: rows rg + RG * i and input
@@ -428,11 +420,11 @@ def test_dh_lanes_cover_the_warp_tile_and_load_without_conflicts(nt):
         for i in range(4):  # ct: lane's row rg + RG i at co, 4 floats
             for row0 in (0, 5, 13):
                 addr = [((row0 + lane % RG + RG * i) * sc) // 4 for lane in range(32)]
-                assert _wavefronts(addr) == -(-len(set(addr)) // 8)
+                assert float4_wavefronts(addr) == -(-len(set(addr)) // 8)
         for tap in (0, 3):  # W: the float4 of (tap, ci = cg + CG m) at co
             for m in range(4):
                 addr = [((tap * nt + lane // RG + CG * m) * sc + 8) // 4 for lane in range(32)]
-                assert _wavefronts(addr) == 1
+                assert float4_wavefronts(addr) == 1
 
 
 @pytest.mark.parametrize("groups,tpi", [(4, 4), (3, 4), (8, 2), (5, 2), (15, 1), (1, 4)])
@@ -463,9 +455,9 @@ def test_dw_lanes_cover_the_warp_tile_and_load_without_conflicts():
         seen[4 * cg:4 * cg + 4, 8 * og:8 * og + 8] += 1
     assert (seen == 1).all()
     r = 9
-    assert _wavefronts([(r * TILE + 4 * (lane >> 2)) // 4 for lane in range(32)]) == 1
+    assert float4_wavefronts([(r * TILE + 4 * (lane >> 2)) // 4 for lane in range(32)]) == 1
     for half in range(2):
-        assert _wavefronts([(r * TILE + 8 * (lane & 3) + 4 * half) // 4 for lane in range(32)]) == 1
+        assert float4_wavefronts([(r * TILE + 8 * (lane & 3) + 4 * half) // 4 for lane in range(32)]) == 1
 
 
 def test_row_stride_is_an_odd_number_of_float4s():
