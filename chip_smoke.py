@@ -17,7 +17,13 @@ Phases, each of which fails the run (non-zero exit, no result line):
    over every row of Lp, and in float32 against cuDNN over the exact fold
    grids within 1e-3; the float32 kernel gives the same bits twice, and
    each route's plan (at B=192 and B=256) must equal the wrapper's mirror
-   of it;
+   of it. Then the exact extent of the frozen-period path
+   (``make_dense_geometry``: K=1, Lp=total, p_max=p) at p=7 (Lp 28) and
+   p=27 (Lp 54): every route of the forward (B=192), dh and dW (B=256),
+   bf16 and float32, against its plain version (1e-4; dW 1e-4 of its
+   largest value), the same bits twice, each plan equal to its mirror, and
+   in float32 against cuDNN's conv2d forward and backward over the grid
+   within 1e-3 (each is timed in phase 8);
 4. serve: a ``Forecaster`` at the full width of the flagship model
    (``configs/demand_benchmark.yaml``: d_model 128, d_ff 512, two layers,
    2,536,356 parameters, bf16 conv islands) with seeded random weights
@@ -29,7 +35,16 @@ Phases, each of which fails the run (non-zero exit, no result line):
    device inputs split the request into host and forward;
 5. profile: device time per request by kernel (torch.profiler, 50
    requests) against the request's p50, which gives the device's busy and
-   idle share;
+   idle share. Then ``[serve-frozen]``: the frozen spec from
+   ``Engine.collect_period_telemetry`` on the serving batch, stored as JSON
+   and read back with ``frozen_spec_from_config``; the ``Forecaster`` on
+   it answers 100 timed requests, each launching the forward 2 x 3 x U
+   times (U: the unique valid periods, summed over layers), all on the
+   tensor-core route, forecasts finite and >= 0; a float32 frozen request
+   equals the same request on the CPU within 1e-4 and the float32 dynamic
+   request on the card within rtol 1e-5 / atol 1e-6 (its spec the live
+   selection; its profile comes at the end of phase 8, beside the dynamic
+   request's);
 6. backward kernels: the dh-adjoint and weight-gradient kernels against
    their plain versions at the training shape (K=2, B=256, Lp=55, 32
    channels) for the three sizes, three period sets and bf16 and float32
@@ -54,7 +69,14 @@ Phases, each of which fails the run (non-zero exit, no result line):
    launches each, none on a tensor-core route); then device time per step
    by kernel over 20 profiled steps, of the bf16 step and of a float32 one
    (``compute_dtype="float32"``, the JAX package's default: 20 timed steps,
-   then 20 profiled), each with the fold conv's device time per step;
+   then 20 profiled), each with the fold conv's device time per step.
+   Then ``[train-frozen]``: the spec from telemetry on a training batch,
+   and an engine on it that continues the dynamic run's ``TrainState`` for
+   5 + 50 timed steps (p50 with p10-p90, windows/s), each launching the
+   forward, dh and dW 2 x 3 x U times on the tensor-core routes; a float32
+   frozen step with dropout 0 equals the same step on the CPU (loss within
+   1e-5 relative, gradients within 1e-4 of the largest), its kernels on
+   the CUDA-core routes; its profile (at the end) beside the dynamic step's;
 8. timing: each kernel, both routes, at the periods its path selected
    (served requests for the forward, training steps for the backward),
    beside its plain
@@ -66,7 +88,17 @@ Phases, each of which fails the run (non-zero exit, no result line):
    kernel time, mean of 100 calls; a profiler session that loses records is
    taken again, and the run fails if they keep being lost); the kernel's and
    cuDNN's calls are also timed back to back by CUDA events, which adds the
-   host's launch work where that is the longer.
+   host's launch work where that is the longer. Then each route of each
+   kernel at the exact extent of p=7 and p=27, beside its bound over the
+   valid taps of K=1 and Lp=total and cuDNN over the same grid (the plain
+   versions, run in phase 3, are not timed again), and at the end the
+   float32 step's, the frozen request's and the frozen step's profiles.
+
+The ``kernels`` line also gives each kernel's exact-extent numbers
+(``exact_extent``, at p=7 and p=27) and its launches on the frozen request
+and step (``launches_serve_frozen``, ``launches_train_frozen``; the float32
+rows from the float32 frozen request and parity step). ``[clock]`` lines
+give the time since the start at the end of each phase.
 
 The last lines are the ``kernels`` JSON line, the card line of ``nvidia-smi``
 and ``{"ok": true, "device": {...}}``.
@@ -95,7 +127,9 @@ P_MAX = L - 1  # make_geometry's p_cap on both paths: the plans' zero rows cover
 KERNEL_SIZES = ((3, 3), (5, 5), (7, 7))
 PERIOD_SETS = ((7, 14), (4, 27), (1, 27))
 TOL = 1e-4
+DENSE_PERIODS = (7, 27)  # the frozen paths' exact extents: Lp = total = 28 and 54
 REQUESTS = 200  # timed requests per serving measurement (about 12 ms each)
+FROZEN_REQUESTS, FROZEN_STEPS = 100, 50  # timed on the frozen-period path
 PROFILED = 50  # requests under the profiler
 PROFILER_TRIES = 5  # profiler sessions a device time may take before the run fails
 LAUNCHES_PER_PASS = 12  # 2 layers x 2 inception blocks x 3 branches, per forward or backward
@@ -243,10 +277,12 @@ def measure(torch, kernel, plain, lib, bnd) -> dict:
     """One kernel's numbers on one set of inputs, under the keys of the
     ``kernels`` line: device time of the kernel, of its plain version and of
     cuDNN (``lib``); the bound ``bnd`` = (ms, bound_by, ms counting all
-    taps); and the time of a call back to back, of the kernel and of cuDNN."""
+    taps); and the time of a call back to back, of the kernel and of cuDNN.
+    ``plain`` None leaves the plain version untimed (``plain_ms`` None)."""
 
     b_ms, b_by, b_all = bnd
-    return {"ms": time_ms(torch, kernel), "plain_ms": time_ms(torch, plain, iters=20),
+    return {"ms": time_ms(torch, kernel),
+            "plain_ms": None if plain is None else time_ms(torch, plain, iters=20),
             "library_ms": time_ms(torch, lib), "bound_ms": b_ms, "bound_by": b_by,
             "bound_ms_all_taps": b_all, "call_ms": call_ms(torch, kernel),
             "library_call_ms": call_ms(torch, lib)}
@@ -260,19 +296,22 @@ def mean_of(np, rows) -> dict:
 
 
 def described(t: dict) -> str:
+    plain = "not timed" if t["plain_ms"] is None else f"{t['plain_ms'] * 1e3:.2f} us"
     return (f"kernel {t['ms'] * 1e3:.2f} us (a call back to back {t['call_ms'] * 1e3:.2f} us), "
-            f"plain {t['plain_ms'] * 1e3:.2f} us, cuDNN {t['library_ms'] * 1e3:.2f} us (a call "
+            f"plain {plain}, cuDNN {t['library_ms'] * 1e3:.2f} us (a call "
             f"back to back {t['library_call_ms'] * 1e3:.2f} us), bound {t['bound_ms'] * 1e3:.3f} "
             f"us ({t['bound_by']}; {t['bound_ms_all_taps'] * 1e3:.3f} us counting all taps)")
 
 
-def valid_taps(periods, kh: int, kw: int) -> int:
-    """(output row, tap) pairs inside the fold grid, over the K candidates."""
+def valid_taps(periods, kh: int, kw: int, lp: int = LP) -> int:
+    """(output row, tap) pairs inside the fold grid, over the K candidates
+    and ``lp`` rows each (``LP`` on the dynamic path, ``total`` at the exact
+    extent)."""
 
     total = 0
     for p in periods:
         cycles = -(-L // p)
-        for t in range(LP):
+        for t in range(lp):
             row, col = divmod(t, p)
             total += sum(
                 1 for dc in range(-(kh // 2), kh // 2 + 1) if 0 <= row + dc < cycles
@@ -280,24 +319,27 @@ def valid_taps(periods, kh: int, kw: int) -> int:
     return total
 
 
-def bound(periods, kh: int, kw: int, dtype: str, batch: int = B, kind: str = "fwd"):
+def bound(periods, kh: int, kw: int, dtype: str, batch: int = B, kind: str = "fwd",
+          lp: int = LP):
     """Least time for one call on an H100 SXM: each input read once and the
     output written once over the memory rate, against the multiply-adds of
     the taps that these periods leave inside the grid over the peak rate of
     the input type. ``kind``: the forward (h, W, bias in; float32 out), the
     dh adjoint (ct, W in; float32 dh out) or the weight gradient (h, ct in;
     float32 dW out); all three do one multiply-add per valid (row, tap)
-    pair and channel pair. Returns (ms, bound_by, ms counting all kh*kw taps)."""
+    pair and channel pair. K is ``len(periods)``, each over ``lp`` rows.
+    Returns (ms, bound_by, ms counting all kh*kw taps)."""
 
+    k = len(periods)
     elt = 2 if dtype == "bfloat16" else 4
-    act, w = K * batch * LP * C, kh * kw * C * C
+    act, w = k * batch * lp * C, kh * kw * C * C
     nbytes = {
-        "fwd": act * elt + w * elt + C * 4 + 2 * K * 4 + act * 4,
-        "dh": act * elt + w * elt + 2 * K * 4 + act * 4,
-        "dw": 2 * act * elt + 2 * K * 4 + w * 4,
+        "fwd": act * elt + w * elt + C * 4 + 2 * k * 4 + act * 4,
+        "dh": act * elt + w * elt + 2 * k * 4 + act * 4,
+        "dw": 2 * act * elt + 2 * k * 4 + w * 4,
     }[kind]
-    ops = 2 * batch * C * C * valid_taps(periods, kh, kw)
-    ops_all = 2 * K * batch * LP * kh * kw * C * C
+    ops = 2 * batch * C * C * valid_taps(periods, kh, kw, lp)
+    ops_all = 2 * k * batch * lp * kh * kw * C * C
     t_mem, t_ops = nbytes / HBM_BYTES_PER_S, ops / PEAK_OPS_PER_S[dtype]
     t_all = max(t_mem, ops_all / PEAK_OPS_PER_S[dtype])
     return 1e3 * max(t_mem, t_ops), ("bytes" if t_mem >= t_ops else "operations"), 1e3 * t_all
@@ -478,17 +520,18 @@ def check_forward(torch, fold, cuda_fold, h, geom, weight, bias, kh, kw, label: 
     return err
 
 
-def time_forward(torch, F, fold, cuda_fold, h, geom, periods, weight, bias, kh, kw):
+def time_forward(torch, F, fold, cuda_fold, h, geom, periods, weight, bias, kh, kw,
+                 plain=True):
     """:func:`measure` of the forward kernel on these inputs; the route is
-    that of their dtype."""
+    that of their dtype; ``plain`` False leaves the plain version untimed."""
 
     run, _ = library_conv(torch, F, h, periods, weight.to(h.dtype), bias.to(h.dtype), kh, kw)
     dtype = "bfloat16" if h.dtype == torch.bfloat16 else "float32"
     return measure(
         torch,
         lambda: cuda_fold.tap_conv_cuda(h, geom, weight, bias, kh, kw),
-        lambda: fold.tap_conv(h, geom, weight, bias, kh, kw), run,
-        bound(periods, kh, kw, dtype, h.shape[1]))
+        (lambda: fold.tap_conv(h, geom, weight, bias, kh, kw)) if plain else None, run,
+        bound(periods, kh, kw, dtype, h.shape[1], lp=h.shape[2]))
 
 
 def before_line(np, kind: str, key: str, rows, periods, batch: int) -> str:
@@ -504,15 +547,16 @@ def before_line(np, kind: str, key: str, rows, periods, batch: int) -> str:
 
 
 def time_backward(torch, fold, cuda_fold, h, ct, geom, periods, weight, kh, kw,
-                  kinds=("dh", "dw")):
+                  kinds=("dh", "dw"), plain=True):
     """:func:`measure` of the dh and dW kernels (``kinds``) on these inputs,
-    by kind; each takes the route of their dtype."""
+    by kind; each takes the route of their dtype; ``plain`` False leaves the
+    plain versions untimed."""
 
     run_dh, run_dw, _ = library_conv_bwd(torch, h, ct, periods, weight.to(h.dtype), kh, kw,
                                          h.shape[1])
     dtype = "bfloat16" if h.dtype == torch.bfloat16 else "float32"
     out = {}
-    for kind, kernel, plain, lib in (
+    for kind, kernel, plain_fn, lib in (
         ("dh", lambda: cuda_fold.tap_conv_dh_cuda(ct, geom, weight, kh, kw),
          lambda: fold.tap_conv_dh(ct, geom, weight, kh, kw), run_dh),
         ("dw", lambda: cuda_fold.tap_conv_dw_cuda(h, geom, ct, kh, kw),
@@ -520,9 +564,125 @@ def time_backward(torch, fold, cuda_fold, h, ct, geom, periods, weight, kh, kw,
     ):
         if kind not in kinds:
             continue
-        out[kind] = measure(torch, kernel, plain, lib,
-                            bound(periods, kh, kw, dtype, h.shape[1], kind))
+        out[kind] = measure(torch, kernel, plain_fn if plain else None, lib,
+                            bound(periods, kh, kw, dtype, h.shape[1], kind, h.shape[2]))
     return out
+
+
+def check_dense_kernels(torch, F, fold, cuda_fold, gen, dev) -> dict:
+    """Phase 3, the exact extent: every route of the three kernels on the
+    frozen-period path's geometry (``make_dense_geometry``: K=1, Lp=total,
+    p_max=p) at p=7 (Lp 28) and p=27 (Lp 54), the forward at B=192 and dh
+    and dW at B=256, bf16 and float32. Each plan must equal its mirror; each
+    kernel its plain version within 1e-4 over every row (dW: rtol 1e-4 and
+    1e-4 of its largest value), with the same bits twice; in float32 each
+    must equal cuDNN's conv2d forward and backward over the grid within
+    1e-3. Returns ``{name: {"max_abs_err": e}}``; :func:`time_dense_kernels`
+    adds the times."""
+
+    out = {}
+    for kh, kw in KERNEL_SIZES:
+        key = f"{kh}x{kw}"
+        weight = torch.randn((kh, kw, C, C), generator=gen, device=dev) * 0.3
+        bias = torch.randn((C,), generator=gen, device=dev) * 0.1
+        for p in DENSE_PERIODS:
+            geom = fold.make_dense_geometry(p, L, dev)
+            lp = geom.Lp
+            check(geom.p_max == p and int(geom.total[0]) == lp == L + (-L) % p,
+                  f"dense geometry at p={p}: {geom.Lp}, {geom.p_max}")
+            fwd, bwd = (1, B, lp, C, C, kh, kw, p), (1, B_TRAIN, lp, C, C, kh, kw, p)
+            plans = (("tap_conv_fwd_mma", cuda_fold.fold_mma_plan(1, *fwd),
+                      cuda_fold.fold_mma_plan_of_kernel(1, *fwd)),
+                     ("tap_conv_dh_mma", cuda_fold.fold_mma_plan(-1, *bwd),
+                      cuda_fold.fold_mma_plan_of_kernel(-1, *bwd)),
+                     ("tap_conv_dw_mma", cuda_fold.dw_mma_plan(*bwd),
+                      cuda_fold.dw_mma_plan_of_kernel(*bwd)),
+                     ("tap_conv_fwd", cuda_fold.fwd_f32_plan(*fwd),
+                      cuda_fold.fwd_f32_plan_of_kernel(*fwd)),
+                     ("tap_conv_dh", cuda_fold.dh_f32_plan(*bwd),
+                      cuda_fold.dh_f32_plan_of_kernel(*bwd)),
+                     ("tap_conv_dw", cuda_fold.dw_f32_plan(*bwd[:-1]),
+                      cuda_fold.dw_f32_plan_of_kernel(*bwd[:-1])))
+            for name, plan, own in plans:
+                check(plan == own,
+                      f"{name} {key} p={p}: the wrapper's plan differs from the kernel's")
+                print(f"[kernel] exact extent {name} {key} p={p} Lp={lp} plan (the kernel's own): "
+                      f"{plan._asdict()}")
+            h32 = torch.randn((1, B, lp, C), generator=gen, device=dev)
+            hb32, ct32 = (torch.randn((1, B_TRAIN, lp, C), generator=gen, device=dev)
+                          for _ in range(2))
+            for dtype in (torch.bfloat16, torch.float32):
+                route = "mma" if dtype == torch.bfloat16 else "f32"
+                h, hb, ct = h32.to(dtype), hb32.to(dtype), ct32.to(dtype)
+                runs = [(cuda_fold.tap_conv_cuda(h, geom, weight, bias, kh, kw),
+                         cuda_fold.tap_conv_dh_cuda(ct, geom, weight, kh, kw),
+                         cuda_fold.tap_conv_dw_cuda(hb, geom, ct, kh, kw)) for _ in range(2)]
+                wants = (fold.tap_conv(h, geom, weight, bias, kh, kw),
+                         fold.tap_conv_dh(ct, geom, weight, kh, kw),
+                         fold.tap_weight_grad(hb, geom, ct, kh, kw))
+                torch.cuda.synchronize()
+                same = all(torch.equal(a, b) for a, b in zip(*runs))
+                line = []
+                for kind, got, want in zip(("fwd", "dh", "dw"), runs[0], wants):
+                    err = float((got - want).abs().max())
+                    atol = TOL * float(want.abs().max()) if kind == "dw" else TOL
+                    ok = bool(torch.allclose(got, want, rtol=TOL, atol=atol))
+                    name = f"{kind}_{route}_{key}"
+                    entry = out.setdefault(name, {"max_abs_err": 0.0})
+                    entry["max_abs_err"] = max(entry["max_abs_err"], err)
+                    line.append(f"{kind} {err:.3e} {'ok' if ok else 'FAIL'}")
+                    check(ok, f"exact extent {name} p={p}: {err:.3e} against the plain version")
+                print(f"[kernel] exact extent {key} p={p} Lp={lp} {str(dtype)[6:]}: max |kernel - "
+                      f"plain| over every row: {', '.join(line)}; the same bits twice: {same}")
+                check(same, f"exact extent {key} p={p} {dtype}: the bits differ from run to run")
+            # float32 against cuDNN over the grid, forward and backward
+            run, unfold = library_conv(torch, F, h32, (p,), weight, bias, kh, kw)
+            got = cuda_fold.tap_conv_cuda(h32, geom, weight, bias, kh, kw)
+            err_f = float((got[0] - unfold(run())[0]).abs().max())
+            run_dh, run_dw, _ = library_conv_bwd(torch, hb32, ct32, (p,), weight, kh, kw,
+                                                 B_TRAIN)
+            dh = cuda_fold.tap_conv_dh_cuda(ct32, geom, weight, kh, kw)
+            dw = cuda_fold.tap_conv_dw_cuda(hb32, geom, ct32, kh, kw)
+            err_dh = float((dh[0] - run_dh()[0].permute(0, 2, 3, 1).reshape(B_TRAIN, lp, C))
+                           .abs().max())
+            ref_dw = run_dw()[0].permute(2, 3, 1, 0)
+            err_dw = float((dw - ref_dw).abs().max()) / max(1.0, float(ref_dw.abs().max()))
+            print(f"[kernel] exact extent {key} p={p} float32 against cuDNN over the grid: "
+                  f"forward {err_f:.3e}, dh {err_dh:.3e}, dW / max |dW| {err_dw:.3e}")
+            check(max(err_f, err_dh, err_dw) <= 1e-3,
+                  f"exact extent {key} p={p}: kernels vs cuDNN {err_f:.3e} / {err_dh:.3e} / "
+                  f"{err_dw:.3e}")
+    return out
+
+
+def time_dense_kernels(torch, F, fold, cuda_fold, gen, dev, dense: dict) -> None:
+    """Phase 8, the exact extent: each route of each kernel timed as in
+    ``[time]`` at p=7 and p=27 (the forward at B=192, dh and dW at B=256),
+    beside its bound over the valid taps of K=1 and Lp=total and cuDNN over
+    the same grid; into ``dense[name]["p7" / "p27"]``. The plain versions,
+    which ``[kernel]`` ran, are not timed: their thousands of launches a
+    session are what makes the profiler lose records in later sessions."""
+
+    for kh, kw in KERNEL_SIZES:
+        key = f"{kh}x{kw}"
+        weight = torch.randn((kh, kw, C, C), generator=gen, device=dev) * 0.3
+        bias = torch.randn((C,), generator=gen, device=dev) * 0.1
+        for p in DENSE_PERIODS:
+            geom = fold.make_dense_geometry(p, L, dev)
+            h32 = torch.randn((1, B, geom.Lp, C), generator=gen, device=dev)
+            hb32, ct32 = (torch.randn((1, B_TRAIN, geom.Lp, C), generator=gen, device=dev)
+                          for _ in range(2))
+            for dtype in (torch.bfloat16, torch.float32):
+                route = "mma" if dtype == torch.bfloat16 else "f32"
+                h, hb, ct = h32.to(dtype), hb32.to(dtype), ct32.to(dtype)
+                times = {"fwd": time_forward(torch, F, fold, cuda_fold, h, geom, (p,), weight,
+                                             bias, kh, kw, plain=False),
+                         **time_backward(torch, fold, cuda_fold, hb, ct, geom, (p,), weight,
+                                         kh, kw, plain=False)}
+                for kind, t in times.items():
+                    dense[f"{kind}_{route}_{key}"][f"p{p}"] = t
+                    print(f"[time] exact extent {kind}_{route} {key} p={p} Lp={geom.Lp} "
+                          f"B={B if kind == 'fwd' else B_TRAIN}: {described(t)}")
 
 
 def train_data(np, windows, L_in: int, H_out: int):
@@ -645,7 +805,8 @@ def train_phase(torch, np, modules, cfg, params, dev):
         host_batches[0], floor=sigma[host_batches[0].series_ids.reshape(-1)].reshape(-1, 1, 1),
         device="cpu")
     return dict(counts=counts, p50=p50, periods=sorted(set(selected)), step=step,
-                parity_batch=parity_batch, fixed=fixed, lr=lr)
+                parity_batch=parity_batch, fixed=fixed, lr=lr, engine=eng, state=state, gen=gen,
+                batches=host_batches, to_device=to_device)
 
 
 def float32_steps(torch, np, engine_mod, cfg, params, batch, lr, dev):
@@ -675,10 +836,13 @@ def float32_steps(torch, np, engine_mod, cfg, params, batch, lr, dev):
     profile(torch, step, PROFILED_STEPS, "float32 step", p50)
 
 
-def train_parity(torch, np, engine_mod, losses_mod, cuda_fold, cfg, params, batch_cpu):
-    """Phase 7, parity: one float32 step with dropout 0, card against CPU.
-    Returns the card step's launches of each kernel by size: the CUDA-core
-    routes, 12 each, and none on a tensor-core route."""
+def train_parity(torch, np, engine_mod, losses_mod, cuda_fold, cfg, params, batch_cpu,
+                 per: int = LAUNCHES_PER_PASS // len(KERNEL_SIZES), what: str = "float32 step"):
+    """Phase 7, parity: one float32 step with dropout 0, card against CPU
+    (on ``cfg``'s path: dynamic, or frozen where it carries a spec). Returns
+    the card step's launches of each kernel by size: the CUDA-core routes,
+    ``per`` each (12 in all on the dynamic path), and none on a tensor-core
+    route. On the dynamic path the NB-NLL alone is held card against CPU too."""
 
     cfg32 = dataclasses.replace(cfg, compute_dtype="float32", dropout=0.0)
     out = {}
@@ -693,10 +857,10 @@ def train_parity(torch, np, engine_mod, losses_mod, cuda_fold, cfg, params, batc
         loss.backward()
         if device == "cuda":
             f32 = {name: dict(c) for name, c in counters.items()}  # ... to here
-            per = LAUNCHES_PER_PASS // len(KERNEL_SIZES)
             check(all(f32[name].get(f"{kh}x{kw}", 0) == (0 if name.endswith("_mma") else per)
                       for name in f32 for kh, kw in KERNEL_SIZES),
-                  f"float32 step launches {f32}: 12 of each CUDA-core kernel, no tensor-core one")
+                  f"{what} launches {f32}: {per} of each CUDA-core kernel and size, no "
+                  f"tensor-core one")
         out[device] = (float(loss.detach()), {k: p.grad.cpu() for k, p in
                                               eng.model.named_parameters()})
     (loss_gpu, g_gpu), (loss_cpu, g_cpu) = out["cuda"], out["cpu"]
@@ -704,10 +868,12 @@ def train_parity(torch, np, engine_mod, losses_mod, cuda_fold, cfg, params, batc
     scale = max(1.0, max(float(g.abs().max()) for g in g_cpu.values()))
     err = max(float((g_gpu[k] - g_cpu[k]).abs().max()) for k in g_cpu)
     worst = max(g_cpu, key=lambda k: float((g_gpu[k] - g_cpu[k]).abs().max()))
-    print(f"[train] float32 step card vs CPU: loss {loss_gpu:.7f} vs {loss_cpu:.7f} (relative "
+    print(f"[train] {what} card vs CPU: loss {loss_gpu:.7f} vs {loss_cpu:.7f} (relative "
           f"{rel:.3e}); max gradient difference {err:.3e} ({worst}) of max |g| {scale:.3e}")
-    check(rel <= 1e-5, f"float32 loss card vs CPU {rel:.3e}")
-    check(err <= 1e-4 * scale, f"float32 gradients card vs CPU {err:.3e}")
+    check(rel <= 1e-5, f"{what} loss card vs CPU {rel:.3e}")
+    check(err <= 1e-4 * scale, f"{what} gradients card vs CPU {err:.3e}")
+    if cfg.frozen_periods is not None:
+        return f32
 
     # the NB-NLL alone (torch.lgamma on the card against the CPU)
     rng = np.random.default_rng(3)
@@ -725,6 +891,158 @@ def train_parity(torch, np, engine_mod, losses_mod, cuda_fold, cfg, params, batc
     return f32
 
 
+def unique_periods(spec) -> int:
+    """Σ over layers of the unique valid periods of a frozen spec: each runs
+    the two inception stacks once, so each kernel size launches a kernel
+    2 × this many times a pass (2 × 3 × this in all)."""
+
+    return sum(len({p for p, _, v in layer if v}) for layer in spec)
+
+
+def launch_counts(cuda_fold) -> dict:
+    return {name: dict(c) for name, c in path_counters(cuda_fold).items()}
+
+
+def clear_counts(cuda_fold) -> None:
+    for counter in path_counters(cuda_fold).values():
+        counter.clear()
+
+
+def check_launches(got: dict, kinds, per_size: int, mma: bool, what: str) -> None:
+    """Each kernel of ``kinds`` launched ``per_size`` times at every size, all
+    on the route its dtype picks: the tensor-core one (``mma``) or none on it."""
+
+    for kind in kinds:
+        for kh, kw in KERNEL_SIZES:
+            size = f"{kh}x{kw}"
+            n, n_mma = got[kind].get(size, 0), got[f"{kind}_mma"].get(size, 0)
+            check(n == per_size and n_mma == (per_size if mma else 0),
+                  f"{what}: {kind} {size} launched {n} times, {n_mma} on the tensor-core "
+                  f"route; {per_size} expected, {'all' if mma else 'none'} on it")
+
+
+def frozen_spec(engine_mod, eng, batch, n_layers: int):
+    """The frozen spec from the engine's telemetry of ``batch``, carried as a
+    checkpoint carries it (nested lists in JSON) and read back with
+    ``frozen_spec_from_config``; it must round-trip and hold a valid slot."""
+
+    spec = engine_mod.Engine.frozen_spec_from_telemetry(
+        eng.collect_period_telemetry(None, batch), n_layers)
+    check(spec is not None, "telemetry gave no frozen spec")
+    stored = json.loads(json.dumps(spec))
+    back = engine_mod.Engine.frozen_spec_from_config(stored, n_layers)
+    check(back == spec, f"frozen spec {spec} read back as {back}")
+    check(unique_periods(back) >= 1, f"frozen spec {spec} has no valid slot")
+    return back
+
+
+def serve_frozen(torch, np, engine_mod, cuda_fold, make_fc, request, cfg, batch, p50_dynamic):
+    """Phase 5, frozen: the spec from ``collect_period_telemetry`` on the
+    serving batch, through ``frozen_spec_from_config``; the flagship
+    ``Forecaster`` on it answers ``FROZEN_REQUESTS`` timed requests, each
+    launching the forward 2 × 3 × Σ U times, all on the tensor-core route,
+    with forecasts finite and >= 0. A float32 frozen request equals the same
+    request on the CPU within 1e-4, and the float32 dynamic request on the
+    card within rtol 1e-5 / atol 1e-6 when the spec is that request's live
+    selection. Returns the request function, its p50, the spec and the
+    launches of the timed requests and of the float32 one."""
+
+    spec = frozen_spec(engine_mod, make_fc(cfg).engine, batch, cfg.n_layers)
+    per = 2 * unique_periods(spec)
+    print(f"[serve-frozen] spec {spec} (from the telemetry of the serving batch, read back "
+          f"from JSON), {per} launches of each kernel size a request")
+    fc = make_fc(dataclasses.replace(cfg, frozen_periods=spec))
+    first = request(fc)  # warm-up: the geometry of each period is built once
+    torch.cuda.synchronize()
+    clear_counts(cuda_fold)  # the frozen request's launches, from here ...
+    latencies, outs = [], []
+    for _ in range(FROZEN_REQUESTS):
+        t0 = time.perf_counter()
+        outs.append(request(fc))
+        latencies.append(1e3 * (time.perf_counter() - t0))
+    got = launch_counts(cuda_fold)  # ... to here
+    check_launches(got, ("tap_conv_fwd",), FROZEN_REQUESTS * per, True, "frozen requests")
+    check(not any(got[k] for k in ("tap_conv_dh", "tap_conv_dw")), f"frozen requests {got}")
+    for out in outs:
+        check(out.shape == first.shape and bool(np.isfinite(out).all()) and
+              bool((out >= 0).all()), "frozen forecast non-finite, negative or misshapen")
+    p50 = float(np.median(latencies))
+    print(f"[serve-frozen] {FROZEN_REQUESTS} requests: launches {got['tap_conv_fwd']} (tensor-"
+          f"core route {got['tap_conv_fwd_mma']}), latency ms {spread(np, latencies)} (dynamic "
+          f"p50 {p50_dynamic:.3f}), forecast range [{float(first.min()):.3f}, "
+          f"{float(first.max()):.3f}], every request equal to the first: "
+          f"{all(np.array_equal(first, o) for o in outs)}")
+
+    cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
+    dyn32 = make_fc(cfg32)
+    spec32 = frozen_spec(engine_mod, dyn32.engine, batch, cfg.n_layers)
+    raw = {"dynamic": request(dyn32, raw=True)}
+    for device in ("cuda", "cpu"):
+        f32 = make_fc(dataclasses.replace(cfg32, frozen_periods=spec32), device)
+        clear_counts(cuda_fold)  # the float32 frozen request's launches, from here ...
+        raw[device] = request(f32, raw=True)
+        if device == "cuda":
+            got32 = launch_counts(cuda_fold)  # ... to here
+            print(f"[serve-frozen] float32 request launches {got32}")
+            check_launches(got32, ("tap_conv_fwd",), 2 * unique_periods(spec32), False,
+                           "float32 frozen request")
+    for name, i in (("rate", 0), ("dispersion", 1)):
+        cpu = float(np.abs(raw["cuda"][i] - raw["cpu"][i]).max())
+        dyn = float(np.abs(raw["cuda"][i] - raw["dynamic"][i]).max())
+        print(f"[serve-frozen] float32 {name}: card vs CPU {cpu:.3e}, frozen vs dynamic on the "
+              f"card {dyn:.3e} (spec {spec32})")
+        check(np.allclose(raw["cuda"][i], raw["cpu"][i], rtol=TOL, atol=TOL),
+              f"float32 frozen {name} card vs CPU {cpu:.3e}")
+        check(np.allclose(raw["cuda"][i], raw["dynamic"][i], rtol=1e-5, atol=1e-6),
+              f"float32 frozen {name} vs dynamic {dyn:.3e}")
+    return dict(request=lambda: request(fc), p50=p50, spec=spec, counts=got, counts32=got32)
+
+
+def train_frozen(torch, np, engine_mod, cuda_fold, cfg, params, trained, dev):
+    """Phase 7, frozen: the spec from telemetry on a training batch (the
+    dynamic engine's trained state); an engine on it continues that state
+    (the trainer's engine swap) for 5 + ``FROZEN_STEPS`` timed steps at
+    B=256, each launching the forward, dh and dW 2 × 3 × Σ U times, on the
+    tensor-core routes. Returns (a step function, its p50, the spec, the
+    launches of the timed steps)."""
+
+    eng, state, lr, gen = trained["engine"], trained["state"], trained["lr"], trained["gen"]
+    spec = frozen_spec(engine_mod, eng, trained["fixed"], cfg.n_layers)
+    per = 2 * unique_periods(spec)
+    print(f"[train-frozen] spec {spec} (from the telemetry of a training batch, read back "
+          f"from JSON), {per} launches of each kernel size a step")
+    feng = engine_mod.Engine(dataclasses.replace(cfg, frozen_periods=spec), params, **ENGINE)
+    batches = trained["batches"][: WARMUP_STEPS + FROZEN_STEPS]
+    losses = []
+    for batch in batches[:WARMUP_STEPS]:
+        state, loss, _ = feng.train_step(state, lr, gen, trained["to_device"](batch))
+        losses.append(loss)
+    torch.cuda.synchronize()
+    clear_counts(cuda_fold)  # the frozen step's launches, from here ...
+    step_ms = []
+    for batch in batches[WARMUP_STEPS:]:
+        t0 = time.perf_counter()
+        state, loss, _ = feng.train_step(state, lr, gen, trained["to_device"](batch))
+        torch.cuda.synchronize()
+        step_ms.append(1e3 * (time.perf_counter() - t0))
+        losses.append(loss)
+    got = launch_counts(cuda_fold)  # ... to here
+    check_launches(got, ("tap_conv_fwd", "tap_conv_dh", "tap_conv_dw"), FROZEN_STEPS * per, True,
+                   "frozen steps")
+    losses = torch.stack(losses).cpu().numpy()
+    check(bool(np.isfinite(losses).all()), "non-finite frozen training loss")
+    p50 = float(np.median(step_ms))
+    print(f"[train-frozen] {FROZEN_STEPS} steps of {B_TRAIN} windows (after {WARMUP_STEPS} "
+          f"warm-up, continuing the dynamic run's state): step ms {spread(np, step_ms)}, "
+          f"windows/s at the p50 {B_TRAIN / p50 * 1e3:.1f} (dynamic p50 {trained['p50']:.3f} ms), "
+          f"launches {got}, loss first {losses[0]:.4f} last {losses[-1]:.4f}")
+
+    def step(batch=trained["fixed"]):
+        feng.train_step(state, lr, gen, batch)
+
+    return step, p50, spec, got
+
+
 def path_counters(cuda_fold) -> dict:
     """The launch counters of the fold-conv kernels: every route of each
     kernel, and the tensor-core one."""
@@ -732,6 +1050,13 @@ def path_counters(cuda_fold) -> dict:
     return {"tap_conv_fwd": cuda_fold.launches, "tap_conv_fwd_mma": cuda_fold.launches_mma,
             "tap_conv_dh": cuda_fold.launches_dh, "tap_conv_dh_mma": cuda_fold.launches_dh_mma,
             "tap_conv_dw": cuda_fold.launches_dw, "tap_conv_dw_mma": cuda_fold.launches_dw_mma}
+
+
+T0 = time.perf_counter()
+
+
+def stamp(phase: str) -> None:
+    print(f"[clock] {phase} done at {time.perf_counter() - T0:.1f} s")
 
 
 def main() -> int:
@@ -812,6 +1137,11 @@ def main() -> int:
                           torch.randn((K, B_TRAIN, LP, C), generator=gen, device=dev), geom,
                           weight, bias, kh, kw, f"{kh}x{kw} periods {list(periods)} B={B_TRAIN}")
 
+    stamp("kernels")
+    # the frozen-period path's exact extents, every route
+    dense = check_dense_kernels(torch, F, fold, cuda_fold, gen, dev)
+    stamp("kernels at the exact extent")
+
     # 4. serve at the flagship width -------------------------------------------
     cfg = flagship_config(timesnet)
     params = flagship_params(torch, convert, cfg)
@@ -831,6 +1161,14 @@ def main() -> int:
     tf_cfg = {"features": ["day_of_week", "day_of_month", "month", "day_of_year"],
               "encoding": "cyclical", "normalize": True}
 
+    def make_fc(cfg_, device="cuda"):
+        return forecaster.Forecaster(params, cfg_, ids, scaler, "zscore", static, sigma, tf_cfg,
+                                     device=device)
+
+    def request(fc_, raw=False):
+        return fc_._forecast_raw(history, dates=dates)[:2] if raw else \
+            fc_.forecast(history, dates=dates)
+
     fc = forecaster.Forecaster(params, cfg, ids, scaler, "zscore", static, sigma, tf_cfg)
     check(fc.device.type == "cuda", f"default device is {fc.device}")
     # warm-up request (cuFFT plans, allocator); hooks record the periods the
@@ -849,8 +1187,7 @@ def main() -> int:
     served = sorted({tuple(int(p) for p in per.tolist()) for _, per in selected})
     torch.cuda.reset_peak_memory_stats()
 
-    for counter in path_counters(cuda_fold).values():
-        counter.clear()  # the main path's launches, from here ...
+    clear_counts(cuda_fold)  # the main path's launches, from here ...
     latencies, outs = [], []
     for _ in range(REQUESTS):
         t0 = time.perf_counter()
@@ -903,8 +1240,7 @@ def main() -> int:
     for device in ("cuda", "cpu"):
         f32 = forecaster.Forecaster(params, cfg32, ids, scaler, "zscore", static, sigma, tf_cfg,
                                     device=device)
-        for counter in path_counters(cuda_fold).values():
-            counter.clear()  # the float32 request's launches, from here ...
+        clear_counts(cuda_fold)  # the float32 request's launches, from here ...
         raw[device] = f32._forecast_raw(history, dates=dates)[:2]
         if device == "cuda":
             got = {name: dict(c) for name, c in path_counters(cuda_fold).items()}  # ... to here
@@ -919,8 +1255,15 @@ def main() -> int:
         print(f"[serve] float32 card vs CPU {name}: max abs diff {err:.3e}")
         check(np.allclose(a, b, rtol=TOL, atol=TOL), f"float32 {name} card vs CPU {err:.3e}")
 
+    stamp("serve")
+
     # 5. where the request's device time goes ----------------------------------
-    profile(torch, lambda: fc.forecast(history, dates=dates), PROFILED, "request", p50)
+    req_prof = profile(torch, lambda: fc.forecast(history, dates=dates), PROFILED, "request", p50)
+
+    # 5, frozen: the same request on the frozen-period path ----------------------
+    served_frozen = serve_frozen(torch, np, engine_mod, cuda_fold, make_fc, request, cfg,
+                                 dict(zip(("x", "x_mark", "static", "ids", "floor"), args)), p50)
+    stamp("serve-frozen")
 
     # 6. the backward kernels against their plain versions ------------------------
     bwd_err = check_backward_kernels(torch, fold, cuda_fold, gen, dev)
@@ -929,7 +1272,17 @@ def main() -> int:
     trained = train_phase(torch, np, (windows, engine_mod, optim, cuda_fold), cfg, params, dev)
     f32_counts = train_parity(torch, np, engine_mod, losses_mod, cuda_fold, cfg, params,
                                  trained["parity_batch"])
-    profile(torch, trained["step"], PROFILED_STEPS, "step", trained["p50"])
+    step_prof = profile(torch, trained["step"], PROFILED_STEPS, "step", trained["p50"])
+    stamp("train")
+
+    # 7, frozen: the trainer's swap to the frozen-period path ------------------------
+    frozen_step, frozen_p50, train_spec, frozen_counts = train_frozen(
+        torch, np, engine_mod, cuda_fold, cfg, params, trained, dev)
+    f32_frozen = train_parity(torch, np, engine_mod, losses_mod, cuda_fold,
+                              dataclasses.replace(cfg, frozen_periods=train_spec), params,
+                              trained["parity_batch"], per=2 * unique_periods(train_spec),
+                              what="float32 frozen step")
+    stamp("train-frozen")
 
     # 8. timing at the periods each path selected, both routes -------------------------
     # the float32 routes run on the float32 path (the card-vs-CPU step), not the bf16 one
@@ -1010,9 +1363,33 @@ def main() -> int:
                 "periods": [list(p) for p in trained["periods"]], **({} if mma else from_f32),
             })
 
-    # the float32 step's profile, after the kernel timings: a profiler session
-    # of a whole step, just before them, made later sessions lose records
+    time_dense_kernels(torch, F, fold, cuda_fold, gen, dev, dense)
+    stamp("time")
+
+    # the float32 step's and the frozen paths' profiles, after the kernel
+    # timings: a profiler session of a whole step, just before them, made
+    # later sessions lose records
     float32_steps(torch, np, engine_mod, cfg, params, trained["fixed"], trained["lr"], dev)
+    versus(profile(torch, served_frozen["request"], PROFILED, "frozen request",
+                   served_frozen["p50"]), req_prof, "request")
+    versus(profile(torch, frozen_step, PROFILED_STEPS, "frozen step", frozen_p50), step_prof,
+           "step")
+    stamp("profile")
+
+    # the exact-extent numbers and the frozen paths' launches of each kernel
+    for row in kernels:
+        name = row["name"][len("tap_conv_"):]
+        kind, route, key = name.split("_")
+        counter = f"tap_conv_{kind}{'_mma' if route == 'mma' else ''}"
+        row["exact_extent"] = {
+            f"p{p}": {**dense[name][f"p{p}"], "lp": L + (-L) % p} for p in DENSE_PERIODS}
+        row["exact_extent_max_abs_err"] = dense[name]["max_abs_err"]
+        if route == "mma":
+            row["launches_serve_frozen"] = served_frozen["counts"][counter].get(key, 0)
+            row["launches_train_frozen"] = frozen_counts[counter].get(key, 0)
+        else:  # the float32 frozen request and the float32 frozen parity step
+            row["launches_serve_frozen"] = served_frozen["counts32"][counter].get(key, 0)
+            row["launches_train_frozen"] = f32_frozen[counter].get(key, 0)
 
     print(json.dumps({"kernels": kernels}))
     print(card)
@@ -1047,10 +1424,10 @@ def profile(torch, run, n: int, unit: str, p50_ms: float) -> None:
     busy_ms = sum(e.self_device_time_total for e in events) / (1e3 * n)
     if busy_ms <= 0:
         print("[profile] device time not measured (the profiler saw no device activity)")
-        return
+        return None
     fold_conv = [e for e in events if "tap_conv" in e.key]
-    print(f"[profile] fold conv ({unit}): "
-          f"{sum(e.self_device_time_total for e in fold_conv) / n:.2f} us per {unit} in "
+    fold_us = sum(e.self_device_time_total for e in fold_conv) / n
+    print(f"[profile] fold conv ({unit}): {fold_us:.2f} us per {unit} in "
           f"{sum(e.count for e in fold_conv) / n:.0f} launches of {len(fold_conv)} kernels")
     launches = sum(e.count for e in events) / n
     print(f"[profile] {n} {unit}s: device busy {busy_ms:.3f} ms per {unit} in "
@@ -1063,6 +1440,19 @@ def profile(torch, run, n: int, unit: str, p50_ms: float) -> None:
         if i < 12 or "tap_conv" in e.key:
             print(f"[profile]   {e.self_device_time_total / n:9.2f} us/{unit} "
                   f"x{e.count / n:<5.1f} #{i + 1} {e.key[:90]}")
+    return {"busy_ms": busy_ms, "launches": launches, "fold_us": fold_us, "p50_ms": p50_ms}
+
+
+def versus(frozen: dict, dynamic: dict, unit: str) -> None:
+    """One line: a frozen-path profile beside the dynamic one of the same run."""
+
+    if frozen is None or dynamic is None:
+        print(f"[profile] frozen vs dynamic {unit}: device time not measured")
+        return
+    print(f"[profile] frozen vs dynamic {unit}: device busy {frozen['busy_ms']:.3f} vs "
+          f"{dynamic['busy_ms']:.3f} ms in {frozen['launches']:.0f} vs {dynamic['launches']:.0f} "
+          f"launches, fold conv {frozen['fold_us']:.2f} vs {dynamic['fold_us']:.2f} us, p50 "
+          f"{frozen['p50_ms']:.3f} vs {dynamic['p50_ms']:.3f} ms")
 
 
 if __name__ == "__main__":

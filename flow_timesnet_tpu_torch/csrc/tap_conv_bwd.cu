@@ -239,7 +239,7 @@ tap_conv_dh_kernel(const float* __restrict__ ct, const float* __restrict__ w,
     it.k = i % K;
     it.b = i / K / n_rt;
     it.t0 = (i / K % n_rt) * rt;
-    it.p = min(max(periods[it.k], 1), p_max);  // make_geometry's clamp; the window assumes it
+    it.p = min(max(periods[it.k], 1), p_max);  // the geometry's clamp; the window assumes it
     it.total = cycles[it.k] * it.p;
     it.padw = rh * it.p + rw;  // window rows this period needs on each side
     return it;
@@ -571,7 +571,7 @@ tap_conv_dw_mma_kernel(const __nv_bfloat16* __restrict__ h, const __nv_bfloat16*
   const int k = chunk / chunks_per_k;
   const int b0 = (chunk % chunks_per_k) * per_chunk;
   const int n_seq = min(per_chunk, B - b0);
-  const int p = min(max(periods[k], 1), p_max);  // make_geometry's clamp; the pad assumes it
+  const int p = min(max(periods[k], 1), p_max);  // the geometry's clamp; the pad assumes it
   const int cyc = cycles[k];
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
 
@@ -884,7 +884,7 @@ extern "C" int tap_conv_dh_plan(int K, int B, int Lp, int Cin, int Cout, int kh,
 
 // The float32 route of dh (bf16 is tap_conv_mma.cu's tap_conv_dh_mma).
 // ct: [K, B, Lp, Cout] and w: [kh, kw, Cin, Cout] float32, 16-byte aligned; periods, cycles: [K] int32, every period at most p_max
-// (make_geometry's p_cap); dh: [K, B, Lp, Cin] float32. All contiguous, on
+// (p_cap, or a dense geometry's period); dh: [K, B, Lp, Cin] float32. All contiguous, on
 // the current device. Returns a cudaError_t value: 0 on a successful launch.
 extern "C" int tap_conv_dh(const void* ct, const void* w, const void* periods,
                            const void* cycles, void* dh, int K, int B, int Lp, int Cin,
@@ -964,7 +964,7 @@ extern "C" int tap_conv_dw_mma_plan(int K, int B, int Lp, int Cin, int Cout, int
 
 // The bf16 route, on the tensor cores. h: [K, B, Lp, Cin] and ct:
 // [K, B, Lp, Cout] bf16, 16-byte aligned; periods, cycles: [K] int32, every
-// period at most p_max (make_geometry's p_cap); partial: scratch of
+// period at most p_max (p_cap, or a dense geometry's period); partial: scratch of
 // plan.chunks * kh * kw * Cin * Cout float32; dw: [kh, kw, Cin, Cout]
 // float32. All contiguous, on the current device. Returns a cudaError_t
 // value: 0 on a successful launch of both passes.

@@ -170,7 +170,7 @@ tap_conv_fwd_kernel(const float* __restrict__ h, const float* __restrict__ w,
     it.k = i % K;
     it.b = i / K / n_rt;
     it.t0 = (i / K % n_rt) * rt;
-    it.p = min(max(periods[it.k], 1), p_max);  // make_geometry's clamp; the window assumes it
+    it.p = min(max(periods[it.k], 1), p_max);  // the geometry's clamp; the window assumes it
     it.cyc = cycles[it.k];
     it.padw = rh * it.p + rw;  // window rows this period needs on each side
     return it;
@@ -431,7 +431,7 @@ extern "C" int tap_conv_fwd_plan(int K, int B, int Lp, int Cin, int Cout, int kh
 // The float32 route (bf16 is tap_conv_mma.cu's tap_conv_fwd_mma). h:
 // [K, B, Lp, Cin] and w: [kh, kw, Cin, Cout] float32, 16-byte aligned; bias:
 // [Cout] float32; periods, cycles: [K] int32, every period at most p_max
-// (make_geometry's p_cap); out: [K, B, Lp, Cout] float32. All contiguous, on
+// (p_cap, or a dense geometry's period); out: [K, B, Lp, Cout] float32. All contiguous, on
 // the current device. Returns a cudaError_t value: 0 on a successful launch.
 extern "C" int tap_conv_fwd(const void* h, const void* w, const void* bias, const void* periods,
                             const void* cycles, void* out, int K, int B, int Lp, int Cin,

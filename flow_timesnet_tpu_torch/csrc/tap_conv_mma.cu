@@ -252,7 +252,7 @@ tap_conv_mma_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __
   const int n_rt = q.lp_pad / q.rt;
   const int i0 = (blockIdx.y % q.chunks_per_k) * q.per_chunk;
   const int n_items = min(q.per_chunk, B * n_rt - i0);
-  const int p = min(max(periods[k], 1), p_max);  // make_geometry's clamp; the window assumes it
+  const int p = min(max(periods[k], 1), p_max);  // the geometry's clamp; the window assumes it
   const int cyc = cycles[k];
   const int total = cyc * p;
   const int rh = kh / 2, rw = kw / 2;
@@ -471,7 +471,7 @@ extern "C" int tap_conv_mma_plan(int sign, int K, int B, int Lp, int Cin, int Co
 
 // The bf16 forward. h: [K, B, Lp, Cin] and w: [kh, kw, Cin, Cout] bf16,
 // 16-byte aligned; bias: [Cout] float32; periods, cycles: [K] int32, every
-// period at most p_max (make_geometry's p_cap); out: [K, B, Lp, Cout]
+// period at most p_max (p_cap, or a dense geometry's period); out: [K, B, Lp, Cout]
 // float32. All contiguous, on the current device. Returns a cudaError_t
 // value: 0 on a successful launch.
 extern "C" int tap_conv_fwd_mma(const void* h, const void* w, const void* bias,

@@ -5,8 +5,12 @@
 with gradients through the fold conv's hand kernels; ``evaluate`` streams
 the masked NLL and sMAPE sums over a pass and reads them once at its end.
 Neither reads a value back to the host inside a step: losses and stats come
-back as device tensors. Telemetry, the resident ``lax.scan`` epoch and the
-frozen-period helpers are later slices of the port.
+back as device tensors. ``collect_period_telemetry`` records each block's
+period selection in one deterministic forward, and the static
+``frozen_spec_*`` helpers turn it, or a config's stored spec, into the
+``frozen_periods`` of an engine on the frozen-period path, which takes the
+same parameters and ``TrainState``. The resident ``lax.scan`` epoch is a
+later slice of the port.
 """
 
 from __future__ import annotations
@@ -134,7 +138,128 @@ class Engine:
                 marks = torch.cat([marks[:, 1:, :], y_mark[:, step : step + 1, :]], dim=1)
         return torch.stack(rates, dim=1), torch.stack(disps, dim=1)
 
+    # -- observability ---------------------------------------------------------
+
+    @torch.inference_mode()
+    def collect_period_telemetry(self, params, batch: Mapping[str, Any]) -> Dict[str, Any]:
+        """One deterministic forward that records each block's period selection.
+
+        Returns ``{"blocks_i": {"periods", "valid", "group_count",
+        "freq_indices"}}`` as the JAX package's does (numpy arrays, an int
+        count); a frozen block gives its constants. ``params`` is a name ->
+        tensor mapping or None for the model's own; ``batch`` holds the
+        model's inputs (``x``, and ``x_mark``, ``static``, ``ids``, ``floor``
+        where the model takes them) on the engine's device. Every recorded
+        tensor comes to the host in one copy.
+        """
+
+        self.model.eval()
+        blocks = [getattr(self.model, f"blocks_{i}") for i in range(self.cfg.n_layers)]
+        for block in blocks:
+            block.telemetry = {}
+        try:
+            self._apply(params, *(batch.get(k) for k in _ARGS))
+            records = [block.telemetry for block in blocks]
+        finally:
+            for block in blocks:
+                block.telemetry = None
+        names = ("selected_periods", "period_valid", "group_count", "freq_indices")
+        parts = [rec[n] for rec in records if rec for n in names]
+        flat = (torch.cat([t.reshape(-1).to(device=self.device, dtype=torch.int64)
+                           for t in parts]).cpu().numpy() if parts else None)
+        out, at = {}, 0
+        for i, rec in enumerate(records):
+            if not rec:  # a block with no candidate records nothing, as in JAX
+                continue
+            values = []
+            for n in names:
+                size = rec[n].numel()
+                values.append(flat[at:at + size])
+                at += size
+            periods, valid, count, freqs = values
+            out[f"blocks_{i}"] = {
+                "periods": periods.astype(np.int32), "valid": valid.astype(bool),
+                "group_count": int(count[0]), "freq_indices": freqs.astype(np.int32),
+            }
+        return out
+
+    @staticmethod
+    def frozen_spec_from_telemetry(telemetry: Mapping[str, Any], n_layers: int):
+        """Telemetry -> the per-layer frozen spec, or None when a layer's
+        snapshot (or its ``freq_indices``) is missing.
+
+        Each layer's ``(period, freq_bin, valid)`` slots take the canonical
+        order of the JAX package: valid slots first, then sorted. The
+        softmax weights sum over slots, so their order does not change the
+        result, and a top-k swap of equal amplitudes is not drift.
+        """
+
+        layers = []
+        for i in range(n_layers):
+            info = telemetry.get(f"blocks_{i}")
+            if not info or "freq_indices" not in info:
+                return None
+            slots = [(int(p), int(f), bool(v)) for p, f, v in
+                     zip(info["periods"], info["freq_indices"], info["valid"])]
+            slots.sort(key=lambda s: (not s[2], s[0], s[1]))
+            layers.append(tuple(slots))
+        return tuple(layers)
+
+    @staticmethod
+    def parse_freeze_mode(raw: Any) -> str:
+        """``predict.freeze_periods`` as ``off``, ``auto`` or ``on``. YAML
+        1.1 reads a bare ``on``/``off``/``yes``/``no`` as a boolean, so
+        booleans map to their mode."""
+
+        if isinstance(raw, bool):
+            return "on" if raw else "off"
+        mode = str(raw).strip().lower()
+        if mode in ("off", "false", "0", "no", ""):
+            return "off"
+        if mode in ("on", "true", "1", "yes"):
+            return "on"
+        if mode == "auto":
+            return "auto"
+        raise ValueError(f"predict.freeze_periods must be off|auto|on, got '{raw}'")
+
+    @staticmethod
+    def frozen_spec_from_config(raw: Any, n_layers: int):
+        """A stored ``train.frozen_periods_spec`` (nested lists) -> the
+        per-layer spec that ``TimesNetConfig.frozen_periods`` takes.
+
+        None when absent; ``ValueError`` on a malformed spec or one whose
+        layer count is not the model's, so that a caller can fall back to
+        the dynamic path rather than run a wrong one.
+        """
+
+        if not raw:
+            return None
+        try:
+            layers = tuple(tuple((int(p), int(f), bool(v)) for p, f, v in layer)
+                           for layer in raw)
+        except (TypeError, ValueError) as err:
+            raise ValueError(f"Malformed frozen_periods_spec: {err}") from err
+        if len(layers) != int(n_layers):
+            raise ValueError(f"frozen_periods_spec carries {len(layers)} layers but the "
+                             f"model has n_layers={n_layers}")
+        return layers
+
     # -- training ---------------------------------------------------------------
+
+    def _bind(self, state: TrainState) -> None:
+        """Make ``state.params`` the model's own parameters where they are
+        another engine's: an engine on the frozen-period path continues a
+        run of the dynamic one (or the other way round) on the same
+        parameters, optimizer and EMA, as the JAX package's trainer swaps
+        engines between epochs."""
+
+        own = dict(self.model.named_parameters())
+        if own.keys() != state.params.keys():
+            raise ValueError("the TrainState's parameters are not this model's")
+        for name, p in state.params.items():
+            if own[name] is not p:
+                module, _, leaf = name.rpartition(".")
+                self.model.get_submodule(module)._parameters[leaf] = p
 
     def init_state(self, params: Optional[Mapping[str, torch.Tensor]] = None) -> TrainState:
         """Load ``params`` (if given) into the model and start a run on them:
@@ -182,6 +307,7 @@ class Engine:
         The state is updated in place and returned.
         """
 
+        self._bind(state)
         self.model.train()
         params = list(state.params.values())
         for p in params:

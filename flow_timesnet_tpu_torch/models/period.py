@@ -12,6 +12,7 @@ return the first extremum.
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import NamedTuple, Optional
 
@@ -102,7 +103,9 @@ def select_periods(
     amp = torch.fft.rfft(x.float(), dim=1).abs()  # [B, F, C]
     amp_med = _lower_median(amp, dim=2)  # [B, F]
     amp_mean = _batch_mean(amp_med, row_weight).clone()  # [F]
-    amp_mean[0] = _NEG_INF
+    # fill_, not item assignment: assigning a Python float copies it from the
+    # host, and that copy waits for the card (a host sync in every forward)
+    amp_mean[0].fill_(_NEG_INF)
 
     bins = torch.arange(n_freq, dtype=torch.float32, device=dev)
     scores = amp_mean - 1e-8 * torch.log1p(bins)
@@ -123,6 +126,38 @@ def select_periods(
         valid=valid,
         freq_indices=idx.to(torch.int32),
     )
+
+
+@functools.lru_cache(maxsize=64)
+def _dft_basis(bins: tuple, L: int, device: torch.device) -> torch.Tensor:
+    """``[cos | sin]`` of the DFT at ``bins`` over ``L`` steps, [L, 2K]
+    float32. Cached: the bins are static, and building it from a host list
+    on every forward would copy to the card, which waits for the card. Built
+    outside inference mode, so that a training forward may save it for its
+    backward after a served request built it."""
+
+    with torch.inference_mode(False):
+        k = torch.tensor(bins, dtype=torch.float32, device=device)
+        t = torch.arange(L, dtype=torch.float32, device=device)
+        ang = (-2.0 * math.pi / L) * (t[:, None] * k[None, :])  # [L, K]
+        return torch.cat([torch.cos(ang), torch.sin(ang)], dim=1)
+
+
+def amplitudes_at_bins(x: torch.Tensor, bins: tuple) -> torch.Tensor:
+    """Per-sample channel-median spectral amplitudes at static rFFT bins.
+
+    The frozen-period path needs only the amplitudes of its K known bins,
+    so it evaluates the DFT at those bins as one ``[L, 2K]`` float32 matmul,
+    as the JAX package does (the same quantity as ``|rfft(x)[bin]|`` up to
+    float32 rounding), then takes the channel lower median of
+    :func:`select_periods`. x: [B, L, C] -> [B, K] float32.
+    """
+
+    B, L, C = x.shape
+    proj = torch.einsum("blc,lk->bkc", x.float(), _dft_basis(tuple(bins), L, x.device))
+    K = len(bins)
+    amp = torch.sqrt(proj[:, :K, :] ** 2 + proj[:, K:, :] ** 2)  # [B, K, C]
+    return _lower_median(amp, dim=2)
 
 
 # ---------------------------------------------------------------------------

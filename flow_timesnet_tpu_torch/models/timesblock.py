@@ -1,11 +1,15 @@
 """TimesBlock: weighted period-fold inception residuals.
 
-Counterpart of ``flow_timesnet_tpu/models/timesblock.py`` (the dynamic path).
-All selected periods run in one candidate-batched ``[K, B, Lp, C]`` program
-over the masked dilated-tap fold conv of ``ops/cuda_fold.py``, which runs the
-CUDA kernel on the card. With ``compute_dtype="bfloat16"`` the casts follow
-the JAX package point by point: matmul inputs are bf16, products are summed
-in float32, the float32 bias is added, and only then is the result cast.
+Counterpart of ``flow_timesnet_tpu/models/timesblock.py``. On the dynamic
+path all selected periods run in one candidate-batched ``[K, B, Lp, C]``
+program over the masked dilated-tap fold conv of ``ops/cuda_fold.py``, which
+runs the CUDA kernels on the card. A block given a frozen spec (static
+``(period, freq_bin, valid)`` slots) skips the selector and the grouper and
+runs each unique period at its exact extent through ``dense_fold_conv``, on
+the same kernels; only the slots' softmax weights stay live. With
+``compute_dtype="bfloat16"`` the casts follow the JAX package point by
+point: matmul inputs are bf16, products are summed in float32, the float32
+bias is added, and only then is the result cast.
 Dropout runs when the caller passes the step's ``torch.Generator``; with
 None the block is deterministic.
 """
@@ -19,10 +23,17 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..ops.cuda_fold import tap_conv
-from ..ops.fold import FoldGeometry, combine_residuals, make_geometry, pad_time, pointwise_conv
+from ..ops.cuda_fold import dense_fold_conv, tap_conv
+from ..ops.fold import (
+    FoldGeometry,
+    combine_residuals,
+    make_dense_geometry,
+    make_geometry,
+    pad_time,
+    pointwise_conv,
+)
 from .embedding import dropout
-from .period import PeriodSelection, group_periods
+from .period import PeriodSelection, amplitudes_at_bins, group_periods, softmax_safe
 
 
 def _dtype(name: str) -> torch.dtype:
@@ -63,10 +74,12 @@ class InceptionBranch(nn.Module):
 
     def forward(self, h: torch.Tensor, geom: FoldGeometry) -> torch.Tensor:
         dt, kh, kw = self.dt, self.kh, self.kw
+        # the frozen-period path's exact-extent geometry takes the dense form
+        conv = dense_fold_conv if geom.dense else tap_conv
         if not self.bottleneck:
-            return tap_conv(h.to(dt), geom, self.conv_kernel, self.conv_bias, kh, kw)
+            return conv(h.to(dt), geom, self.conv_kernel, self.conv_bias, kh, kw)
         h = pointwise_conv(h.to(dt), self.reduce_kernel, self.reduce_bias).to(dt)
-        h = tap_conv(h, geom, self.conv_kernel, self.conv_bias, kh, kw).to(dt)
+        h = conv(h, geom, self.conv_kernel, self.conv_bias, kh, kw).to(dt)
         return pointwise_conv(h, self.expand_kernel, self.expand_bias)
 
 
@@ -120,6 +133,15 @@ class TimesBlock(nn.Module):
     stack (d_model -> d_ff -> d_model with a mid activation), take the
     residual delta against the folded input, and softmax-weight the
     candidates by their FFT amplitudes.
+
+    ``frozen`` (a tuple of ``(period, freq_bin, valid)`` slots, or None)
+    takes the frozen-period path (:meth:`_frozen_forward`). Its parameters
+    are the dynamic block's, so a frozen model loads the same state dict.
+    Where ``telemetry`` is a dict, a forward records in it what the JAX
+    package sows (``selected_periods``, ``period_valid``, ``group_count``,
+    ``freq_indices``) as tensors, with no read to the host; it is None, and
+    nothing is recorded, unless the caller asks
+    (``Engine.collect_period_telemetry``).
     """
 
     def __init__(
@@ -136,6 +158,7 @@ class TimesBlock(nn.Module):
         max_unique: Optional[int] = None,
         conv_dtype: str = "float32",
         dropout: float = 0.0,
+        frozen: Optional[Tuple[Tuple[int, int, bool], ...]] = None,
     ) -> None:
         super().__init__()
         self.d_model = d_model
@@ -144,6 +167,9 @@ class TimesBlock(nn.Module):
         self.p_cap = p_cap
         self.log_base = log_base
         self.max_unique = max_unique
+        self.frozen = (None if frozen is None
+                       else tuple((int(p), int(f), bool(v)) for p, f, v in frozen))
+        self.telemetry: Optional[dict] = None
         self.conv_dt = _dtype(conv_dtype)
         self.act = _activation(activation)
         self.inception_in = InceptionBlock(
@@ -152,6 +178,14 @@ class TimesBlock(nn.Module):
         self.inception_out = InceptionBlock(
             d_ff, d_model, kernel_set, activation, bottleneck_ratio, conv_dtype, dropout
         )
+
+    def _inception(self, h: torch.Tensor, geom: FoldGeometry,
+                   generator: Optional[torch.Generator]) -> torch.Tensor:
+        """The two inception stacks over ``geom``, on [K, B, Lp, C] in the conv type."""
+
+        h = self.inception_in(h, geom, generator).to(self.conv_dt)
+        h = self.act(h)
+        return self.inception_out(h, geom, generator)
 
     def _conv_deltas(
         self, x: torch.Tensor, periods: torch.Tensor, p_cap: int,
@@ -163,22 +197,56 @@ class TimesBlock(nn.Module):
         K = int(periods.shape[0])
         geom = make_geometry(periods, L, p_cap)
         xg = pad_time(x.float(), L, geom.Lp)
-        h = xg[None].expand(K, B, geom.Lp, C).to(self.conv_dt)
-        h = self.inception_in(h, geom, generator).to(self.conv_dt)
-        h = self.act(h)
-        h = self.inception_out(h, geom, generator)
+        h = self._inception(xg[None].expand(K, B, geom.Lp, C).to(self.conv_dt), geom, generator)
         # residual delta against the folded input, cropped to the input length
         delta = h.float()[:, :, :L, :] - xg[None, :, :L, :]
         return delta.to(x.dtype)
 
+    def _frozen_forward(self, x: torch.Tensor, generator: Optional[torch.Generator]):
+        """The frozen-period path (the JAX package's ``_frozen_forward``).
+
+        The valid slots' softmax weights come from the input's amplitudes at
+        the frozen bins; each unique period, in sorted order, runs the
+        inception stacks over its exact ``[cycles, p]`` grid
+        (:func:`make_dense_geometry`), and its weight is the sum of its
+        slots'. With no valid slot the block is the identity.
+        """
+
+        B, L, C = x.shape
+        slots = self.frozen
+        valid = [(p, f) for p, f, v in slots if v]
+        uperiods = sorted({p for p, _ in valid})
+        if self.telemetry is not None:  # constants, as the JAX package sows them
+            self.telemetry.update(
+                selected_periods=torch.tensor([p for p, _, _ in slots], dtype=torch.int32),
+                period_valid=torch.tensor([v for _, _, v in slots], dtype=torch.bool),
+                group_count=torch.tensor(len(uperiods), dtype=torch.int32),
+                freq_indices=torch.tensor([f for _, f, _ in slots], dtype=torch.int32),
+            )
+        if not valid:
+            return x
+        w = softmax_safe(amplitudes_at_bins(x, tuple(f for _, f in valid)), dim=1)  # [B, V]
+        # the slots' weights summed onto their (unique) periods
+        wu = torch.stack([sum(w[:, i] for i, (p, _) in enumerate(valid) if p == u)
+                          for u in uperiods], dim=1)  # [B, U]
+        x32 = x.float()
+        deltas = []
+        for u in uperiods:
+            geom = make_dense_geometry(u, L, x.device)
+            xg = pad_time(x32, L, geom.Lp)  # [B, total, C]
+            h = self._inception(xg[None].to(self.conv_dt), geom, generator)
+            deltas.append((h.float()[0, :, :L, :] - x32[:, :L, :]).to(x.dtype))
+        return combine_residuals(torch.stack(deltas), wu, x)
+
     def forward(
         self,
         x: torch.Tensor,
-        selection: PeriodSelection,
+        selection: Optional[PeriodSelection],
         row_weight: Optional[torch.Tensor] = None,
         generator: Optional[torch.Generator] = None,
     ) -> torch.Tensor:
-        """``row_weight`` [B] (0 for padded rows) keeps padded rows out of the
+        """``selection`` is the shared selector's (None for a frozen block);
+        ``row_weight`` [B] (0 for padded rows) keeps padded rows out of the
         grouper's batch statistics; ``generator`` drives dropout (None:
         deterministic)."""
 
@@ -187,6 +255,8 @@ class TimesBlock(nn.Module):
         B, L, C = x.shape
         if C != self.d_model:
             raise ValueError("Input channel dimension does not match configured d_model")
+        if self.frozen is not None:
+            return self._frozen_forward(x, generator)
         if int(selection.periods.shape[0]) == 0:
             return x
         grouped = group_periods(
@@ -200,6 +270,11 @@ class TimesBlock(nn.Module):
             max_unique=self.max_unique,
             row_weight=row_weight,
         )
+        if self.telemetry is not None:
+            self.telemetry.update(
+                selected_periods=grouped.periods, period_valid=grouped.valid,
+                group_count=grouped.group_count, freq_indices=selection.freq_indices,
+            )
         p_cap = min(int(self.p_cap), max(1, L - 1))
         delta = self._conv_deltas(x, grouped.periods, p_cap, generator)
         out = combine_residuals(delta, grouped.weights, x)

@@ -4,7 +4,10 @@
 with ``out_steps = pred_len`` (direct) or 1 (recursive). The shared FFT
 selector runs once per layer and feeds its TimesBlock; grouping is
 static-shape masked math, so the forward has no data-dependent Python
-control flow and no host synchronisation. In training mode the forward
+control flow and no host synchronisation. With ``frozen_periods`` (one
+tuple of ``(period, freq_bin, valid)`` slots per layer) the selector is
+skipped and every block takes the frozen-period path, on the same
+parameters. In training mode the forward
 takes the step's ``torch.Generator`` for its dropout (embedding, inception
 blocks, residual) and ``row_valid`` to keep padded batch rows out of the
 period statistics; backward runs through the fold conv's autograd Function.
@@ -86,18 +89,13 @@ class TimesNetConfig:
             raise ValueError("compute_dtype must be 'float32' or 'bfloat16'")
         if self.period_buckets not in (None, False, "", "off", "none"):
             raise NotImplementedError(
-                "period_buckets is not ported yet; it comes with the frozen-period "
-                "serving slice (see ROADMAP.md)"
+                "period_buckets is not ported yet; it is the last module of the port's "
+                "queue (see ROADMAP.md)"
             )
         if self.use_checkpoint:
             raise NotImplementedError(
                 "use_checkpoint (rematerialising the TimesBlocks in the backward) is not "
                 "ported yet; it comes with a later training slice (see ROADMAP.md)"
-            )
-        if self.frozen_periods is not None:
-            raise NotImplementedError(
-                "frozen_periods (dense_fold_conv) is not ported yet; it comes with "
-                "the frozen-period serving slice (see ROADMAP.md)"
             )
 
     @property
@@ -170,6 +168,14 @@ class TimesNet(nn.Module):
         pmax = cfg.pmax
         self.min_thresh = min(pmax, max(1, cfg.min_period_threshold))
         p_cap = min(pmax, max(1, cfg.input_len - 1))
+        frozen = [None] * cfg.n_layers
+        if cfg.frozen_periods is not None:
+            frozen = [tuple(tuple(slot) for slot in layer) for layer in cfg.frozen_periods]
+            if len(frozen) != cfg.n_layers:
+                raise ValueError(
+                    "frozen_periods must carry one slot tuple per layer "
+                    f"(got {len(frozen)} for n_layers={cfg.n_layers})"
+                )
         for i in range(cfg.n_layers):
             self.add_module(
                 f"blocks_{i}",
@@ -186,6 +192,7 @@ class TimesNet(nn.Module):
                     max_unique=resolve_max_unique(cfg.period_max_unique, i),
                     conv_dtype=cfg.compute_dtype,
                     dropout=cfg.dropout,
+                    frozen=frozen[i],
                 ),
             )
         self.layer_norm = LayerNorm32(cfg.d_model)
@@ -276,8 +283,11 @@ class TimesNet(nn.Module):
 
         # shared period selection + TimesBlock stack
         for i in range(cfg.n_layers):
-            sel = select_periods(seq, cfg.k_periods, cfg.pmax, self.min_thresh, row_valid)
-            updated = getattr(self, f"blocks_{i}")(seq, sel, row_valid, generator)
+            block = getattr(self, f"blocks_{i}")
+            # a frozen block re-derives its weights from its static bins
+            sel = (None if block.frozen is not None else
+                   select_periods(seq, cfg.k_periods, cfg.pmax, self.min_thresh, row_valid))
+            updated = block(seq, sel, row_valid, generator)
             seq = self.layer_norm(seq + dropout(updated - seq, cfg.dropout, generator))
 
         # heads: Dense over time on [B, D, L], then per-feature heads

@@ -7,6 +7,9 @@ of the custom VJP of ``flow_timesnet_tpu/ops/fold.py::tap_conv``.
 :func:`tap_conv` runs :class:`TapConv`: on a CUDA tensor its forward is the
 forward kernel and its backward the dh-adjoint and dW kernels (or a launch
 raises); on a CPU tensor both are the plain versions of ``ops/fold.py``.
+:func:`dense_fold_conv`, the frozen-period path's exact-extent conv, runs
+the same Function and kernels on ``make_dense_geometry``'s one-period
+geometry, with the JAX dense form's bf16 rounding.
 Each kernel has two routes, chosen by dtype, and neither gives way to the
 other: bf16 runs on the tensor cores (``tap_conv_mma.cu`` for the forward
 and dh, ``tap_conv_dw_mma`` for dW), float32 on the CUDA cores, whose
@@ -661,9 +664,10 @@ def _check(name: str, x: torch.Tensor, kh: int, kw: int) -> None:
 
 def _check_geometry(name: str, geom: FoldGeometry, x: torch.Tensor, *others) -> int:
     """What every kernel needs of the geometry of its [K, B, Lp, C] input
-    ``x``; returns ``p_max``, the bound on its periods (``make_geometry``'s
-    ``p_cap``, ``Lp - L``), which sizes the zero rows the tensor-core
-    kernels stage."""
+    ``x``; returns ``geom.p_max``, the bound on its periods, which sizes the
+    zero rows the kernels stage (``make_geometry``'s ``p_cap``, which is
+    ``Lp - L`` there; ``make_dense_geometry``'s period, where ``Lp - L`` is
+    ``(-L) % p`` and would be too small)."""
 
     K, Lp = int(x.shape[0]), int(x.shape[2])
     if geom.Lp != Lp:
@@ -673,7 +677,7 @@ def _check_geometry(name: str, geom: FoldGeometry, x: torch.Tensor, *others) -> 
             raise ValueError(f"{label} must be int32 [{K}], got {v.dtype} {tuple(v.shape)}")
     if any(t.device != x.device for t in (geom.periods, geom.cycles, *others)):
         raise ValueError(f"all {name} arguments must be on one device")
-    return geom.Lp - geom.L
+    return geom.p_max
 
 
 def _raise_on(err: int, name: str, shape: str) -> None:
@@ -695,13 +699,13 @@ def tap_conv_cuda(
 
     ``h`` [K, B, Lp, Cin] bf16 or float32; ``kernel`` [kh, kw, Cin, Cout] is
     rounded to ``h.dtype`` as in the plain version; ``bias`` [Cout]; ``geom``
-    from :func:`make_geometry` over the same Lp. Returns
-    [K, B, Lp, Cout] float32. The dtype picks the route, and neither route
+    from :func:`make_geometry` or :func:`make_dense_geometry` over the same
+    Lp. Returns [K, B, Lp, Cout] float32. The dtype picks the route, and neither route
     gives way to the other:
 
     - bf16: the tensor-core template ``tap_conv_fwd_mma`` (bf16 products are
       exact in float32, summed in float32). A shape it cannot take
-      (:func:`fold_mma_plan`, with ``p_max = geom.Lp - geom.L``) raises
+      (:func:`fold_mma_plan`, with ``p_max = geom.p_max``) raises
       ``RuntimeError``.
     - float32: the CUDA-core kernel ``tap_conv_fwd``, whose float32 FMAs keep
       the products exact (the tensor cores would round them to TF32). A
@@ -810,7 +814,7 @@ def tap_conv_dw_cuda(
 
     - bf16: the tensor-core kernel ``tap_conv_dw_mma`` (bf16 products are
       exact in float32, summed in float32). A shape it cannot take
-      (:func:`dw_mma_plan`, with ``p_max = geom.Lp - geom.L``) raises
+      (:func:`dw_mma_plan`, with ``p_max = geom.p_max``) raises
       ``RuntimeError``.
     - float32: the CUDA-core kernel ``tap_conv_dw``, whose float32 FMAs keep
       the products exact (the tensor cores would round them to TF32). Its
@@ -831,12 +835,12 @@ def tap_conv_dw_cuda(
                          f"got {ct.dtype} {tuple(ct.shape)}")
     p_max = _check_geometry("tap_conv_dw_cuda", geom, h, ct)
 
-    lib = _bwd_fns()
     mma = h.dtype == torch.bfloat16
     if mma:
         chunks = dw_mma_plan(K, B, Lp, Cin, Cout, kh, kw, p_max).chunks
     else:
         chunks = dw_f32_plan(K, B, Lp, Cin, Cout, kh, kw).chunks
+    lib = _bwd_fns()
     partial = torch.empty((chunks, kh, kw, Cin, Cout), dtype=torch.float32, device=h.device)
     dw = torch.empty((kh, kw, Cin, Cout), dtype=torch.float32, device=h.device)
     x, y = _aligned(h), _aligned(ct)
@@ -864,15 +868,25 @@ class TapConv(torch.autograd.Function):
     ``h.dtype``; dW is summed in float32; db is summed from the float32
     cotangent before any rounding. It keeps ``h``, the kernel and the
     geometry's int32 tensors, not the tap stack.
+
+    ``dense`` takes the rounding of the JAX package's dense form
+    (``dense_fold_conv``, ``ops/fold.py:408-421``), whose convolution runs
+    in ``h.dtype``: the sum is rounded to ``h.dtype`` before the float32
+    bias is added, and dW comes back rounded to ``h.dtype`` (the transpose
+    of a bf16 convolution is a bf16 convolution). In float32 both roundings
+    are the identity and the two forms give the same numbers, so the dense
+    form adds the bias in the kernel there as the tap form does.
     """
 
     @staticmethod
-    def forward(ctx, h, kernel, bias, geom: FoldGeometry, kh: int, kw: int):
+    def forward(ctx, h, kernel, bias, geom: FoldGeometry, kh: int, kw: int, dense: bool = False):
         ctx.save_for_backward(h, kernel)
-        ctx.geom, ctx.kh, ctx.kw = geom, kh, kw
-        if h.device.type == "cuda":
-            return tap_conv_cuda(h, geom, kernel, bias, kh, kw)
-        return tap_conv_plain(h, geom, kernel, bias, kh, kw)
+        ctx.geom, ctx.kh, ctx.kw, ctx.dense = geom, kh, kw, dense
+        conv = tap_conv_cuda if h.device.type == "cuda" else tap_conv_plain
+        if not dense or h.dtype == torch.float32:
+            return conv(h, geom, kernel, bias, kh, kw)
+        out = conv(h, geom, kernel, torch.zeros_like(bias, dtype=torch.float32), kh, kw)
+        return out.to(h.dtype).float() + bias.float()
 
     @staticmethod
     def backward(ctx, ct):
@@ -894,10 +908,10 @@ class TapConv(torch.autograd.Function):
         if dh is not None:
             dh = dh.to(h.dtype)
         if dw is not None:
-            dw = dw.to(kernel.dtype)
+            dw = (dw.to(h.dtype) if ctx.dense else dw).to(kernel.dtype)
         if need_b:
             db = ct.sum(dim=(0, 1, 2))
-        return dh, dw, db, None, None, None
+        return dh, dw, db, None, None, None, None
 
 
 def tap_conv(
@@ -918,3 +932,29 @@ def tap_conv(
     if h.device.type not in ("cuda", "cpu"):
         raise ValueError(f"tap_conv runs on cuda or cpu tensors, got {h.device}")
     return TapConv.apply(h.contiguous(), kernel, bias, geom, kh, kw)
+
+
+def dense_fold_conv(
+    h: torch.Tensor,
+    geom: FoldGeometry,
+    kernel: torch.Tensor,
+    bias: torch.Tensor,
+    kh: int,
+    kw: int,
+) -> torch.Tensor:
+    """The exact-extent fold Conv2d of one static period: the JAX package's
+    ``dense_fold_conv`` (``ops/fold.py:389-421``), the frozen-period path's.
+
+    ``h`` [1, B, total, Cin] over :func:`make_dense_geometry`'s geometry.
+    The masked taps at ``K = 1`` and ``Lp = total`` are the zero-padded
+    Conv2d over the ``[cycles, p]`` grid, so this is :class:`TapConv` on the
+    same kernels (a CUDA tensor) or plain versions (a CPU tensor) as
+    :func:`tap_conv`, with the dense form's bf16 rounding (see ``dense``
+    there). Returns [1, B, total, Cout] float32.
+    """
+
+    if not geom.dense:
+        raise ValueError("dense_fold_conv needs make_dense_geometry's geometry")
+    if h.device.type not in ("cuda", "cpu"):
+        raise ValueError(f"dense_fold_conv runs on cuda or cpu tensors, got {h.device}")
+    return TapConv.apply(h.contiguous(), kernel, bias, geom, kh, kw, True)

@@ -1,8 +1,8 @@
 """Period-fold 2D convolution as masked dilated taps: the plain PyTorch version.
 
-Counterpart of ``flow_timesnet_tpu/ops/fold.py`` (the masked tap conv, its
-adjoint and its weight gradient; the dense frozen-period conv is not ported
-yet). For fold
+Counterpart of ``flow_timesnet_tpu/ops/fold.py``: the masked tap conv, its
+adjoint and its weight gradient, and the exact-extent geometry of the dense
+frozen-period conv (:func:`make_dense_geometry`). For fold
 position ``t = c * p + j`` the Conv2d neighbour ``(c + dc, j + dj)`` is time
 index ``t + dc * p + dj``, so a 2D convolution over the ``[cycles, p]`` fold
 is a sum over ``kh * kw`` taps of time-shifted copies of the sequence, where
@@ -15,6 +15,13 @@ and invalid taps contribute zero (Conv2d's implicit zero padding). Shapes stay
 ``[K, B, Lp, C]`` whatever the periods, and the periods stay int32 tensors,
 so the forward never synchronises with the host.
 
+The same masked sum at ``K = 1`` over ``Lp = total`` rows of one static
+period is the dense zero-padded Conv2d over the exact ``[cycles, p]`` grid
+that the JAX package's frozen-period path runs, so the dense form needs no
+kernel of its own: only a geometry whose period bound ``p_max`` is the
+period itself, not ``Lp - L``. Its bf16 rounding, which differs from the
+tap form's, is ``ops/cuda_fold.py::dense_fold_conv``'s.
+
 The adjoint is the same masked-shift sum with negated shifts and the
 transposed masks of :func:`_bwd_mask`; the weight gradient contracts the
 forward taps with the cotangent. :func:`tap_conv`, :func:`tap_conv_dh` and
@@ -25,6 +32,7 @@ them.
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import torch
@@ -40,13 +48,16 @@ class FoldGeometry(NamedTuple):
     row: torch.Tensor  # [K, Lp] int32: t div p
     Lp: int  # static padded length (>= max total)
     L: int  # original sequence length
+    p_max: int  # static bound on every period: the zero rows a shifted tap may need
+    dense: bool = False  # one static period at its exact extent (make_dense_geometry)
 
 
 def make_geometry(periods: torch.Tensor, L: int, p_cap: int) -> FoldGeometry:
     """Fold coordinates for each candidate period.
 
     Periods are clamped into ``[1, p_cap]``, so ``Lp = L + p_cap`` covers
-    every padded extent and every valid tap reads inside ``[0, Lp)``.
+    every padded extent and every valid tap reads inside ``[0, Lp)``;
+    ``p_max`` is that cap.
     """
 
     cap = max(1, int(p_cap))
@@ -60,8 +71,32 @@ def make_geometry(periods: torch.Tensor, L: int, p_cap: int) -> FoldGeometry:
     row = torch.div(t, p[:, None], rounding_mode="floor")
     return FoldGeometry(
         periods=p, total=total.to(torch.int32), cycles=cycles.to(torch.int32),
-        col=col.to(torch.int32), row=row.to(torch.int32), Lp=Lp, L=int(L),
+        col=col.to(torch.int32), row=row.to(torch.int32), Lp=Lp, L=int(L), p_max=cap,
     )
+
+
+@functools.lru_cache(maxsize=64)  # the spec is static: a frozen layer asks for the same few
+def make_dense_geometry(period: int, L: int, device="cpu") -> FoldGeometry:
+    """The exact-extent geometry of one static period (the JAX package's
+    ``make_dense_geometry``): ``K = 1``, ``total = L + (-L) % p``, ``cycles =
+    total // p`` and ``Lp = total``, so the fold is the whole ``[cycles, p]``
+    grid with no padded rows beyond it, and ``p_max = p``. Cached by
+    ``(period, L, device)``: its tensors are built once per spec (outside
+    inference mode, so that a served request and a training step share them).
+    """
+
+    p = max(1, int(period))
+    total = L + (-L) % p
+    dev = torch.device(device)
+    with torch.inference_mode(False):
+        t = torch.arange(total, dtype=torch.int32, device=dev)[None, :]
+        periods, total_t, cycles = (torch.tensor([v], dtype=torch.int32, device=dev)
+                                    for v in (p, total, total // p))
+        return FoldGeometry(
+            periods=periods, total=total_t, cycles=cycles,
+            col=torch.remainder(t, p), row=torch.div(t, p, rounding_mode="floor"),
+            Lp=total, L=int(L), p_max=p, dense=True,
+        )
 
 
 def pad_time(x: torch.Tensor, L: int, Lp: int) -> torch.Tensor:
@@ -121,9 +156,12 @@ def _row_taps(padded: torch.Tensor, geom: FoldGeometry, pad: int, dc: int, kw: i
 
 
 def _pad_rows(x: torch.Tensor, geom: FoldGeometry, kh: int, kw: int):
-    """float32 ``x`` with enough zero rows on both ends for every shift."""
+    """float32 ``x`` with enough zero rows on both ends for every shift: the
+    largest ``|dc * p + dj|`` for a period up to ``geom.p_max`` (``Lp - L``
+    bounds it only on :func:`make_geometry`'s padded axis; at the exact
+    extent ``Lp = L + (-L) % p`` it can be 0)."""
 
-    pad = (kh // 2) * (geom.Lp - geom.L) + kw // 2  # largest |dc * p + dj| for p <= Lp - L
+    pad = (kh // 2) * geom.p_max + kw // 2
     return torch.nn.functional.pad(x.float(), (0, 0, pad, pad)), pad
 
 

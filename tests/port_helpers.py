@@ -160,8 +160,10 @@ def loss_grads(tree, batch, dtype="float32", model_kw=None):
     eng.model.train()
     loss, stats = eng._loss(torch_batch(batch), None)
     loss.backward()
+    # a parameter that does not enter the loss (a skipped block) has no grad: 0, as in JAX
     port = (float(loss.detach()), {k: float(v) for k, v in stats.items()},
-            {k: p.grad.numpy() for k, p in eng.model.named_parameters()})
+            {k: (torch.zeros_like(p) if p.grad is None else p.grad).numpy()
+             for k, p in eng.model.named_parameters()})
     jeng = jax_engine(dtype, model_kw)
     fn = jax.jit(jax.value_and_grad(jeng._loss, has_aux=True))
     (jloss, jstats), grads = fn(tree, jax_batch(batch), jax.random.PRNGKey(0))

@@ -518,3 +518,159 @@ def test_tensor_core_routes_take_unaligned_views(cuda):
     torch.testing.assert_close(got, fold.tap_conv(x, geom, w, b, 3, 3), rtol=1e-4, atol=1e-4)
     got = cuda_fold.tap_conv_dh_cuda(x, geom, w, 3, 3)
     torch.testing.assert_close(got, fold.tap_conv_dh(x, geom, w, 3, 3), rtol=1e-4, atol=1e-4)
+
+
+# --- the frozen-period path: the same kernels at the exact extent (K=1, Lp=total) ---
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+@pytest.mark.parametrize("kh,kw", [(3, 3), (5, 5), (7, 7)])
+@pytest.mark.parametrize("p", [7, 14, 27])
+def test_kernels_at_the_exact_extent_match_plain_and_conv2d(cuda, p, kh, kw, dtype):
+    """Forward, dh and dW over ``make_dense_geometry``'s grid: against the plain
+    versions (1e-4; dW 1e-4 of its largest value), the same bits twice, the
+    C plans equal to their mirrors, and in float32 against conv2d."""
+
+    B, L, C = 24, 28, 32
+    geom = fold.make_dense_geometry(p, L, cuda)
+    h, kernel, bias = _inputs(p + kh, 1, B, L, geom.Lp, C, kh, kw)
+    ct = np.random.default_rng(p).standard_normal(h.shape).astype(np.float32)
+    h_t, ct_t = (torch.from_numpy(a).to(cuda).to(dtype) for a in (h, ct))
+    k_t, b_t = torch.from_numpy(kernel).to(cuda), torch.from_numpy(bias).to(cuda)
+    shape = (1, B, geom.Lp, C, C, kh, kw)
+    if dtype == torch.bfloat16:
+        for sign in (1, -1):
+            assert cuda_fold.fold_mma_plan_of_kernel(sign, *shape, p) == \
+                cuda_fold.fold_mma_plan(sign, *shape, p)
+        assert cuda_fold.dw_mma_plan_of_kernel(*shape, p) == cuda_fold.dw_mma_plan(*shape, p)
+    else:
+        assert cuda_fold.fwd_f32_plan_of_kernel(*shape, p) == cuda_fold.fwd_f32_plan(*shape, p)
+        assert cuda_fold.dh_f32_plan_of_kernel(*shape, p) == cuda_fold.dh_f32_plan(*shape, p)
+    runs = [(cuda_fold.tap_conv_cuda(h_t, geom, k_t, b_t, kh, kw),
+             cuda_fold.tap_conv_dh_cuda(ct_t, geom, k_t, kh, kw),
+             cuda_fold.tap_conv_dw_cuda(h_t, geom, ct_t, kh, kw)) for _ in range(2)]
+    torch.cuda.synchronize()
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+    out, dh, dw = runs[0]
+    torch.testing.assert_close(out, fold.tap_conv(h_t, geom, k_t, b_t, kh, kw),
+                               rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(dh, fold.tap_conv_dh(ct_t, geom, k_t, kh, kw),
+                               rtol=1e-4, atol=1e-4)
+    want_dw = fold.tap_weight_grad(h_t, geom, ct_t, kh, kw)
+    torch.testing.assert_close(dw, want_dw, rtol=1e-4, atol=1e-4 * float(want_dw.abs().max()))
+    if dtype == torch.float32:
+        cycles = geom.Lp // p
+        grid = h_t[0].reshape(B, cycles, p, C).permute(0, 3, 1, 2)
+        ref = torch.nn.functional.conv2d(grid, k_t.permute(3, 2, 0, 1), b_t,
+                                         padding=(kh // 2, kw // 2))
+        torch.testing.assert_close(out[0], ref.permute(0, 2, 3, 1).reshape(B, geom.Lp, C),
+                                   rtol=1e-3, atol=1e-3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+def test_dense_fold_conv_on_the_card_matches_the_cpu(cuda, dtype):
+    """The dense form's autograd Function on the kernels against the plain
+    versions; in bf16 the rounding of its output and dW can move a value by
+    one bf16 step (2**-8 relative) where the float32 sums differ in order."""
+
+    B, L, C, kh, kw, p = 8, 28, 32, 5, 5, 27
+    h, kernel, bias = _inputs(9, 1, B, L, L + (-L) % p, C, kh, kw)
+    ct = np.random.default_rng(10).standard_normal(h.shape).astype(np.float32)
+    res = {}
+    for d in ("cpu", cuda):
+        geom = fold.make_dense_geometry(p, L, d)
+        args = [torch.from_numpy(a).to(d).requires_grad_() for a in (h, kernel, bias)]
+        out = cuda_fold.dense_fold_conv(args[0].to(dtype), geom, args[1], args[2], kh, kw)
+        out.backward(torch.from_numpy(ct).to(d))
+        res[d] = [out.detach().cpu(), *(a.grad.cpu() for a in args)]
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    for got, want in zip(res[cuda], res["cpu"]):
+        torch.testing.assert_close(got, want, rtol=tol, atol=tol * max(1.0, float(want.abs().max())))
+
+
+@pytest.mark.cuda
+def test_frozen_model_on_the_card_matches_the_cpu(cuda):
+    """A small float32 model on a frozen spec from its own telemetry: forward
+    and gradients card against CPU, and Σ_layers 2 × 3 × U launches of each
+    kernel, one per inception branch and unique period."""
+
+    import dataclasses
+
+    from flow_timesnet_tpu_torch import convert, engine
+    from flow_timesnet_tpu_torch.models import timesnet
+
+    cfg = timesnet.TimesNetConfig(input_len=28, pred_len=7, d_model=32, d_ff=64, n_layers=2,
+                                  kernel_set=((3, 3), (5, 5), (7, 7)), bottleneck_ratio=1.0,
+                                  min_period_threshold=7, dropout=0.0, id_embed_dim=0)
+    params = convert.init_params(cfg, torch.Generator().manual_seed(0))
+    params = {k: v + 0.05 * torch.randn(v.shape, generator=torch.Generator().manual_seed(1))
+              for k, v in params.items()}
+    rng = np.random.default_rng(3)
+    t = np.arange(28)
+    x = (np.sin(2 * np.pi * t / 7)[None, :, None] + 0.5 * np.cos(2 * np.pi * t / 9.3)[None, :, None]
+         + 0.3 * rng.standard_normal((16, 28, 1))).astype(np.float32)
+    spec = engine.Engine.frozen_spec_from_telemetry(
+        engine.Engine(cfg, params, device="cpu").collect_period_telemetry(
+            None, {"x": torch.from_numpy(x)}), cfg.n_layers)
+    on_card = engine.Engine(cfg, params, device=cuda).collect_period_telemetry(
+        None, {"x": torch.from_numpy(x).to(cuda)})
+    assert engine.Engine.frozen_spec_from_telemetry(on_card, cfg.n_layers) == spec
+    fcfg = dataclasses.replace(cfg, frozen_periods=spec)
+    res = {}
+    for d in ("cpu", cuda):
+        model = timesnet.TimesNet(fcfg).to(d)
+        model.load_state_dict(params)
+        for counter in (cuda_fold.launches, cuda_fold.launches_dh, cuda_fold.launches_dw):
+            counter.clear()
+        rate, disp = model.eval()(torch.from_numpy(x).to(d))
+        ((rate ** 2).mean() + (disp ** 2).mean()).backward()
+        res[d] = [rate.detach().cpu(), disp.detach().cpu(),
+                  *(p.grad.cpu() for p in model.parameters())]
+    unique = sum(len({p for p, _, v in layer if v}) for layer in spec)
+    assert unique >= 1
+    for counter in (cuda_fold.launches, cuda_fold.launches_dh, cuda_fold.launches_dw):
+        assert dict(counter) == {k: 2 * unique for k in ("3x3", "5x5", "7x7")}
+    scale = max(1.0, max(float(g.abs().max()) for g in res["cpu"][2:]))
+    for got, want in zip(res[cuda], res["cpu"]):
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4 * scale)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("frozen", [False, True], ids=["dynamic", "frozen"])
+def test_forward_and_train_step_never_wait_for_the_card(cuda, frozen):
+    """After a warm-up (which builds the cached geometries and DFT basis), a
+    forward and a training step on either path make no synchronizing CUDA
+    call: the host runs ahead of the card, as the static design asks."""
+
+    import dataclasses
+
+    from flow_timesnet_tpu_torch import convert, engine
+    from flow_timesnet_tpu_torch.models import timesnet
+
+    cfg = timesnet.TimesNetConfig(input_len=28, pred_len=7, d_model=32, d_ff=64, n_layers=2,
+                                  kernel_set=((3, 3), (5, 5)), bottleneck_ratio=2.0,
+                                  min_period_threshold=7, dropout=0.1, id_embed_dim=0,
+                                  compute_dtype="bfloat16")
+    params = convert.init_params(cfg, torch.Generator().manual_seed(0))
+    B = 16
+    batch = {"x": torch.randn(B, 28, 1, device=cuda), "y": torch.rand(B, 7, 1, device=cuda),
+             "mask": torch.ones(B, 7, 1, device=cuda), "row_valid": torch.ones(B, device=cuda)}
+    if frozen:
+        spec = engine.Engine.frozen_spec_from_telemetry(
+            engine.Engine(cfg, params, device=cuda).collect_period_telemetry(None, batch), 2)
+        cfg = dataclasses.replace(cfg, frozen_periods=spec)
+    eng = engine.Engine(cfg, params, device=cuda)
+    state = eng.init_state()
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    eng.forward(batch["x"])
+    eng.train_step(state, 1e-3, gen, batch)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        eng.forward(batch["x"])
+        eng.train_step(state, 1e-3, gen, batch)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()

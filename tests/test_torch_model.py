@@ -126,7 +126,9 @@ def test_params_from_jax_rejects_a_mismatched_tree(params):
 
 
 def test_not_yet_ported_paths_raise():
-    with pytest.raises(NotImplementedError, match="frozen"):
-        timesnet.TimesNetConfig(**MODEL_KW, frozen_periods=(((7, 4, True),),) * 2)
+    # the frozen-period path is ported (tests/test_torch_frozen.py); these are not yet
     with pytest.raises(NotImplementedError, match="period_buckets"):
         timesnet.TimesNetConfig(**MODEL_KW, period_buckets="auto")
+    with pytest.raises(NotImplementedError, match="use_checkpoint"):
+        timesnet.TimesNetConfig(**MODEL_KW, use_checkpoint=True)
+    assert timesnet.TimesNetConfig(**MODEL_KW, frozen_periods=(((7, 4, True),),) * 2)
