@@ -94,10 +94,48 @@ Phases, each of which fails the run (non-zero exit, no result line):
    versions, run in phase 3, are not timed again), and at the end the
    float32 step's, the frozen request's and the frozen step's profiles.
 
+9. serve-graph: ``Forecaster.forecast`` as served by default, the forward
+   replayed from its CUDA graph: 200 requests on the dynamic path and 200
+   on the frozen spec of phase 5, each running the forward 12 times (2 x 3
+   x U) on the card, forecasts equal to the eager ones of phases 4-5
+   within rtol/atol 1e-5, p50 beside the eager p50, and 50 replayed
+   requests under the profiler (device busy, busy share, launches);
+10. train-graph: ``Engine.train_step`` as trained by default, replayed from
+   its CUDA graph: 5 + 100 dynamic steps, then 5 + 100 frozen ones
+   continuing the state, against eager steps from the same state,
+   generator and batches (losses within 1e-5 relative, the state within
+   1e-4 of its largest value), 12 runs of each kernel a step on the card
+   (2 x 3 x U), p50 and windows/s beside the eager ones, 20 replayed steps
+   of each path under the profiler;
+11. train-resident: ``Engine.train_epoch_resident`` over the staged
+   192-series data of phase 7, four epochs of 215 steps as the JAX
+   package's trainer runs them (the staged probe, equal to the eager one;
+   two dynamic epochs, then two frozen ones on the probe's spec; the
+   second of each under ``set_sync_debug_mode("error")`` and with 12 runs
+   of each kernel a step on the card), epoch seconds and windows/s, the
+   losses of epochs 1 and 3 against the host pipeline's eager epoch from
+   the same state (1e-5 relative; its seconds beside them),
+   ``evaluate_resident`` against ``evaluate`` on the 8 held-out batches
+   (1e-5 relative), peak device memory, and a 20-step chunk of each path
+   under the profiler.
+
+Launches are counted twice. The wrappers count where they launch a kernel
+(``cuda_fold.launches*``), and each kernel counts its own runs on the card
+(``cuda_fold.kernel_runs``, ``csrc/run_count.cuh``). A graph's replay runs
+no wrapper, so phases 9-11 hold the wrappers to the first call's warm-up
+and capture ((3 + 1) x a pass) and to nothing after it, and the card's
+counts to every run: the warm-up calls and each replay (the capture runs
+nothing). Phase 4 holds the two counts equal over its 200 eager requests.
+Phases 4-8 set ``Engine.cuda_graphs = False`` on their engines and
+forecasters (op-by-op dispatch), the yardstick of phases 9-11.
 The ``kernels`` line also gives each kernel's exact-extent numbers
-(``exact_extent``, at p=7 and p=27) and its launches on the frozen request
+(``exact_extent``, at p=7 and p=27), its launches on the frozen request
 and step (``launches_serve_frozen``, ``launches_train_frozen``; the float32
-rows from the float32 frozen request and parity step). ``[clock]`` lines
+rows from the float32 frozen request and parity step) and its runs on the
+card in the replayed paths of phases 9-11 (``launches_serve_graph`` over
+200 replayed requests, ``launches_train_graph`` over 100 replayed steps,
+``launches_resident`` over a steady resident epoch of 215 steps, each also
+``_frozen``; bf16, so the float32 rows count 0 there). ``[clock]`` lines
 give the time since the start at the end of each phase.
 
 The last lines are the ``kernels`` JSON line, the card line of ``nvidia-smi``
@@ -131,7 +169,7 @@ DENSE_PERIODS = (7, 27)  # the frozen paths' exact extents: Lp = total = 28 and 
 REQUESTS = 200  # timed requests per serving measurement (about 12 ms each)
 FROZEN_REQUESTS, FROZEN_STEPS = 100, 50  # timed on the frozen-period path
 PROFILED = 50  # requests under the profiler
-PROFILER_TRIES = 5  # profiler sessions a device time may take before the run fails
+PROFILER_TRIES = 10  # profiler sessions a device time may take before the run fails
 LAUNCHES_PER_PASS = 12  # 2 layers x 2 inception blocks x 3 branches, per forward or backward
 # device us of the previous design of the float32 forward (B=192, the served
 # periods), dh and dW (B=256, the training periods) kernels on an H100 80GB
@@ -150,6 +188,18 @@ ENGINE = dict(use_loss_masking=True, grad_clip_norm=1.0, weight_decay=1e-6, ema_
               num_series=B)
 DAYS, HELD_OUT_DAYS = 365, 44  # 44 days hold 10 windows a series: 8 batches, the last padded
 WARMUP_STEPS, TIMED_STEPS, OVERFIT_STEPS, PROFILED_STEPS = 5, 100, 30, 20
+GRAPH_REQUESTS, GRAPH_STEPS = 200, 100  # replayed from CUDA graphs, each path
+RESIDENT_CHUNK = 20  # resident steps under the profiler, each path
+DEVICE = "cuda"
+
+
+def eager(obj):
+    """``obj``, an ``Engine`` or a ``Forecaster``, set to dispatch op by op
+    on the card (``Engine.cuda_graphs = False``): phases 4-8 and the eager
+    references of phases 9-11, the yardstick of the graphs."""
+
+    getattr(obj, "engine", obj).cuda_graphs = False
+    return obj
 
 
 def fail(msg: str) -> None:
@@ -733,7 +783,7 @@ def train_phase(torch, np, modules, cfg, params, dev):
     t0 = time.perf_counter()
     host_batches = [b for _, b in zip(range(WARMUP_STEPS + TIMED_STEPS), train)]
     gather_ms = 1e3 * (time.perf_counter() - t0) / len(host_batches)
-    eng = engine_mod.Engine(cfg, params, **ENGINE)
+    eng = eager(engine_mod.Engine(cfg, params, **ENGINE))
     check(eng.device.type == "cuda", f"default device is {eng.device}")
     state = eng.init_state()
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -781,7 +831,7 @@ def train_phase(torch, np, modules, cfg, params, dev):
 
     # 30 steps on one fixed batch at the schedule's base rate lower its loss
     fixed = to_device(host_batches[0])
-    fit = engine_mod.Engine(cfg, params, **ENGINE)
+    fit = eager(engine_mod.Engine(cfg, params, **ENGINE))
     fit_state = fit.init_state()
     fit_losses = [fit.train_step(fit_state, TRAIN["lr"], gen, fixed)[1]
                   for _ in range(OVERFIT_STEPS)]
@@ -815,7 +865,8 @@ def float32_steps(torch, np, engine_mod, cfg, params, batch, lr, dev):
     CUDA-core fold-conv kernels) takes 5 + 20 timed steps on one batch, then
     20 under the profiler: device time per step and the fold conv's."""
 
-    eng = engine_mod.Engine(dataclasses.replace(cfg, compute_dtype="float32"), params, **ENGINE)
+    eng = eager(engine_mod.Engine(dataclasses.replace(cfg, compute_dtype="float32"), params,
+                                  **ENGINE))
     state = eng.init_state()
     gen = torch.Generator(device=dev).manual_seed(1)
 
@@ -904,8 +955,11 @@ def launch_counts(cuda_fold) -> dict:
 
 
 def clear_counts(cuda_fold) -> None:
+    """Zero the wrappers' launch counters and the kernels' run counts."""
+
     for counter in path_counters(cuda_fold).values():
         counter.clear()
+    cuda_fold.clear_kernel_runs()
 
 
 def check_launches(got: dict, kinds, per_size: int, mma: bool, what: str) -> None:
@@ -919,6 +973,38 @@ def check_launches(got: dict, kinds, per_size: int, mma: bool, what: str) -> Non
             check(n == per_size and n_mma == (per_size if mma else 0),
                   f"{what}: {kind} {size} launched {n} times, {n_mma} on the tensor-core "
                   f"route; {per_size} expected, {'all' if mma else 'none'} on it")
+
+
+def run_counts(cuda_fold) -> dict:
+    """The fold-conv launches the card ran since :func:`clear_counts`, as
+    the kernels counted them (``cuda_fold.kernel_runs``; a graph's replay,
+    which runs no wrapper, counts there), in :func:`launch_counts`' form:
+    each kernel over both routes, and its tensor-core route under ``_mma``.
+    Waits for the card."""
+
+    runs = cuda_fold.kernel_runs()
+    out = {}
+    for kind in ("fwd", "dh", "dw"):
+        mma, f32 = runs[f"{kind}_mma"], runs[f"{kind}_f32"]
+        out[f"tap_conv_{kind}"] = {k: mma.get(k, 0) + f32.get(k, 0) for k in {*mma, *f32}}
+        out[f"tap_conv_{kind}_mma"] = dict(mma)
+    return out
+
+
+def check_first_call(cuda_fold, kinds, per_size: int, what: str) -> None:
+    """A graphed path's first call, on the card: the wrappers launched
+    ``kinds`` ``per_size`` times (a pass) at every size, on the tensor-core
+    route, in each warm-up call and in the capture, and the card ran them in
+    the warm-up calls and the first replay (the capture runs nothing): (3 +
+    1) x a pass in both counts; no other kind."""
+
+    from flow_timesnet_tpu_torch import graphs
+
+    n = (graphs.WARMUP_CALLS + 1) * per_size
+    others = [k for k in ("tap_conv_fwd", "tap_conv_dh", "tap_conv_dw") if k not in kinds]
+    for got, by in ((launch_counts(cuda_fold), "wrappers"), (run_counts(cuda_fold), "card")):
+        check_launches(got, kinds, n, True, f"{what} (warm-up, capture, replay; {by})")
+        check(not any(got[k] for k in others), f"{what} ({by}): {got}")
 
 
 def frozen_spec(engine_mod, eng, batch, n_layers: int):
@@ -995,7 +1081,8 @@ def serve_frozen(torch, np, engine_mod, cuda_fold, make_fc, request, cfg, batch,
               f"float32 frozen {name} card vs CPU {cpu:.3e}")
         check(np.allclose(raw["cuda"][i], raw["dynamic"][i], rtol=1e-5, atol=1e-6),
               f"float32 frozen {name} vs dynamic {dyn:.3e}")
-    return dict(request=lambda: request(fc), p50=p50, spec=spec, counts=got, counts32=got32)
+    return dict(request=lambda: request(fc), p50=p50, spec=spec, counts=got, counts32=got32,
+                first=first)
 
 
 def train_frozen(torch, np, engine_mod, cuda_fold, cfg, params, trained, dev):
@@ -1011,7 +1098,8 @@ def train_frozen(torch, np, engine_mod, cuda_fold, cfg, params, trained, dev):
     per = 2 * unique_periods(spec)
     print(f"[train-frozen] spec {spec} (from the telemetry of a training batch, read back "
           f"from JSON), {per} launches of each kernel size a step")
-    feng = engine_mod.Engine(dataclasses.replace(cfg, frozen_periods=spec), params, **ENGINE)
+    feng = eager(engine_mod.Engine(dataclasses.replace(cfg, frozen_periods=spec), params,
+                                   **ENGINE))
     batches = trained["batches"][: WARMUP_STEPS + FROZEN_STEPS]
     losses = []
     for batch in batches[:WARMUP_STEPS]:
@@ -1041,6 +1129,327 @@ def train_frozen(torch, np, engine_mod, cuda_fold, cfg, params, trained, dev):
         feng.train_step(state, lr, gen, batch)
 
     return step, p50, spec, got
+
+
+def same_or_diff(torch, got, want) -> str:
+    """``bitwise`` where two results agree bit for bit, else their max |diff|."""
+
+    if all(torch.equal(a, b) for a, b in zip(got, want)):
+        return "bitwise equal"
+    return f"max |diff| {max(float((a - b).abs().max()) for a, b in zip(got, want)):.3e}"
+
+
+def serve_graph(torch, np, cuda_fold, make_fc, request, cfg, spec, eager_runs: dict) -> dict:
+    """Phase 9: ``GRAPH_REQUESTS`` requests replayed from the forward's CUDA
+    graph (the ``Forecaster`` default), on the dynamic path and on the
+    frozen spec of ``[serve-frozen]``. The first request warms up,
+    captures and replays (:func:`check_first_call`). Over the replayed
+    requests no wrapper may count a launch, and the kernels' own counts must
+    show the card running the forward 12 times a request (2 x 3 x U frozen)
+    at every size, on the tensor-core route. Each replayed forecast must
+    equal the eager request's of phases 4 and 5 within rtol/atol 1e-5 (they
+    are expected bit for bit). Then 50 replayed requests under the
+    profiler. ``eager_runs`` maps each path to its eager first forecast and
+    p50. Returns each path's launches as the card counted them, p50 and
+    profile."""
+
+    out = {}
+    for path, cfg_ in (("dynamic", cfg), ("frozen", dataclasses.replace(cfg, frozen_periods=spec))):
+        fc = make_fc(cfg_, graphed=True)
+        per = (LAUNCHES_PER_PASS // len(KERNEL_SIZES) if path == "dynamic"
+               else 2 * unique_periods(spec))
+        clear_counts(cuda_fold)  # the first request's launches, from here ...
+        t0 = time.perf_counter()
+        first = request(fc)  # warm-up calls, then the capture, then the first replay
+        capture_ms = 1e3 * (time.perf_counter() - t0)
+        check_first_call(cuda_fold, ("tap_conv_fwd",), per, f"first {path} request")  # ... to here
+        check(len(fc.engine._graphs) == 1, f"{path}: {len(fc.engine._graphs)} graphs for one request")
+        clear_counts(cuda_fold)  # the replayed requests' launches, from here ...
+        latencies, outs = [], []
+        for _ in range(GRAPH_REQUESTS):
+            t0 = time.perf_counter()
+            outs.append(request(fc))
+            latencies.append(1e3 * (time.perf_counter() - t0))
+        wrapped, got = launch_counts(cuda_fold), run_counts(cuda_fold)  # ... to here
+        check(not any(wrapped.values()), f"replayed {path} requests ran a wrapper: {wrapped}")
+        check_launches(got, ("tap_conv_fwd",), GRAPH_REQUESTS * per, True,
+                       f"replayed {path} requests (the card's count)")
+        check(not any(got[k] for k in ("tap_conv_dh", "tap_conv_dw")), f"{path} requests {got}")
+        want = eager_runs[path]["forecast"]
+        diff = max(float(np.abs(o - want).max()) for o in [first] + outs)
+        bitwise = all(np.array_equal(o, want) for o in [first] + outs)
+        check(all(np.allclose(o, want, rtol=1e-5, atol=1e-5) for o in [first] + outs),
+              f"replayed {path} forecast against the eager one: {diff:.3e}")
+        p50 = float(np.median(latencies))
+        print(f"[serve-graph] {path}: first request (warm-up, capture, replay) {capture_ms:.1f} ms; "
+              f"{GRAPH_REQUESTS} replayed requests: latency ms {spread(np, latencies)} against the "
+              f"eager p50 {eager_runs[path]['p50']:.3f} ({eager_runs[path]['p50'] / p50:.2f}x); forecasts "
+              f"against the eager request: max |diff| {diff:.3e} (bitwise: {bitwise}); launches "
+              f"the card counted {got['tap_conv_fwd']} (tensor-core route "
+              f"{got['tap_conv_fwd_mma']}), the wrappers none")
+        prof = profile(torch, lambda: request(fc), PROFILED, f"replayed {path} request", p50)
+        out[path] = dict(counts=got, p50=p50, profile=prof)
+    return out
+
+
+def train_graph(torch, np, engine_mod, cuda_fold, cfg, params, trained, spec,
+                eager_p50: dict) -> dict:
+    """Phase 10: training steps replayed from the step's CUDA graph (the
+    ``Engine.train_step`` default), against eager steps from the same
+    initial state and generator seed on the same batches: ``WARMUP_STEPS +
+    GRAPH_STEPS`` dynamic steps, then as many frozen ones on
+    ``[train-frozen]``'s spec continuing the same state (the trainer's
+    swap). Losses must agree within 1e-5 relative, and the parameters and
+    EMA afterwards within 1e-4 of the largest (expected bit for bit). The
+    replayed steps are timed as ``[train]`` times the eager ones (host clock
+    over ``batch_to_device`` + ``train_step``, synchronised per step). At
+    every step the launches are counted twice, by the wrappers and by the
+    kernels on the card: an eager step launches and runs the forward, dh and
+    dW 12 times each (2 x 3 x U frozen) at every size, on the tensor-core
+    routes; the first replayed step is :func:`check_first_call`'s; a later
+    one runs no wrapper and runs each kernel on the card as an eager step
+    does. Then 20 replayed steps of each path under the profiler. Returns
+    each path's launches over the timed replayed steps as the card counted
+    them, p50 and profile."""
+
+    lr, to_device = trained["lr"], trained["to_device"]
+    batches = trained["batches"][: WARMUP_STEPS + GRAPH_STEPS]
+    cfgs = {"dynamic": cfg, "frozen": dataclasses.replace(cfg, frozen_periods=spec)}
+    kinds = ("tap_conv_fwd", "tap_conv_dh", "tap_conv_dw")
+    runs = {}
+    for graphed in (False, True):
+        engines = {path: engine_mod.Engine(c, params, **ENGINE) for path, c in cfgs.items()}
+        if not graphed:
+            for eng in engines.values():
+                eager(eng)
+        state = engines["dynamic"].init_state()
+        gen = torch.Generator(device=DEVICE).manual_seed(11)
+        rec = {}
+        for path, eng in engines.items():
+            per = (LAUNCHES_PER_PASS // len(KERNEL_SIZES) if path == "dynamic"
+                   else 2 * unique_periods(spec))
+            losses, ms, timed = [], [], {k: {} for k in path_counters(cuda_fold)}
+            for i, batch in enumerate(batches):
+                clear_counts(cuda_fold)  # this step's launches, from here ...
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                state, loss, _ = eng.train_step(state, lr, gen, to_device(batch))
+                torch.cuda.synchronize()
+                ms.append(1e3 * (time.perf_counter() - t0))
+                losses.append(loss)
+                what = f"{'replayed' if graphed else 'eager'} {path} step {i}"
+                if graphed and i == 0:
+                    check_first_call(cuda_fold, kinds, per, what)
+                    continue
+                wrapped, ran = launch_counts(cuda_fold), run_counts(cuda_fold)  # ... to here
+                if graphed:
+                    check(not any(wrapped.values()), f"{what} ran a wrapper: {wrapped}")
+                else:
+                    check_launches(wrapped, kinds, per, True, f"{what} (wrappers)")
+                check_launches(ran, kinds, per, True, f"{what} (card)")
+                if i >= WARMUP_STEPS:
+                    for k, by_size in ran.items():
+                        for size, n in by_size.items():
+                            timed[k][size] = timed[k].get(size, 0) + n
+            rec[path] = dict(losses=torch.stack(losses), ms=ms[WARMUP_STEPS:], engine=eng,
+                             counts=timed)
+        runs[graphed] = dict(rec=rec, state=state, gen=gen)
+    g, e = runs[True], runs[False]
+    got_t, want_t = ([t.detach() for t in r["state"].tensors()] for r in (g, e))
+    scale = max(1.0, max(float(t.abs().max()) for t in want_t))
+    state_diff = max(float((a - b).abs().max()) for a, b in zip(got_t, want_t))
+    print(f"[train-graph] after {len(batches)} dynamic and {len(batches)} frozen steps: "
+          f"parameters, Adam moments and EMA replayed against eager "
+          f"{same_or_diff(torch, got_t, want_t)}")
+    check(state_diff <= 1e-4 * scale, f"replayed state against eager: {state_diff:.3e}")
+    out = {}
+    for path in cfgs:
+        got, want = g["rec"][path], e["rec"][path]
+        rel = float(((got["losses"] - want["losses"]).abs() / want["losses"].abs()).max())
+        check(rel <= 1e-5, f"replayed {path} losses against eager: {rel:.3e} relative")
+        per = (LAUNCHES_PER_PASS // len(KERNEL_SIZES) if path == "dynamic"
+               else 2 * unique_periods(spec))
+        eng, state, gen, counts = got["engine"], g["state"], g["gen"], got["counts"]
+        check_launches(counts, kinds, GRAPH_STEPS * per, True, f"replayed {path} steps (card)")
+        p50, p50_here = float(np.median(got["ms"])), float(np.median(want["ms"]))
+        print(f"[train-graph] {path}: {GRAPH_STEPS} replayed steps of {B_TRAIN} windows (after "
+              f"{WARMUP_STEPS}, the first of which captured): step ms {spread(np, got['ms'])}, "
+              f"windows/s at the p50 {B_TRAIN / p50 * 1e3:.1f}; eager in this phase p50 "
+              f"{p50_here:.3f} ({B_TRAIN / p50_here * 1e3:.1f} windows/s, {p50_here / p50:.2f}x), "
+              f"[train{'-frozen' if path == 'frozen' else ''}] p50 {eager_p50[path]:.3f}; losses "
+              f"against eager: {same_or_diff(torch, got['losses'], want['losses'])} (max relative "
+              f"{rel:.3e}), first {float(got['losses'][0]):.4f} last "
+              f"{float(got['losses'][-1]):.4f}; launches the card counted in the {GRAPH_STEPS} "
+              f"replayed steps: forward {counts['tap_conv_fwd']}, dh {counts['tap_conv_dh']}, "
+              f"dW {counts['tap_conv_dw']} (tensor-core dW {counts['tap_conv_dw_mma']}), the "
+              f"wrappers none")
+        prof = profile(torch, lambda: eng.train_step(state, lr, gen, trained["fixed"]),
+                       PROFILED_STEPS, f"replayed {path} step", p50)
+        out[path] = dict(counts=counts, p50=p50, profile=prof)
+    return out
+
+
+def clone_state(torch, src, dst) -> None:
+    """Copy a ``TrainState``'s tensors into another engine's state of the
+    same model: the eager reference starts where the resident run starts."""
+
+    with torch.no_grad():
+        for d, s_ in zip(dst.tensors(), src.tensors()):
+            d.copy_(s_)
+
+
+def train_resident(torch, np, windows, dw, engine_mod, cuda_fold, cfg, params, lr) -> dict:
+    """Phase 11: the device-resident epoch, driven as the JAX package's
+    trainer drives it (``train.py:923-1071``). The 192-series data of phase
+    7 are staged on the card once (the batchers' own sources, as
+    ``_stage_from_batcher`` stages them); each epoch takes a shuffled plan
+    (``epoch_index_plan``, the batcher's permutation), the staged probe on
+    the dynamic engine (held against ``collect_period_telemetry`` of the
+    host batch of the same windows: the same periods), then
+    ``train_epoch_resident``: 215 replays of one graph, a step each.
+    Epochs 1-2 run the dynamic engine, epochs 3-4 a frozen engine on epoch
+    3's probe (the trainer's ``maybe_freeze``), continuing the state. The
+    launches of each epoch are counted twice, by the wrappers and by the
+    kernels on the card. The first epoch of each path captures: the
+    wrappers must count (3 + 1) x a step's launches of the forward, dh and
+    dW (12 each, 2 x 3 x U frozen; warm-up and capture), the card (3 + S) x
+    (warm-up and replays). The second runs under
+    ``torch.cuda.set_sync_debug_mode("error")`` (nothing may wait for the
+    card): no wrapper may count a launch, and the card must count S x a
+    step's, at every size, on the tensor-core routes. Epochs 1 and 3 are also run on the host
+    pipeline (``WindowBatcher`` -> ``batch_to_device`` -> eager
+    ``train_step``, timed) from a copy of the same state and generator: its
+    losses (the same windows in the same order) must equal the resident
+    ones within 1e-5 relative. ``evaluate_resident`` (EMA) over the 8
+    held-out batches must equal ``evaluate`` over the host batches within
+    1e-5 relative, after epochs 2 and 4, each followed by a 20-step chunk
+    of its path under the profiler. Returns each path's launches in its
+    second epoch as the card counted them, epoch seconds, the host
+    pipeline's epoch seconds, peak memory and profile."""
+
+    from flow_timesnet_tpu_torch import graphs
+
+    train, held_out, sigma = train_data(np, windows, cfg.input_len, cfg.pred_len)
+
+    def stage(batcher):
+        src = batcher.sources
+        s0 = src[0]
+        return dw.stage_windows([s.X for s in src], [s.M for s in src], s0.L, s0.H, s0.stride,
+                                "direct", marks=[s.marks for s in src], static=s0.static,
+                                sigma_vector=sigma, device=DEVICE)
+
+    def to_device(batch):
+        floor = sigma[batch.series_ids.reshape(-1)].reshape(-1, 1, 1)
+        return engine_mod.batch_to_device(batch, floor=floor, device=DEVICE)
+
+    staged, staged_val = stage(train), stage(held_out)
+    check(staged.total == train.total and staged_val.total == held_out.total,
+          f"staged {staged.total} / {staged_val.total} windows, batched {train.total} / "
+          f"{held_out.total}")
+    val_idx, val_rv = dw.epoch_index_plan(staged_val.total, B_TRAIN, shuffle=False,
+                                          drop_last=False)
+    probe_idx, probe_rv = dw.epoch_index_plan(staged.total, B_TRAIN, shuffle=False,
+                                              drop_last=True)
+    check(len(val_idx) == 8 and val_rv[-1].min() == 0.0, f"{len(val_idx)} held-out batches")
+    staged_mib = sum(t.numel() * t.element_size() for t in (
+        staged.X, staged.M, staged.marks, staged_val.X, staged_val.M, staged_val.marks)) / 2**20
+    probe_batch = to_device(train._gather_global(probe_idx[0].astype(np.int64)))
+
+    dyn = engine_mod.Engine(cfg, params, **ENGINE)
+    state, gen = dyn.init_state(), torch.Generator(device=DEVICE).manual_seed(21)
+    eng, path, spec = dyn, "dynamic", None
+    torch.cuda.reset_peak_memory_stats()
+    out = {}
+    for ep in (1, 2, 3, 4):
+        tele = dyn.collect_period_telemetry_staged(None, staged, probe_idx[0], probe_rv[0])
+        want = dyn.collect_period_telemetry(None, probe_batch)
+        check(all(np.array_equal(tele[b][k], want[b][k]) for b in want for k in want[b]),
+              f"epoch {ep}: the staged probe {tele} against the eager one {want}")
+        if ep == 3:  # maybe_freeze: the spec of this epoch's probe
+            spec = engine_mod.Engine.frozen_spec_from_telemetry(tele, cfg.n_layers)
+            check(spec is not None and unique_periods(spec) >= 1, f"probe spec {spec}")
+            eng = engine_mod.Engine(dataclasses.replace(cfg, frozen_periods=spec), params,
+                                    **ENGINE)
+            path = "frozen"
+        idx, rv = dw.epoch_index_plan(staged.total, B_TRAIN, shuffle=True, drop_last=True,
+                                      rng=np.random.default_rng([0, ep]))
+        S = len(idx)
+        first = ep in (1, 3)
+        if first:  # the eager reference: the same state, generator and windows
+            ref = eager(engine_mod.Engine(eng.cfg, params, **ENGINE))
+            ref_state = ref.init_state()
+            clone_state(torch, state, ref_state)
+            ref_gen = torch.Generator(device=DEVICE)
+            ref_gen.set_state(gen.get_state())
+        clear_counts(cuda_fold)  # this epoch's launches, from here ...
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        idx_d, rv_d = torch.from_numpy(idx).to(DEVICE), torch.from_numpy(rv).to(DEVICE)
+        if not first:
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            state, losses, mask_true = eng.train_epoch_resident(state, lr, gen, staged, idx_d,
+                                                                rv_d)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        losses, mask_true = losses.cpu().numpy(), mask_true.cpu().numpy()  # one fetch
+        seconds = time.perf_counter() - t0
+        wrapped, ran = launch_counts(cuda_fold), run_counts(cuda_fold)  # ... to here
+        per = (LAUNCHES_PER_PASS // len(KERNEL_SIZES) if path == "dynamic"
+               else 2 * unique_periods(spec))
+        kinds = ("tap_conv_fwd", "tap_conv_dh", "tap_conv_dw")
+        check(bool(np.isfinite(losses).all()) and len(losses) == S, f"epoch {ep} losses")
+        line = (f"[train-resident] epoch {ep} ({path}{', capture included' if first else ''}): "
+                f"{S} steps of {B_TRAIN} in {seconds:.3f} s, {S * B_TRAIN / seconds:.1f} windows/s, "
+                f"loss mean {losses.mean():.4f}, mask_true {mask_true.sum():.0f}")
+        if first:  # the same epoch on the host pipeline: batcher, copies, eager steps
+            train.set_epoch(ep)  # the plan's permutation: the same windows in the same order
+            t0 = time.perf_counter()
+            want_l = []
+            for batch in train:
+                ref_state, loss, _ = ref.train_step(ref_state, lr, ref_gen, to_device(batch))
+                want_l.append(loss)
+            want_l = torch.stack(want_l).cpu().numpy()
+            eager_s = time.perf_counter() - t0
+            rel = float(np.max(np.abs(losses - want_l) / np.abs(want_l)))
+            line += (f"; the host pipeline's eager epoch from the same state {eager_s:.3f} s "
+                     f"({S * B_TRAIN / eager_s:.1f} windows/s, {eager_s / seconds:.2f}x), its "
+                     f"{len(want_l)} losses against these: max relative {rel:.3e} (bitwise: "
+                     f"{bool(np.array_equal(losses, want_l))})")
+            check(len(want_l) == S and rel <= 1e-5,
+                  f"epoch {ep}: resident losses against eager {rel:.3e}")
+            warm = graphs.WARMUP_CALLS
+            check_launches(wrapped, kinds, (warm + 1) * per, True,
+                           f"resident epoch {ep} (wrappers: warm-up and capture)")
+            check_launches(ran, kinds, (warm + S) * per, True,
+                           f"resident epoch {ep} (card: warm-up and {S} replays)")
+            out[path] = {"eager_seconds": eager_s}
+        else:
+            check(not any(wrapped.values()), f"resident epoch {ep} ran a wrapper: {wrapped}")
+            check_launches(ran, kinds, S * per, True, f"resident epoch {ep} (card)")
+            line += (f"; no synchronising call, no wrapper launch; launches the card counted: "
+                     f"forward {ran['tap_conv_fwd']}, dh {ran['tap_conv_dh']}, dW "
+                     f"{ran['tap_conv_dw']} (tensor-core dW {ran['tap_conv_dw_mma']})")
+            res = eng.evaluate_resident(state.ema, staged_val, val_idx, val_rv)
+            host = eng.evaluate(state.ema, [to_device(b) for b in held_out])
+            ok = all(abs(res[k] - host[k]) <= 1e-5 * abs(host[k]) for k in ("nll", "smape"))
+            line += (f"; evaluate_resident (EMA, {len(val_idx)} batches) nll {res['nll']:.6f} "
+                     f"smape {res['smape']:.6f}, host evaluate nll {host['nll']:.6f} smape "
+                     f"{host['smape']:.6f}")
+            check(ok and np.isfinite(res["nll"]), f"epoch {ep}: evaluate_resident {res} / {host}")
+            out[path].update(counts=ran, seconds=seconds, steps=S,
+                             peak_mib=torch.cuda.max_memory_allocated() / 2**20)
+        print(line)
+        if not first:  # a chunk of this path's resident steps under the profiler
+            chunk = [torch.from_numpy(a[:RESIDENT_CHUNK]).to(DEVICE) for a in (idx, rv)]
+            out[path]["profile"] = profile(
+                torch, lambda: eng.train_epoch_resident(state, lr, gen, staged, *chunk), 1,
+                f"{RESIDENT_CHUNK}-step {path} resident chunk", 1e3 * seconds / S * RESIDENT_CHUNK)
+    print(f"[train-resident] spec {spec}; staged arrays {staged_mib:.2f} MiB; peak device memory "
+          f"{out['dynamic']['peak_mib']:.1f} MiB after the dynamic epochs, "
+          f"{out['frozen']['peak_mib']:.1f} MiB after the frozen ones (the profiled chunks add "
+          f"{RESIDENT_CHUNK} steps to the run after epochs 2 and 4)")
+    return out
 
 
 def path_counters(cuda_fold) -> dict:
@@ -1074,7 +1483,7 @@ def main() -> int:
     from flow_timesnet_tpu_torch import convert, forecaster, optim
     from flow_timesnet_tpu_torch import engine as engine_mod
     from flow_timesnet_tpu_torch import losses as losses_mod
-    from flow_timesnet_tpu_torch.data import windows
+    from flow_timesnet_tpu_torch.data import device_windows, windows
     from flow_timesnet_tpu_torch.device import resolve_device
     from flow_timesnet_tpu_torch.models import timesnet
     from flow_timesnet_tpu_torch.ops import _build, cuda_fold, fold
@@ -1161,15 +1570,16 @@ def main() -> int:
     tf_cfg = {"features": ["day_of_week", "day_of_month", "month", "day_of_year"],
               "encoding": "cyclical", "normalize": True}
 
-    def make_fc(cfg_, device="cuda"):
-        return forecaster.Forecaster(params, cfg_, ids, scaler, "zscore", static, sigma, tf_cfg,
-                                     device=device)
+    def make_fc(cfg_, device="cuda", graphed=False):
+        fc_ = forecaster.Forecaster(params, cfg_, ids, scaler, "zscore", static, sigma, tf_cfg,
+                                    device=device)
+        return fc_ if graphed else eager(fc_)
 
     def request(fc_, raw=False):
         return fc_._forecast_raw(history, dates=dates)[:2] if raw else \
             fc_.forecast(history, dates=dates)
 
-    fc = forecaster.Forecaster(params, cfg, ids, scaler, "zscore", static, sigma, tf_cfg)
+    fc = eager(forecaster.Forecaster(params, cfg, ids, scaler, "zscore", static, sigma, tf_cfg))
     check(fc.device.type == "cuda", f"default device is {fc.device}")
     # warm-up request (cuFFT plans, allocator); hooks record the periods the
     # selector hands each block and the device inputs of the model's forward
@@ -1205,6 +1615,10 @@ def main() -> int:
               f"tap_conv_fwd {kh}x{kw} launched {n} times in {REQUESTS} requests, {n_mma} on "
               f"the tensor-core route")
     check(sum(counts.values()) == REQUESTS * LAUNCHES_PER_PASS, f"launches {counts}")
+    ran = run_counts(cuda_fold)  # the kernels' own counts of the same requests
+    check(ran["tap_conv_fwd"] == counts and ran["tap_conv_fwd_mma"] == counts_mma
+          and not any(ran[k] for k in ("tap_conv_dh", "tap_conv_dw")),
+          f"the card counted {ran}, the wrappers {counts} ({counts_mma} tensor-core)")
     p50 = float(np.median(latencies))
     print(f"[serve] {REQUESTS} requests of {B} series x {T} days: launches {counts} "
           f"(tensor-core route {counts_mma}), "
@@ -1238,8 +1652,8 @@ def main() -> int:
     cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
     raw = {}
     for device in ("cuda", "cpu"):
-        f32 = forecaster.Forecaster(params, cfg32, ids, scaler, "zscore", static, sigma, tf_cfg,
-                                    device=device)
+        f32 = eager(forecaster.Forecaster(params, cfg32, ids, scaler, "zscore", static, sigma,
+                                          tf_cfg, device=device))
         clear_counts(cuda_fold)  # the float32 request's launches, from here ...
         raw[device] = f32._forecast_raw(history, dates=dates)[:2]
         if device == "cuda":
@@ -1376,11 +1790,32 @@ def main() -> int:
            "step")
     stamp("profile")
 
-    # the exact-extent numbers and the frozen paths' launches of each kernel
+    # 9-11. the CUDA graphs: the served request, the training step, the resident epoch
+    eager_runs = {"dynamic": {"forecast": first, "p50": p50},
+             "frozen": {"forecast": served_frozen["first"], "p50": served_frozen["p50"]}}
+    graph_serve = serve_graph(torch, np, cuda_fold, make_fc, request, cfg, served_frozen["spec"],
+                              eager_runs)
+    stamp("serve-graph")
+    graph_train = train_graph(torch, np, engine_mod, cuda_fold, cfg, params, trained, train_spec,
+                              {"dynamic": trained["p50"], "frozen": frozen_p50})
+    stamp("train-graph")
+    resident = train_resident(torch, np, windows, device_windows, engine_mod, cuda_fold, cfg,
+                              params, trained["lr"])
+    stamp("train-resident")
+    graph_runs = {"serve_graph": graph_serve, "train_graph": graph_train, "resident": resident}
+
+    # the exact-extent numbers, the frozen paths' and the graphs' launches of each kernel
     for row in kernels:
         name = row["name"][len("tap_conv_"):]
         kind, route, key = name.split("_")
         counter = f"tap_conv_{kind}{'_mma' if route == 'mma' else ''}"
+        for run, paths in graph_runs.items():  # the replays run the bf16 (tensor-core) routes
+            for path, res in paths.items():
+                got = res["counts"]
+                n = got[f"tap_conv_{kind}_mma"].get(key, 0)
+                if route != "mma":  # the CUDA-core route: every launch less the tensor-core ones
+                    n = got[f"tap_conv_{kind}"].get(key, 0) - n
+                row[f"launches_{run}{'_frozen' if path == 'frozen' else ''}"] = n
         row["exact_extent"] = {
             f"p{p}": {**dense[name][f"p{p}"], "lp": L + (-L) % p} for p in DENSE_PERIODS}
         row["exact_extent_max_abs_err"] = dense[name]["max_abs_err"]

@@ -132,6 +132,7 @@
 #include <cstdint>
 
 #include "f32_stage.cuh"
+#include "run_count.cuh"
 
 namespace {
 
@@ -192,7 +193,8 @@ __global__ void __launch_bounds__(kF32MaxWarps * 32, 1)
 tap_conv_dh_kernel(const float* __restrict__ ct, const float* __restrict__ w,
                    const int* __restrict__ periods, const int* __restrict__ cycles,
                    float* __restrict__ dh, int K, int B, int Lp, int Cin, int Cout, int kh, int kw,
-                   int p_max, DhF32Plan q) {
+                   int p_max, DhF32Plan q, int* __restrict__ runs) {
+  count_run(runs);
   constexpr int CG = NT / 4, RG = 32 / CG, WR = 4 * RG;  // lanes: RG rows x CG channels, 4 each
   extern __shared__ __align__(16) float smem[];
   const int taps = kh * kw, sc = q.sc;
@@ -354,7 +356,8 @@ __global__ void __launch_bounds__(kF32MaxWarps * 32, 1)
 tap_conv_dw_kernel(const float* __restrict__ h, const float* __restrict__ ct,
                    const int* __restrict__ periods, const int* __restrict__ cycles,
                    float* __restrict__ partial, int B, int Lp, int Cin, int Cout, int kh, int kw,
-                   DwF32Plan q) {
+                   DwF32Plan q, int* __restrict__ runs) {
+  count_run(runs);
   extern __shared__ __align__(16) float smem[];
   const int band_rows = kF32Rows + q.taps - 1;  // h rows of the group's taps for 64 output rows
   const int buf = (kF32Rows + band_rows) * kDwTile;  // an item: ct's tile rows, then h's band
@@ -551,7 +554,8 @@ tap_conv_dw_mma_kernel(const __nv_bfloat16* __restrict__ h, const __nv_bfloat16*
                        const int* __restrict__ periods, const int* __restrict__ cycles,
                        float* __restrict__ partial, int B, int Lp, int Cin, int Cout, int kh,
                        int kw, int p_max, int lp_pad, int pad, int co_tiles, int chunks_per_k,
-                       int per_chunk) {
+                       int per_chunk, int* __restrict__ runs) {
+  count_run(runs);
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int stride_in = Cin + kRowPad, stride_out = Cout + kRowPad;
   const int h_elems = (lp_pad + 2 * pad) * stride_in;  // [pad | Lp rows | pad + lp_pad - Lp]
@@ -811,12 +815,12 @@ int dw_f32_plan(int K, int B, int Lp, int Cin, int Cout, int kh, int kw, DwF32Pl
 template <int NT>
 int launch_dh_nt(const float* ct, const float* w, const int* periods, const int* cycles,
                  float* dh, int K, int B, int Lp, int Cin, int Cout, int kh, int kw, int p_max,
-                 const DhF32Plan& q, cudaStream_t stream) {
+                 const DhF32Plan& q, int* runs, cudaStream_t stream) {
   auto* kernel = tap_conv_dh_kernel<NT>;
   const cudaError_t err = reserve_smem(kernel, q.smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   kernel<<<dim3(q.tiles, q.chunks), q.warps * 32, q.smem, stream>>>(
-      ct, w, periods, cycles, dh, K, B, Lp, Cin, Cout, kh, kw, p_max, q);
+      ct, w, periods, cycles, dh, K, B, Lp, Cin, Cout, kh, kw, p_max, q, runs);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -884,11 +888,12 @@ extern "C" int tap_conv_dh_plan(int K, int B, int Lp, int Cin, int Cout, int kh,
 
 // The float32 route of dh (bf16 is tap_conv_mma.cu's tap_conv_dh_mma).
 // ct: [K, B, Lp, Cout] and w: [kh, kw, Cin, Cout] float32, 16-byte aligned; periods, cycles: [K] int32, every period at most p_max
-// (p_cap, or a dense geometry's period); dh: [K, B, Lp, Cin] float32. All contiguous, on
+// (p_cap, or a dense geometry's period); dh: [K, B, Lp, Cin] float32; runs: the
+// int32 cell this launch adds 1 to when it runs (or null). All contiguous, on
 // the current device. Returns a cudaError_t value: 0 on a successful launch.
 extern "C" int tap_conv_dh(const void* ct, const void* w, const void* periods,
                            const void* cycles, void* dh, int K, int B, int Lp, int Cin,
-                           int Cout, int kh, int kw, int p_max, void* stream) {
+                           int Cout, int kh, int kw, int p_max, void* runs, void* stream) {
   DhF32Plan q;
   const int err = dh_f32_plan(K, B, Lp, Cin, Cout, kh, kw, p_max, &q);
   if (err != 0) return err;
@@ -900,11 +905,15 @@ extern "C" int tap_conv_dh(const void* ct, const void* w, const void* periods,
   const auto* per = static_cast<const int*>(periods);
   const auto* cyc = static_cast<const int*>(cycles);
   auto* o = static_cast<float*>(dh);
+  auto* r = static_cast<int*>(runs);
   auto s = static_cast<cudaStream_t>(stream);
   switch (q.nt) {
-    case 32: return launch_dh_nt<32>(c, wp, per, cyc, o, K, B, Lp, Cin, Cout, kh, kw, p_max, q, s);
-    case 16: return launch_dh_nt<16>(c, wp, per, cyc, o, K, B, Lp, Cin, Cout, kh, kw, p_max, q, s);
-    default: return launch_dh_nt<8>(c, wp, per, cyc, o, K, B, Lp, Cin, Cout, kh, kw, p_max, q, s);
+    case 32:
+      return launch_dh_nt<32>(c, wp, per, cyc, o, K, B, Lp, Cin, Cout, kh, kw, p_max, q, r, s);
+    case 16:
+      return launch_dh_nt<16>(c, wp, per, cyc, o, K, B, Lp, Cin, Cout, kh, kw, p_max, q, r, s);
+    default:
+      return launch_dh_nt<8>(c, wp, per, cyc, o, K, B, Lp, Cin, Cout, kh, kw, p_max, q, r, s);
   }
 }
 
@@ -924,11 +933,12 @@ extern "C" int tap_conv_dw_plan(int K, int B, int Lp, int Cin, int Cout, int kh,
 // The float32 route. h: [K, B, Lp, Cin] and ct: [K, B, Lp, Cout] float32,
 // 16-byte aligned; periods, cycles: [K] int32; partial: scratch of
 // plan.chunks * kh * kw * Cin * Cout float32; dw: [kh, kw, Cin, Cout]
-// float32. All contiguous, on the current device. Returns a cudaError_t
-// value: 0 on a successful launch of both passes.
+// float32; runs: the int32 cell pass 1 adds 1 to when it runs (or null). All
+// contiguous, on the current device. Returns a cudaError_t value: 0 on a
+// successful launch of both passes.
 extern "C" int tap_conv_dw(const void* h, const void* ct, const void* periods,
                            const void* cycles, void* partial, void* dw, int K, int B, int Lp,
-                           int Cin, int Cout, int kh, int kw, void* stream) {
+                           int Cin, int Cout, int kh, int kw, void* runs, void* stream) {
   DwF32Plan q;
   int err = dw_f32_plan(K, B, Lp, Cin, Cout, kh, kw, &q);
   if (err != 0) return err;
@@ -942,7 +952,7 @@ extern "C" int tap_conv_dw(const void* h, const void* ct, const void* periods,
   tap_conv_dw_kernel<<<dim3(q.tiles * q.tap_groups, q.chunks), q.warps * 32, q.smem, s>>>(
       static_cast<const float*>(h), static_cast<const float*>(ct),
       static_cast<const int*>(periods), static_cast<const int*>(cycles), part, B, Lp, Cin, Cout,
-      kh, kw, q);
+      kh, kw, q, static_cast<int*>(runs));
   err = static_cast<int>(cudaGetLastError());
   if (err != 0) return err;
   return launch_dw_reduce(part, static_cast<float*>(dw), kh * kw * Cin * Cout, q.chunks, s);
@@ -966,11 +976,12 @@ extern "C" int tap_conv_dw_mma_plan(int K, int B, int Lp, int Cin, int Cout, int
 // [K, B, Lp, Cout] bf16, 16-byte aligned; periods, cycles: [K] int32, every
 // period at most p_max (p_cap, or a dense geometry's period); partial: scratch of
 // plan.chunks * kh * kw * Cin * Cout float32; dw: [kh, kw, Cin, Cout]
-// float32. All contiguous, on the current device. Returns a cudaError_t
-// value: 0 on a successful launch of both passes.
+// float32; runs as for the float32 route. All contiguous, on the current
+// device. Returns a cudaError_t value: 0 on a successful launch of both passes.
 extern "C" int tap_conv_dw_mma(const void* h, const void* ct, const void* periods,
                                const void* cycles, void* partial, void* dw, int K, int B, int Lp,
-                               int Cin, int Cout, int kh, int kw, int p_max, void* stream) {
+                               int Cin, int Cout, int kh, int kw, int p_max, void* runs,
+                               void* stream) {
   DwMmaPlan q;
   int err = dw_mma_plan(K, B, Lp, Cin, Cout, kh, kw, p_max, &q);
   if (err != 0) return err;
@@ -985,7 +996,7 @@ extern "C" int tap_conv_dw_mma(const void* h, const void* ct, const void* period
       static_cast<const __nv_bfloat16*>(h), static_cast<const __nv_bfloat16*>(ct),
       static_cast<const int*>(periods), static_cast<const int*>(cycles), part, B, Lp, Cin,
       Cout, kh, kw, p_max, q.lp_pad, q.pad, (Cout + kWarpTile - 1) / kWarpTile, q.chunks_per_k,
-      q.per_chunk);
+      q.per_chunk, static_cast<int*>(runs));
   err = static_cast<int>(cudaGetLastError());
   if (err != 0) return err;
   return launch_dw_reduce(part, static_cast<float*>(dw), kh * kw * Cin * Cout, q.chunks, s);

@@ -98,6 +98,7 @@
 #include <cstdint>
 
 #include "f32_stage.cuh"
+#include "run_count.cuh"
 
 namespace {
 
@@ -132,7 +133,9 @@ __global__ void __launch_bounds__(kF32MaxWarps * 32, 1)
 tap_conv_fwd_kernel(const float* __restrict__ h, const float* __restrict__ w,
                     const float* __restrict__ bias, const int* __restrict__ periods,
                     const int* __restrict__ cycles, float* __restrict__ out, int K, int B,
-                    int Lp, int Cin, int Cout, int kh, int kw, int p_max, FwdF32Plan q) {
+                    int Lp, int Cin, int Cout, int kh, int kw, int p_max, FwdF32Plan q,
+                    int* __restrict__ runs) {
+  count_run(runs);
   constexpr int CG = NT / 4, RG = 32 / CG, WR = 4 * RG;  // lanes: RG rows x CG groups of 4 co
   extern __shared__ __align__(16) float smem[];
   const int sx = q.sx;
@@ -404,12 +407,12 @@ int fwd_f32_plan(int K, int B, int Lp, int Cin, int Cout, int kh, int kw, int p_
 template <int NT>
 int launch_nt(const float* h, const float* w, const float* bias, const int* periods,
               const int* cycles, float* out, int K, int B, int Lp, int Cin, int Cout, int kh,
-              int kw, int p_max, const FwdF32Plan& q, cudaStream_t stream) {
+              int kw, int p_max, const FwdF32Plan& q, int* runs, cudaStream_t stream) {
   auto* kernel = tap_conv_fwd_kernel<NT>;
   const cudaError_t err = reserve_smem(kernel, q.smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   kernel<<<dim3(q.tiles, q.chunks), q.warps * 32, q.smem, stream>>>(
-      h, w, bias, periods, cycles, out, K, B, Lp, Cin, Cout, kh, kw, p_max, q);
+      h, w, bias, periods, cycles, out, K, B, Lp, Cin, Cout, kh, kw, p_max, q, runs);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -431,11 +434,12 @@ extern "C" int tap_conv_fwd_plan(int K, int B, int Lp, int Cin, int Cout, int kh
 // The float32 route (bf16 is tap_conv_mma.cu's tap_conv_fwd_mma). h:
 // [K, B, Lp, Cin] and w: [kh, kw, Cin, Cout] float32, 16-byte aligned; bias:
 // [Cout] float32; periods, cycles: [K] int32, every period at most p_max
-// (p_cap, or a dense geometry's period); out: [K, B, Lp, Cout] float32. All contiguous, on
-// the current device. Returns a cudaError_t value: 0 on a successful launch.
+// (p_cap, or a dense geometry's period); out: [K, B, Lp, Cout] float32; runs:
+// the int32 cell this launch adds 1 to when it runs (or null). All contiguous,
+// on the current device. Returns a cudaError_t value: 0 on a successful launch.
 extern "C" int tap_conv_fwd(const void* h, const void* w, const void* bias, const void* periods,
                             const void* cycles, void* out, int K, int B, int Lp, int Cin,
-                            int Cout, int kh, int kw, int p_max, void* stream) {
+                            int Cout, int kh, int kw, int p_max, void* runs, void* stream) {
   FwdF32Plan q;
   const int err = fwd_f32_plan(K, B, Lp, Cin, Cout, kh, kw, p_max, &q);
   if (err != 0) return err;
@@ -448,10 +452,14 @@ extern "C" int tap_conv_fwd(const void* h, const void* w, const void* bias, cons
   const auto* per = static_cast<const int*>(periods);
   const auto* cyc = static_cast<const int*>(cycles);
   auto* o = static_cast<float*>(out);
+  auto* r = static_cast<int*>(runs);
   auto s = static_cast<cudaStream_t>(stream);
   switch (q.nt) {
-    case 32: return launch_nt<32>(x, wp, bp, per, cyc, o, K, B, Lp, Cin, Cout, kh, kw, p_max, q, s);
-    case 16: return launch_nt<16>(x, wp, bp, per, cyc, o, K, B, Lp, Cin, Cout, kh, kw, p_max, q, s);
-    default: return launch_nt<8>(x, wp, bp, per, cyc, o, K, B, Lp, Cin, Cout, kh, kw, p_max, q, s);
+    case 32:
+      return launch_nt<32>(x, wp, bp, per, cyc, o, K, B, Lp, Cin, Cout, kh, kw, p_max, q, r, s);
+    case 16:
+      return launch_nt<16>(x, wp, bp, per, cyc, o, K, B, Lp, Cin, Cout, kh, kw, p_max, q, r, s);
+    default:
+      return launch_nt<8>(x, wp, bp, per, cyc, o, K, B, Lp, Cin, Cout, kh, kw, p_max, q, r, s);
   }
 }

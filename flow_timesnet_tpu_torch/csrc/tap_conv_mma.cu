@@ -94,6 +94,7 @@
 #include <cstdint>
 
 #include "mma_ptx.cuh"
+#include "run_count.cuh"
 
 namespace {
 
@@ -232,7 +233,9 @@ __global__ void __launch_bounds__(kMaxWarps * 32, 1)  // up to kRegsCap register
 tap_conv_mma_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ w,
                     const float* __restrict__ bias, const int* __restrict__ periods,
                     const int* __restrict__ cycles, float* __restrict__ out, int B, int Lp,
-                    int Cin, int Cout, int kh, int kw, int p_max, FoldMmaPlan q) {
+                    int Cin, int Cout, int kh, int kw, int p_max, FoldMmaPlan q,
+                    int* __restrict__ runs) {
+  count_run(runs);
   constexpr bool kFwd = SIGN > 0;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int cx = kFwd ? Cin : Cout, cy = kFwd ? Cout : Cin;
@@ -417,7 +420,7 @@ tap_conv_mma_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __
 template <int SIGN, int NT>
 int launch_nt(const void* x, const void* w, const float* bias, const int* periods,
               const int* cycles, float* out, int B, int Lp, int Cin, int Cout, int kh, int kw,
-              int p_max, const FoldMmaPlan& q, cudaStream_t stream) {
+              int p_max, const FoldMmaPlan& q, int* runs, cudaStream_t stream) {
   auto* kernel = tap_conv_mma_kernel<SIGN, NT>;
   if (q.smem > 48 * 1024) {
     const cudaError_t err =
@@ -426,14 +429,14 @@ int launch_nt(const void* x, const void* w, const float* bias, const int* period
   }
   kernel<<<dim3(q.tiles, q.chunks), q.warps * 32, q.smem, stream>>>(
       static_cast<const __nv_bfloat16*>(x), static_cast<const __nv_bfloat16*>(w), bias, periods,
-      cycles, out, B, Lp, Cin, Cout, kh, kw, p_max, q);
+      cycles, out, B, Lp, Cin, Cout, kh, kw, p_max, q, runs);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <int SIGN>
 int launch(const void* x, const void* w, const void* bias, const void* periods,
            const void* cycles, void* out, int K, int B, int Lp, int Cin, int Cout, int kh,
-           int kw, int p_max, void* stream) {
+           int kw, int p_max, void* runs, void* stream) {
   FoldMmaPlan q;
   const int err = fold_mma_plan(SIGN, K, B, Lp, Cin, Cout, kh, kw, p_max, &q);
   if (err != 0) return err;
@@ -444,11 +447,15 @@ int launch(const void* x, const void* w, const void* bias, const void* periods,
   const auto* per = static_cast<const int*>(periods);
   const auto* cyc = static_cast<const int*>(cycles);
   auto* o = static_cast<float*>(out);
+  auto* r = static_cast<int*>(runs);
   auto s = static_cast<cudaStream_t>(stream);
   switch (q.nt) {
-    case 32: return launch_nt<SIGN, 32>(x, w, b, per, cyc, o, B, Lp, Cin, Cout, kh, kw, p_max, q, s);
-    case 16: return launch_nt<SIGN, 16>(x, w, b, per, cyc, o, B, Lp, Cin, Cout, kh, kw, p_max, q, s);
-    default: return launch_nt<SIGN, 8>(x, w, b, per, cyc, o, B, Lp, Cin, Cout, kh, kw, p_max, q, s);
+    case 32:
+      return launch_nt<SIGN, 32>(x, w, b, per, cyc, o, B, Lp, Cin, Cout, kh, kw, p_max, q, r, s);
+    case 16:
+      return launch_nt<SIGN, 16>(x, w, b, per, cyc, o, B, Lp, Cin, Cout, kh, kw, p_max, q, r, s);
+    default:
+      return launch_nt<SIGN, 8>(x, w, b, per, cyc, o, B, Lp, Cin, Cout, kh, kw, p_max, q, r, s);
   }
 }
 
@@ -472,22 +479,24 @@ extern "C" int tap_conv_mma_plan(int sign, int K, int B, int Lp, int Cin, int Co
 // The bf16 forward. h: [K, B, Lp, Cin] and w: [kh, kw, Cin, Cout] bf16,
 // 16-byte aligned; bias: [Cout] float32; periods, cycles: [K] int32, every
 // period at most p_max (p_cap, or a dense geometry's period); out: [K, B, Lp, Cout]
-// float32. All contiguous, on the current device. Returns a cudaError_t
-// value: 0 on a successful launch.
+// float32; runs: the int32 cell this launch adds 1 to when it runs (or null).
+// All contiguous, on the current device. Returns a cudaError_t value: 0 on a
+// successful launch.
 extern "C" int tap_conv_fwd_mma(const void* h, const void* w, const void* bias,
                                 const void* periods, const void* cycles, void* out, int K, int B,
-                                int Lp, int Cin, int Cout, int kh, int kw, int p_max,
+                                int Lp, int Cin, int Cout, int kh, int kw, int p_max, void* runs,
                                 void* stream) {
-  return launch<1>(h, w, bias, periods, cycles, out, K, B, Lp, Cin, Cout, kh, kw, p_max, stream);
+  return launch<1>(h, w, bias, periods, cycles, out, K, B, Lp, Cin, Cout, kh, kw, p_max, runs,
+                   stream);
 }
 
 // The bf16 dh adjoint. ct: [K, B, Lp, Cout] and w: [kh, kw, Cin, Cout] bf16,
-// 16-byte aligned; periods, cycles as for the forward; dh: [K, B, Lp, Cin]
-// float32. All contiguous, on the current device. Returns a cudaError_t
-// value: 0 on a successful launch.
+// 16-byte aligned; periods, cycles and runs as for the forward; dh:
+// [K, B, Lp, Cin] float32. All contiguous, on the current device. Returns a
+// cudaError_t value: 0 on a successful launch.
 extern "C" int tap_conv_dh_mma(const void* ct, const void* w, const void* periods,
                                const void* cycles, void* dh, int K, int B, int Lp, int Cin,
-                               int Cout, int kh, int kw, int p_max, void* stream) {
+                               int Cout, int kh, int kw, int p_max, void* runs, void* stream) {
   return launch<-1>(ct, w, nullptr, periods, cycles, dh, K, B, Lp, Cin, Cout, kh, kw, p_max,
-                    stream);
+                    runs, stream);
 }

@@ -9,19 +9,36 @@ back as device tensors. ``collect_period_telemetry`` records each block's
 period selection in one deterministic forward, and the static
 ``frozen_spec_*`` helpers turn it, or a config's stored spec, into the
 ``frozen_periods`` of an engine on the frozen-period path, which takes the
-same parameters and ``TrainState``. The resident ``lax.scan`` epoch is a
-later slice of the port.
+same parameters and ``TrainState``.
+
+The device-resident epoch (the JAX package's ``lax.scan`` over an epoch,
+with the window gather inside it) is ``train_epoch_resident`` over
+``data/device_windows.py``'s staged arrays and ``[S, B]`` plan, beside
+``evaluate_resident`` and ``collect_period_telemetry_staged``.
+
+On a CUDA device, ``forward``, ``train_step`` (without accumulation), each
+step of ``train_epoch_resident`` and each batch of ``evaluate_resident``
+replay a CUDA graph (``graphs.py``), the counterpart of the JAX package's
+compiled programs: one per input signature and, for training, per
+``TrainState`` and generator. The first call captures it, after eager
+warm-up calls whose effects on the state are undone; a failed capture
+raises. On the CPU every path runs the same body eagerly. (The attribute
+``Engine.cuda_graphs``, True on the card, may be set to False to dispatch
+every op from Python there: the yardstick that the card tests and
+``chip_smoke.py`` hold the graphs against.)
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Any, Dict, Iterable, Mapping, Optional
+from typing import Any, Dict, Iterable, List, Mapping, Optional
 
 import numpy as np
 import torch
 from torch.func import functional_call
 
+from . import graphs
+from .data.device_windows import StagedWindows, gather_batch
 from .device import resolve_device
 from .losses import negative_binomial_mask, negative_binomial_nll
 from .models.timesnet import TimesNet, TimesNetConfig
@@ -29,6 +46,10 @@ from .optim import Optimizer, build_optimizer
 from .utils.metrics import smape_batch_sums, wsmape_batch_sums
 
 _ARGS = ("x", "x_mark", "static", "ids", "floor")
+_STEP_KEYS = _ARGS + ("row_valid", "y", "mask")  # what a training step reads of a batch
+# rows of a resident plan buffer: the JAX trainer's default longest dispatch
+# (train.resident_max_dispatch_steps); a longer plan gets a larger buffer
+RESIDENT_PLAN_ROWS = 512
 
 
 @dataclass
@@ -45,6 +66,16 @@ class TrainState:
     optimizer: Optimizer
     grad_accum: Optional[Dict[str, torch.Tensor]] = None
     ema: Optional[Dict[str, torch.Tensor]] = None
+
+    def tensors(self) -> List[torch.Tensor]:
+        """Every tensor a step updates in place, in a fixed order:
+        parameters, Adam moments and step counts, accumulator, EMA."""
+
+        out = list(self.params.values()) + self.optimizer.state_tensors()
+        for extra in (self.grad_accum, self.ema):
+            if extra is not None:
+                out.extend(extra.values())
+        return out
 
 
 def _safe_ratio(num, den) -> float:
@@ -94,6 +125,30 @@ class Engine:
         self.grad_clip_norm = float(grad_clip_norm or 0.0)
         self.weight_decay = float(weight_decay or 0.0)
         self.num_series = int(num_series)
+        self.cuda_graphs = self.device.type == "cuda"  # replay graphs (see the module's doc)
+        self._graphs: Dict[tuple, graphs.Captured] = {}
+        self._graph_state: Optional[TrainState] = None  # the state the training graphs hold
+        self._pool = None
+
+    # -- CUDA graphs -------------------------------------------------------------
+
+    def _capture(self, key: tuple, body, **kwargs) -> graphs.Captured:
+        """Capture ``body`` into this engine's memory pool under ``key``."""
+
+        if self._pool is None:
+            self._pool = torch.cuda.graph_pool_handle()
+        graph = graphs.capture(body, self._pool, **kwargs)
+        self._graphs[key] = graph
+        return graph
+
+    def _training_graphs(self, state: TrainState) -> None:
+        """Graphs that train read and write a ``TrainState``'s tensors: a
+        new state drops those of the last one (and the evaluation graphs
+        captured beside them), so a graph never outlives its state."""
+
+        if state is not self._graph_state:
+            self._graphs = {k: g for k, g in self._graphs.items() if k[0] == "forward"}
+            self._graph_state = state
 
     # -- forward / decode ------------------------------------------------------
 
@@ -107,10 +162,26 @@ class Engine:
 
     @torch.inference_mode()
     def forward(self, x, x_mark=None, static=None, ids=None, floor=None, row_valid=None):
-        """Direct forward: ``(rate, dispersion)`` each [B, out_steps, N]."""
+        """Direct forward: ``(rate, dispersion)`` each [B, out_steps, N].
+
+        On the card it replays one CUDA graph per input signature (shapes,
+        dtypes, and which inputs are None): the inputs are copied into the
+        graph's buffers and the outputs are cloned out.
+        """
 
         self.model.eval()
-        return self.model(x, x_mark, static, ids, floor, row_valid)
+        args = (x, x_mark, static, ids, floor, row_valid)
+        if not self.cuda_graphs:
+            return self.model(*args)
+        key = ("forward", graphs.signature(args))
+        graph = self._graphs.get(key)
+        if graph is None:
+            bufs = graphs.static_copies(args)
+            graph = self._capture(key, lambda: self.model(*bufs), inputs=bufs)
+            rate, disp = graph.replay()
+        else:
+            rate, disp = graph.replay(args)
+        return rate.clone(), disp.clone()
 
     @torch.inference_mode()
     def rollout(self, x, horizon, x_mark=None, y_mark=None, static=None, ids=None, floor=None,
@@ -260,6 +331,7 @@ class Engine:
             if own[name] is not p:
                 module, _, leaf = name.rpartition(".")
                 self.model.get_submodule(module)._parameters[leaf] = p
+                self._graphs.clear()  # they hold the parameters they were captured on
 
     def init_state(self, params: Optional[Mapping[str, torch.Tensor]] = None) -> TrainState:
         """Load ``params`` (if given) into the model and start a run on them:
@@ -297,18 +369,11 @@ class Engine:
             total = torch.full((), float(y.numel()), device=y.device)
         return loss, {"mask_true": nbm.sum().float(), "mask_total": total}
 
-    def train_step(self, state: TrainState, lr: float, generator: Optional[torch.Generator],
-                   batch: Mapping[str, Any], do_update: bool = True):
-        """One gradient step on ``batch``: ``(state, loss, stats)``.
+    def _train_body(self, state: TrainState, generator: Optional[torch.Generator],
+                    batch: Mapping[str, Any], do_update: bool = True):
+        """One step on ``batch`` at the optimizer's learning rate: the body of
+        ``train_step``, of its graph and of each resident step."""
 
-        With ``accumulation_steps > 1`` the gradient is added to the running
-        mean and the update waits for ``do_update``. ``lr`` is this step's
-        learning rate; ``generator`` (on the engine's device) drives dropout.
-        The state is updated in place and returned.
-        """
-
-        self._bind(state)
-        self.model.train()
         params = list(state.params.values())
         for p in params:
             p.grad = None
@@ -319,16 +384,178 @@ class Engine:
             accum = list(state.grad_accum.values())
             torch._foreach_add_(accum, grads, alpha=1.0 / self.accum_steps)
             if not do_update:
-                return state, loss.detach(), stats
+                return loss.detach(), stats
             grads = [a.clone() for a in accum]
             torch._foreach_zero_(accum)
         with torch.no_grad():
-            state.optimizer.step(grads, lr)
+            state.optimizer.step(grads)
             if state.ema is not None:
                 ema = list(state.ema.values())
                 torch._foreach_mul_(ema, self.ema_decay)
                 torch._foreach_add_(ema, params, alpha=1.0 - self.ema_decay)
-        return state, loss.detach(), stats
+        return loss.detach(), stats
+
+    def train_step(self, state: TrainState, lr: float, generator: Optional[torch.Generator],
+                   batch: Mapping[str, Any], do_update: bool = True):
+        """One gradient step on ``batch``: ``(state, loss, stats)``.
+
+        With ``accumulation_steps > 1`` the gradient is added to the running
+        mean and the update waits for ``do_update``. ``lr`` is this step's
+        learning rate; ``generator`` (on the engine's device) drives dropout.
+        The state is updated in place and returned.
+
+        On the card, without accumulation, the step replays one CUDA graph
+        per ``(TrainState, generator, batch signature)``: the batch is
+        copied into the graph's buffers, and the loss and stats come back as
+        clones. Accumulation runs eagerly, as the JAX package's resident
+        path refuses it.
+        """
+
+        self._bind(state)
+        self.model.train()
+        state.optimizer.set_lr(lr)
+        if not self.cuda_graphs or self.accum_steps > 1:
+            loss, stats = self._train_body(state, generator, batch, do_update)
+            return state, loss, stats
+        self._training_graphs(state)
+        tensors = [batch.get(k) for k in _STEP_KEYS]
+        key = ("step", id(generator), graphs.signature(tensors))
+        graph = self._graphs.get(key)
+        if graph is None:
+            bufs = graphs.static_copies(tensors)
+            static_batch = dict(zip(_STEP_KEYS, bufs))
+
+            def body():
+                loss, stats = self._train_body(state, generator, static_batch)
+                return loss, stats["mask_true"], stats["mask_total"]
+
+            graph = self._capture(key, body, inputs=bufs, state=state.tensors(),
+                                  generators=(generator,), pins=(generator,))
+            loss, mask_true, mask_total = graph.replay()
+        else:
+            loss, mask_true, mask_total = graph.replay(tensors)
+        return state, loss.clone(), {"mask_true": mask_true.clone(),
+                                     "mask_total": mask_total.clone()}
+
+    # -- device-resident epoch (gather inside the step) --------------------------
+
+    def gather_staged_batch(self, staged: StagedWindows, flat_idx, row_valid) -> Dict[str, Any]:
+        """One batch gathered from the staged arrays (a probe, an init
+        batch): the clean windows, with ``y_mark`` in recursive mode."""
+
+        return gather_batch(staged, self._on_device(flat_idx, torch.int32),
+                            self._on_device(row_valid, torch.float32),
+                            with_y_mark=self.cfg.mode != "direct")
+
+    def collect_period_telemetry_staged(self, params, staged: StagedWindows, flat_idx,
+                                        row_valid) -> Dict[str, Any]:
+        """:meth:`collect_period_telemetry` of the batch that ``flat_idx``
+        and ``row_valid`` [B] gather from ``staged``: the resident trainer's
+        probe, run eagerly on a fixed batch and read back once."""
+
+        return self.collect_period_telemetry(
+            params, self.gather_staged_batch(staged, flat_idx, row_valid))
+
+    def _on_device(self, a, dtype) -> torch.Tensor:
+        """A plan (numpy or a tensor) as ``dtype`` on the engine's device."""
+
+        return torch.as_tensor(a, dtype=dtype).to(self.device)
+
+    def _resident_buffers(self, rows: int, B: int, sums: bool) -> Dict[str, torch.Tensor]:
+        """A plan buffer [rows, B] (indices and row_valid), the step counter
+        and either the per-step outputs (training) or the six sums (eval)."""
+
+        dev = self.device
+        out = {"idx": torch.zeros((rows, B), dtype=torch.int32, device=dev),
+               "rv": torch.zeros((rows, B), dtype=torch.float32, device=dev),
+               "counter": torch.zeros((1,), dtype=torch.int64, device=dev)}
+        if sums:
+            out["sums"] = [torch.zeros((), dtype=torch.float32, device=dev) for _ in range(4)] + [
+                torch.zeros(self.num_series, dtype=torch.float32, device=dev) for _ in range(2)]
+        else:
+            out["losses"] = torch.zeros(rows, dtype=torch.float32, device=dev)
+            out["mask_true"] = torch.zeros(rows, dtype=torch.float32, device=dev)
+        return out
+
+    def _plan_row(self, buf: Dict[str, torch.Tensor]):
+        """Row ``counter`` of the plan buffer, read on the device."""
+
+        counter = buf["counter"]
+        return (torch.index_select(buf["idx"], 0, counter)[0],
+                torch.index_select(buf["rv"], 0, counter)[0])
+
+    def _resident(self, key: tuple, S: int, B: int, sums: bool, make_body, *,
+                  state=(), generators=(), pins=()):
+        """The buffers and the step function of a resident pass of ``S``
+        steps of ``B`` rows: on the card a graph (captured under ``key``,
+        anew where its plan buffer is shorter than ``S``; the buffers are its
+        first pin) whose replay is one step; on the CPU the body itself, on
+        buffers of ``S`` rows. ``state``/``generators``/``pins`` are
+        :func:`graphs.capture`'s."""
+
+        if not self.cuda_graphs:
+            buf = self._resident_buffers(S, B, sums)
+            return buf, make_body(buf)
+        graph = self._graphs.get(key)
+        if graph is None or graph.pins[0]["idx"].shape[0] < S:
+            buf = self._resident_buffers(max(RESIDENT_PLAN_ROWS, S), B, sums)
+            outputs = buf["sums"] if sums else [buf["losses"], buf["mask_true"]]
+            graph = self._capture(key, make_body(buf), state=[buf["counter"], *outputs, *state],
+                                  generators=generators, pins=(buf, *pins))
+        return graph.pins[0], graph.replay
+
+    def train_epoch_resident(self, state: TrainState, lr: float,
+                             generator: Optional[torch.Generator], staged: StagedWindows, idx,
+                             row_valid, step_offset: int = 0):
+        """One epoch's steps (or one chunk of them) over device-resident
+        data: ``(state, losses [S], mask_true [S])``, as device tensors that
+        the caller fetches once.
+
+        ``idx``/``row_valid`` are an [S, B] plan from
+        :func:`~flow_timesnet_tpu_torch.data.device_windows.epoch_index_plan`
+        (numpy or tensors). It is copied once into a device buffer; each
+        step then reads its row on the device, gathers the batch
+        (:func:`gather_batch`), takes :meth:`train_step`'s step, writes its
+        loss and ``mask_true`` at its row and counts on: on the card one
+        graph replay a step, with no host work between steps. Dropout draws
+        from ``generator``, which every step advances, so chunked calls give
+        what one call gives; ``step_offset``, which the JAX package needs to
+        derive per-step keys, is accepted for its signature and not needed.
+        Requires ``accumulation_steps == 1``.
+        """
+
+        del step_offset  # the generator carries the position within the epoch
+        if self.accum_steps != 1:
+            raise ValueError("device-resident training requires accumulation_steps == 1")
+        self._bind(state)
+        self.model.train()
+        state.optimizer.set_lr(lr)
+        idx_t = self._on_device(idx, torch.int32)
+        rv_t = self._on_device(row_valid, torch.float32)
+        S, B = (int(n) for n in idx_t.shape)
+        if self.cuda_graphs:
+            self._training_graphs(state)
+
+        def make_body(buf):
+            def body():
+                flat, rv = self._plan_row(buf)
+                batch = gather_batch(staged, flat, rv)
+                loss, stats = self._train_body(state, generator, batch)
+                with torch.no_grad():
+                    buf["losses"].index_copy_(0, buf["counter"], loss.reshape(1))
+                    buf["mask_true"].index_copy_(0, buf["counter"], stats["mask_true"].reshape(1))
+                    buf["counter"].add_(1)
+            return body
+
+        buf, step = self._resident(("epoch", id(generator), id(staged), B), S, B, False,
+                                   make_body, state=state.tensors(),
+                                   generators=(generator,), pins=(generator, staged))
+        buf["idx"][:S].copy_(idx_t)
+        buf["rv"][:S].copy_(rv_t)
+        buf["counter"].zero_()
+        for _ in range(S):
+            step()
+        return state, buf["losses"][:S].clone(), buf["mask_true"][:S].clone()
 
     # -- evaluation ---------------------------------------------------------------
 
@@ -373,6 +600,11 @@ class Engine:
         for batch in batches:
             out = self.eval_step(params, batch)
             totals = out if totals is None else tuple(a + b for a, b in zip(totals, out))
+        return self._metrics(totals)
+
+    def _metrics(self, totals) -> Dict[str, Any]:
+        """The pass's metrics from its six sums, read in one copy."""
+
         if totals is None:
             # an empty eval stream must not masquerade as a perfect score
             return {
@@ -390,6 +622,51 @@ class Engine:
             "series_sums": flat[4 : 4 + self.num_series],
             "series_cnts": flat[4 + self.num_series :],
         }
+
+    def evaluate_resident(self, params, staged: StagedWindows, idx, row_valid,
+                          max_dispatch_steps: int = 0) -> Dict[str, Any]:
+        """:meth:`evaluate` over a plan of the staged arrays: ``idx`` and
+        ``row_valid`` [S, B] (numpy or tensors), ``params`` as there (the
+        trainer passes ``state.ema``).
+
+        Each batch is gathered on the device and its six sums are added to
+        device accumulators (on the card one graph replay a batch), which
+        are read once at the end. ``max_dispatch_steps`` > 0 copies the plan
+        into the device buffer that many rows at a time; the sums carry
+        over, so chunks compose by addition.
+        """
+
+        self.model.eval()
+        idx_t = self._on_device(idx, torch.int32)
+        rv_t = self._on_device(row_valid, torch.float32)
+        S, B = (int(n) for n in idx_t.shape)
+        if S == 0:
+            return self._metrics(None)
+        chunk = min(S, int(max_dispatch_steps)) if max_dispatch_steps else S
+        pinned = tuple(params.values()) if params is not None else ()
+
+        def make_body(buf):
+            def body():
+                with torch.no_grad():
+                    flat, rv = self._plan_row(buf)
+                    batch = gather_batch(staged, flat, rv, with_y_mark=self.cfg.mode != "direct")
+                    for acc, v in zip(buf["sums"], self.eval_step(params, batch)):
+                        acc.add_(v)
+                    buf["counter"].add_(1)
+            return body
+
+        key = ("eval", id(staged), B, tuple(id(t) for t in pinned))
+        buf, step = self._resident(key, chunk, B, True, make_body, pins=(staged, pinned))
+        for acc in buf["sums"]:
+            acc.zero_()
+        for start in range(0, S, chunk):
+            n = min(chunk, S - start)
+            buf["idx"][:n].copy_(idx_t[start:start + n])
+            buf["rv"][:n].copy_(rv_t[start:start + n])
+            buf["counter"].zero_()
+            for _ in range(n):
+                step()
+        return self._metrics(buf["sums"])
 
 
 def batch_to_device(batch, floor=None, device="cuda") -> Dict[str, Any]:

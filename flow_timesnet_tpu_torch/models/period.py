@@ -128,13 +128,15 @@ def select_periods(
     )
 
 
-@functools.lru_cache(maxsize=64)
+@functools.cache
 def _dft_basis(bins: tuple, L: int, device: torch.device) -> torch.Tensor:
     """``[cos | sin]`` of the DFT at ``bins`` over ``L`` steps, [L, 2K]
-    float32. Cached: the bins are static, and building it from a host list
-    on every forward would copy to the card, which waits for the card. Built
-    outside inference mode, so that a training forward may save it for its
-    backward after a served request built it."""
+    float32. Cached for the life of the process (a CUDA graph that reads it
+    needs it to stay where it is; one entry per frozen spec's bins): the
+    bins are static, and building it from a host list on every forward
+    would copy to the card, which waits for the card. Built outside
+    inference mode, so that a training forward may save it for its backward
+    after a served request built it."""
 
     with torch.inference_mode(False):
         k = torch.tensor(bins, dtype=torch.float32, device=device)

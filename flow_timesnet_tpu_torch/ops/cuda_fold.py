@@ -32,7 +32,7 @@ from __future__ import annotations
 import ctypes
 import functools
 from collections import Counter
-from typing import NamedTuple, Optional
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -54,6 +54,64 @@ launches_dh: Counter = Counter()  # dh adjoint, either route
 launches_dh_mma: Counter = Counter()  # dh adjoint, the bf16 tensor-core route
 launches_dw: Counter = Counter()  # weight gradient, either route
 launches_dw_mma: Counter = Counter()  # weight gradient, the bf16 tensor-core route
+
+# Runs of each kernel on the card, counted by the kernels themselves: every
+# launch adds 1 to its cell when it runs (``csrc/run_count.cuh``), so the
+# replays of a CUDA graph count too, which no wrapper sees (the counters
+# above count where a wrapper launches). One int32 cell per kernel, route and
+# kernel size, in one buffer per device; reading them waits for the card.
+RUN_KINDS = ("fwd_mma", "fwd_f32", "dh_mma", "dh_f32", "dw_mma", "dw_f32")
+_RUN_CELLS = 256
+_run_slots: Dict[Tuple[str, str], int] = {}  # (kind, "3x3") -> its cell
+_run_buffers: Dict[torch.device, torch.Tensor] = {}
+
+
+def _run_cell(device: torch.device, kind: str, kh: int, kw: int) -> int:
+    """The address of the run cell of ``kind`` at ``kh`` x ``kw`` on ``device``."""
+
+    slot = _run_slots.setdefault((kind, f"{kh}x{kw}"), len(_run_slots))
+    if slot >= _RUN_CELLS:
+        raise RuntimeError(f"more than {_RUN_CELLS} kernel run cells")
+    buf = _run_buffers.get(device)
+    if buf is None:  # a graph holds the cells' address: they must predate any capture
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError("the kernel run cells are made by an eager launch, "
+                               "before any CUDA graph capture")
+        buf = _run_buffers[device] = torch.zeros(_RUN_CELLS, dtype=torch.int32, device=device)
+    return buf.data_ptr() + 4 * slot
+
+
+def _cuda_device(device) -> torch.device:
+    if device is None:
+        return torch.device("cuda", torch.cuda.current_device())
+    device = torch.device(device)
+    return device if device.index is not None else torch.device("cuda", 0)
+
+
+def kernel_runs(device=None) -> Dict[str, Dict[str, int]]:
+    """The launches each kernel ran on ``device`` (default: the current
+    card) since :func:`clear_kernel_runs`, as the kernels counted them:
+    ``{kind: {"3x3": n, ...}}`` for every kind of ``RUN_KINDS``. Waits for
+    the card."""
+
+    out: Dict[str, Dict[str, int]] = {kind: {} for kind in RUN_KINDS}
+    buf = _run_buffers.get(_cuda_device(device))
+    if buf is not None:
+        cells = buf.tolist()
+        for (kind, size), slot in _run_slots.items():
+            if cells[slot]:
+                out[kind][size] = cells[slot]
+    return out
+
+
+def clear_kernel_runs(device=None) -> None:
+    """Zero the run cells of ``device`` (default: the current card), in
+    stream order."""
+
+    buf = _run_buffers.get(_cuda_device(device))
+    if buf is not None:
+        buf.zero_()
+
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _INVALID_VALUE = 1  # cudaErrorInvalidValue: what a kernel returns for a shape it cannot take
@@ -552,7 +610,7 @@ def _fwd_fns():
     lib.tap_conv_fwd_plan.restype = _I
     lib.tap_conv_fwd_plan.argtypes = [_I] * 8 + [_P]
     lib.tap_conv_fwd.restype = _I
-    lib.tap_conv_fwd.argtypes = [_P] * 6 + [_I] * 8 + [_P]
+    lib.tap_conv_fwd.argtypes = [_P] * 6 + [_I] * 8 + [_P, _P]
     return lib
 
 
@@ -562,9 +620,9 @@ def _mma_fns():
     lib.tap_conv_mma_plan.restype = _I
     lib.tap_conv_mma_plan.argtypes = [_I] * 9 + [_P]
     lib.tap_conv_fwd_mma.restype = _I
-    lib.tap_conv_fwd_mma.argtypes = [_P] * 6 + [_I] * 8 + [_P]
+    lib.tap_conv_fwd_mma.argtypes = [_P] * 6 + [_I] * 8 + [_P, _P]
     lib.tap_conv_dh_mma.restype = _I
-    lib.tap_conv_dh_mma.argtypes = [_P] * 5 + [_I] * 8 + [_P]
+    lib.tap_conv_dh_mma.argtypes = [_P] * 5 + [_I] * 8 + [_P, _P]
     return lib
 
 
@@ -574,15 +632,15 @@ def _bwd_fns():
     lib.tap_conv_dh_plan.restype = _I
     lib.tap_conv_dh_plan.argtypes = [_I] * 8 + [_P]
     lib.tap_conv_dh.restype = _I
-    lib.tap_conv_dh.argtypes = [_P] * 5 + [_I] * 8 + [_P]
+    lib.tap_conv_dh.argtypes = [_P] * 5 + [_I] * 8 + [_P, _P]
     lib.tap_conv_dw_plan.restype = _I
     lib.tap_conv_dw_plan.argtypes = [_I] * 7 + [_P]
     lib.tap_conv_dw.restype = _I
-    lib.tap_conv_dw.argtypes = [_P] * 6 + [_I] * 7 + [_P]
+    lib.tap_conv_dw.argtypes = [_P] * 6 + [_I] * 7 + [_P, _P]
     lib.tap_conv_dw_mma_plan.restype = _I
     lib.tap_conv_dw_mma_plan.argtypes = [_I] * 8 + [_P]
     lib.tap_conv_dw_mma.restype = _I
-    lib.tap_conv_dw_mma.argtypes = [_P] * 6 + [_I] * 8 + [_P]
+    lib.tap_conv_dw_mma.argtypes = [_P] * 6 + [_I] * 8 + [_P, _P]
     return lib
 
 
@@ -711,7 +769,8 @@ def tap_conv_cuda(
       the products exact (the tensor cores would round them to TF32). A
       shape it cannot take (:func:`fwd_f32_plan`) raises ``RuntimeError``.
 
-    ``launches`` counts both routes, ``launches_mma`` the tensor-core one.
+    ``launches`` counts both routes, ``launches_mma`` the tensor-core one;
+    the kernel counts its own runs (:func:`kernel_runs`).
     """
 
     _check("tap_conv_cuda", h, kh, kw)
@@ -734,12 +793,14 @@ def tap_conv_cuda(
     out = torch.empty((K, B, Lp, Cout), dtype=torch.float32, device=h.device)
     ptrs = (x.data_ptr(), w.data_ptr(), b.data_ptr(), geom.periods.data_ptr(),
             geom.cycles.data_ptr(), out.data_ptr())
+    runs = _run_cell(h.device, "fwd_mma" if mma else "fwd_f32", kh, kw)
     with torch.cuda.device(h.device):
         stream = torch.cuda.current_stream(h.device).cuda_stream
         if mma:
-            err = _mma_fns().tap_conv_fwd_mma(*ptrs, K, B, Lp, Cin, Cout, kh, kw, p_max, stream)
+            err = _mma_fns().tap_conv_fwd_mma(*ptrs, K, B, Lp, Cin, Cout, kh, kw, p_max, runs,
+                                              stream)
         else:
-            err = _fwd_fns().tap_conv_fwd(*ptrs, K, B, Lp, Cin, Cout, kh, kw, p_max, stream)
+            err = _fwd_fns().tap_conv_fwd(*ptrs, K, B, Lp, Cin, Cout, kh, kw, p_max, runs, stream)
     _raise_on(err, "tap_conv_fwd_mma" if mma else "tap_conv_fwd",
               f"K={K}, B={B}, Lp={Lp}, Cin={Cin}, Cout={Cout}, {kh}x{kw}")
     launches[f"{kh}x{kw}"] += 1
@@ -765,7 +826,8 @@ def tap_conv_dh_cuda(
     there), float32 the CUDA-core kernel ``tap_conv_dh`` (its limits:
     :func:`dh_f32_plan`), with no fallback between them: a shape a route
     cannot take raises ``RuntimeError``. ``launches_dh`` counts both routes,
-    ``launches_dh_mma`` the tensor-core one.
+    ``launches_dh_mma`` the tensor-core one; the kernel counts its own runs
+    (:func:`kernel_runs`).
     """
 
     _check("tap_conv_dh_cuda", ct, kh, kw)
@@ -785,12 +847,14 @@ def tap_conv_dh_cuda(
     dh = torch.empty((K, B, Lp, Cin), dtype=torch.float32, device=ct.device)
     ptrs = (x.data_ptr(), w.data_ptr(), geom.periods.data_ptr(), geom.cycles.data_ptr(),
             dh.data_ptr())
+    runs = _run_cell(ct.device, "dh_mma" if mma else "dh_f32", kh, kw)
     with torch.cuda.device(ct.device):
         stream = torch.cuda.current_stream(ct.device).cuda_stream
         if mma:
-            err = _mma_fns().tap_conv_dh_mma(*ptrs, K, B, Lp, Cin, Cout, kh, kw, p_max, stream)
+            err = _mma_fns().tap_conv_dh_mma(*ptrs, K, B, Lp, Cin, Cout, kh, kw, p_max, runs,
+                                             stream)
         else:
-            err = _bwd_fns().tap_conv_dh(*ptrs, K, B, Lp, Cin, Cout, kh, kw, p_max, stream)
+            err = _bwd_fns().tap_conv_dh(*ptrs, K, B, Lp, Cin, Cout, kh, kw, p_max, runs, stream)
     _raise_on(err, "tap_conv_dh_mma" if mma else "tap_conv_dh",
               f"K={K}, B={B}, Lp={Lp}, Cin={Cin}, Cout={Cout}, {kh}x{kw}")
     launches_dh[f"{kh}x{kw}"] += 1
@@ -823,7 +887,7 @@ def tap_conv_dw_cuda(
     Both sum per-chunk partials in a fixed order (no float atomics), so the
     result is the same from run to run; the wrapper allocates their scratch
     buffer. ``launches_dw`` counts both routes, ``launches_dw_mma`` the
-    tensor-core one.
+    tensor-core one; the first pass counts its own runs (:func:`kernel_runs`).
     """
 
     _check("tap_conv_dw_cuda", h, kh, kw)
@@ -846,12 +910,13 @@ def tap_conv_dw_cuda(
     x, y = _aligned(h), _aligned(ct)
     ptrs = (x.data_ptr(), y.data_ptr(), geom.periods.data_ptr(), geom.cycles.data_ptr(),
             partial.data_ptr(), dw.data_ptr())
+    runs = _run_cell(h.device, "dw_mma" if mma else "dw_f32", kh, kw)
     with torch.cuda.device(h.device):
         stream = torch.cuda.current_stream(h.device).cuda_stream
         if mma:
-            err = lib.tap_conv_dw_mma(*ptrs, K, B, Lp, Cin, Cout, kh, kw, p_max, stream)
+            err = lib.tap_conv_dw_mma(*ptrs, K, B, Lp, Cin, Cout, kh, kw, p_max, runs, stream)
         else:
-            err = lib.tap_conv_dw(*ptrs, K, B, Lp, Cin, Cout, kh, kw, stream)
+            err = lib.tap_conv_dw(*ptrs, K, B, Lp, Cin, Cout, kh, kw, runs, stream)
     _raise_on(err, "tap_conv_dw_mma" if mma else "tap_conv_dw",
               f"K={K}, B={B}, Lp={Lp}, Cin={Cin}, Cout={Cout}, {kh}x{kw}")
     launches_dw[f"{kh}x{kw}"] += 1

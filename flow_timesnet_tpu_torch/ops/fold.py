@@ -75,14 +75,16 @@ def make_geometry(periods: torch.Tensor, L: int, p_cap: int) -> FoldGeometry:
     )
 
 
-@functools.lru_cache(maxsize=64)  # the spec is static: a frozen layer asks for the same few
+@functools.cache  # the spec is static: a frozen layer asks for the same few
 def make_dense_geometry(period: int, L: int, device="cpu") -> FoldGeometry:
     """The exact-extent geometry of one static period (the JAX package's
     ``make_dense_geometry``): ``K = 1``, ``total = L + (-L) % p``, ``cycles =
     total // p`` and ``Lp = total``, so the fold is the whole ``[cycles, p]``
     grid with no padded rows beyond it, and ``p_max = p``. Cached by
     ``(period, L, device)``: its tensors are built once per spec (outside
-    inference mode, so that a served request and a training step share them).
+    inference mode, so that a served request and a training step share them)
+    and kept for the life of the process, as a CUDA graph that reads them
+    needs (at most one entry per period, L and device).
     """
 
     p = max(1, int(period))

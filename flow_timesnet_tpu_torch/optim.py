@@ -6,8 +6,13 @@ add_decayed_weights -> scale(-1)``, times the learning rate at the call
 site. ``torch.optim.AdamW`` computes the same update (decoupled weight decay
 of ``lr * wd * p``, Adam's bias-corrected moments with eps outside the
 square root); the clip runs on the gradients first, as optax's does. The
-learning rate is set on the optimizer before each step, so it changes from
-epoch to epoch without rebuilding anything. The warmup and schedule logic
+learning rate is a 0-dim float32 tensor on the parameters' device that the
+optimizer owns: ``set_lr`` fills it (a fill kernel on the card, no copy and
+no wait) and ``step`` reads it, so a step captured in a CUDA graph replays
+at the rate of the moment. On the card AdamW is ``capturable`` (its step
+counts live on the card too); on the CPU it takes torch's default form.
+Its moments and step counts exist from construction, so that a graph
+captured before the first step holds them. The warmup and schedule logic
 is a copy of the JAX package's pure-Python ``WarmupSpec``,
 ``resolve_warmup`` and ``LRController``.
 """
@@ -21,19 +26,34 @@ from typing import Any, Dict, Iterable, List, Mapping, Optional
 import torch
 
 
-@dataclass
 class Optimizer:
     """AdamW (b1 0.9, b2 0.999, eps 1e-8) behind an optional global-norm clip."""
 
-    adamw: torch.optim.AdamW
-    grad_clip_norm: float
+    def __init__(self, adamw: torch.optim.AdamW, grad_clip_norm: float, lr: torch.Tensor) -> None:
+        self.adamw = adamw
+        self.grad_clip_norm = grad_clip_norm
+        self.lr = lr
+        self._lr_value: Optional[float] = None
 
     @property
     def params(self) -> List[torch.Tensor]:
         return [p for group in self.adamw.param_groups for p in group["params"]]
 
-    def step(self, grads: List[torch.Tensor], lr: float) -> None:
-        """One update from ``grads`` (one per parameter, in order) at ``lr``.
+    def state_tensors(self) -> List[torch.Tensor]:
+        """The moments and step counts, which a step updates in place."""
+
+        return [t for p in self.params for t in self.adamw.state[p].values()]
+
+    def set_lr(self, lr: float) -> None:
+        """Fill the learning-rate tensor with ``lr`` (only when it changes)."""
+
+        if lr != self._lr_value:
+            self.lr.fill_(float(lr))
+            self._lr_value = float(lr)
+
+    def step(self, grads: List[torch.Tensor]) -> None:
+        """One update from ``grads`` (one per parameter, in order) at the
+        rate :meth:`set_lr` last set.
 
         The gradients are clipped in place; no value is read back to the host.
         """
@@ -42,21 +62,30 @@ class Optimizer:
             clip_by_global_norm_(grads, self.grad_clip_norm)
         for p, g in zip(self.params, grads):
             p.grad = g
-        for group in self.adamw.param_groups:
-            group["lr"] = float(lr)
         self.adamw.step()
 
 
 def build_optimizer(
     params: Iterable[torch.Tensor], grad_clip_norm: float, weight_decay: float
 ) -> Optimizer:
-    """The JAX package's ``build_optimizer`` over ``params``."""
+    """The JAX package's ``build_optimizer`` over ``params`` (on one device)."""
 
+    params = list(params)
+    device = params[0].device
+    capturable = device.type == "cuda"
+    lr = torch.zeros((), dtype=torch.float32, device=device)
     adamw = torch.optim.AdamW(
-        list(params), lr=0.0, betas=(0.9, 0.999), eps=1e-8,
-        weight_decay=float(weight_decay or 0.0),
+        params, lr=lr, betas=(0.9, 0.999), eps=1e-8,
+        weight_decay=float(weight_decay or 0.0), capturable=capturable,
+        foreach=capturable,
     )
-    return Optimizer(adamw, float(grad_clip_norm or 0.0))
+    for p in params:  # what AdamW would create lazily at its first step
+        adamw.state[p] = {
+            "step": torch.zeros((), dtype=torch.float32, device=device if capturable else "cpu"),
+            "exp_avg": torch.zeros_like(p, memory_format=torch.preserve_format),
+            "exp_avg_sq": torch.zeros_like(p, memory_format=torch.preserve_format),
+        }
+    return Optimizer(adamw, float(grad_clip_norm or 0.0), lr)
 
 
 def clip_by_global_norm_(grads: List[torch.Tensor], max_norm: float) -> torch.Tensor:

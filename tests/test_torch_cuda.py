@@ -674,3 +674,326 @@ def test_forward_and_train_step_never_wait_for_the_card(cuda, frozen):
     finally:
         torch.cuda.set_sync_debug_mode(0)
     torch.cuda.synchronize()
+
+
+# -- CUDA graphs: the served request, the training step and the resident epoch --
+
+GRAPH_KERNELS = ((3, 3), (5, 5), (7, 7))  # 2 layers x 2 inception blocks x 3 sizes: 12 a pass
+
+
+def _graph_setup(cuda, frozen, dropout, B=16):
+    """A small bf16 model on ``cuda`` (dynamic, or frozen on its own
+    telemetry's spec), its parameters and a padded window batch."""
+
+    import dataclasses
+
+    from flow_timesnet_tpu_torch import convert, engine
+    from flow_timesnet_tpu_torch.models import timesnet
+
+    cfg = timesnet.TimesNetConfig(input_len=28, pred_len=7, d_model=32, d_ff=64, n_layers=2,
+                                  kernel_set=GRAPH_KERNELS, bottleneck_ratio=2.0,
+                                  min_period_threshold=7, dropout=dropout, id_embed_dim=4,
+                                  id_vocab=B, compute_dtype="bfloat16")
+    params = convert.init_params(cfg, torch.Generator().manual_seed(0))
+    params = {k: v + 0.05 * torch.randn(v.shape, generator=torch.Generator().manual_seed(1))
+              for k, v in params.items()}
+    g = torch.Generator(device=cuda).manual_seed(2)
+    batch = {"x": torch.rand(B, 28, 1, device=cuda, generator=g) * 5,
+             "y": torch.poisson(torch.full((B, 7, 1), 3.0, device=cuda), generator=g),
+             "mask": torch.ones(B, 7, 1, device=cuda),
+             "row_valid": torch.ones(B, device=cuda),
+             "ids": torch.arange(B, device=cuda, dtype=torch.int32)[:, None]}
+    batch["row_valid"][-1] = 0.0
+    if frozen:
+        spec = engine.Engine.frozen_spec_from_telemetry(
+            engine.Engine(cfg, params, device=cuda).collect_period_telemetry(None, batch), 2)
+        cfg = dataclasses.replace(cfg, frozen_periods=spec)
+    return cfg, params, batch
+
+
+def _engines(cuda, cfg, params):
+    from flow_timesnet_tpu_torch import engine
+
+    kw = dict(use_loss_masking=True, grad_clip_norm=1.0, weight_decay=1e-6, ema_decay=0.99,
+              num_series=16)
+    graphed, eager = (engine.Engine(cfg, params, device=cuda, **kw) for _ in range(2))
+    eager.cuda_graphs = False  # op by op on the card: the yardstick
+    return graphed, eager
+
+
+def _fold_counts():
+    return {name: dict(c) for name, c in (
+        ("fwd", cuda_fold.launches), ("fwd_mma", cuda_fold.launches_mma),
+        ("dh", cuda_fold.launches_dh), ("dh_mma", cuda_fold.launches_dh_mma),
+        ("dw", cuda_fold.launches_dw), ("dw_mma", cuda_fold.launches_dw_mma))}
+
+
+def _per_size(cfg):
+    """Launches of each kernel and size in one pass: 2 layers x 2 inception
+    blocks on the dynamic path (12 over the three sizes), 2 x U on the
+    frozen one (U: the unique valid periods, summed over the layers)."""
+
+    if cfg.frozen_periods is None:
+        return 4
+    return 2 * sum(len({p for p, _, v in layer if v}) for layer in cfg.frozen_periods)
+
+
+def _card_runs(run, n=1):
+    """The fold-conv kernels the card ran over ``n`` calls of ``run``, as
+    the kernels counted themselves (``cuda_fold.kernel_runs``; a replay runs
+    no wrapper, so only these counts see it): the bf16 routes by kind and
+    size, and ``other``, the runs of the float32 routes."""
+
+    cuda_fold.clear_kernel_runs()
+    for _ in range(n):
+        run()
+    runs = cuda_fold.kernel_runs()
+    out = {kind: runs[f"{kind}_mma"] for kind in ("fwd", "dh", "dw")}
+    out["other"] = sum(sum(runs[f"{kind}_f32"].values()) for kind in ("fwd", "dh", "dw"))
+    return out
+
+
+def _each_size(n):
+    return {f"{kh}x{kw}": n for kh, kw in GRAPH_KERNELS}
+
+
+def _clear_fold_counts():
+    for c in (cuda_fold.launches, cuda_fold.launches_mma, cuda_fold.launches_dh,
+              cuda_fold.launches_dh_mma, cuda_fold.launches_dw, cuda_fold.launches_dw_mma):
+        c.clear()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("frozen", [False, True], ids=["dynamic", "frozen"])
+def test_replayed_request_equals_eager_bitwise(cuda, frozen):
+    """The served forward replayed from its graph gives the eager forward's
+    bits (the same kernels on the same inputs), for two requests on new
+    inputs. The wrappers count the warm-up's and the capture's launches and
+    nothing at a replay; the kernels' own counts show the card running the
+    fold-conv forward once per branch and replay (12 on the dynamic path),
+    on the tensor-core route."""
+
+    from flow_timesnet_tpu_torch import graphs
+
+    cfg, params, batch = _graph_setup(cuda, frozen, 0.0)
+    graphed, eager = _engines(cuda, cfg, params)
+    per = _per_size(cfg)
+    for seed, counted in ((0, graphs.WARMUP_CALLS + 1), (1, 0)):  # capture, then a replay
+        x = torch.rand(batch["x"].shape, device=cuda,
+                       generator=torch.Generator(device=cuda).manual_seed(seed)) * 5
+        want = eager.forward(x, ids=batch["ids"])
+        _clear_fold_counts()
+        got = graphed.forward(x, ids=batch["ids"])
+        counts = _fold_counts()
+        for a, b in zip(got, want):
+            assert torch.equal(a, b)
+        assert counts["fwd"] == counts["fwd_mma"] == (
+            {f"{kh}x{kw}": counted * per for kh, kw in GRAPH_KERNELS} if counted else {})
+        assert not counts["dh"] and not counts["dw"]
+    ran = _card_runs(lambda: graphed.forward(x, ids=batch["ids"]), n=2)
+    assert ran == {"fwd": _each_size(2 * per), "dh": {}, "dw": {}, "other": 0}
+    assert len(graphed._graphs) == 1  # one signature, one graph
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dropout", [0.0, 0.1], ids=["no_dropout", "dropout"])
+@pytest.mark.parametrize("frozen", [False, True], ids=["dynamic", "frozen"])
+def test_ten_replayed_steps_equal_eager_bitwise(cuda, frozen, dropout):
+    """Ten training steps replayed from one graph against ten eager steps
+    from the same state and generator seed: the same losses, mask counts,
+    parameters, Adam moments and EMA, bit for bit (the dropout masks too:
+    the graph draws from the registered generator as the eager step does).
+    The kernels' own counts of the last step show the card running the
+    forward, dh and dW twice per kernel size and layer (12 of each on the
+    dynamic path), replayed as eager."""
+
+    cfg, params, batch = _graph_setup(cuda, frozen, dropout)
+    graphed, eager = _engines(cuda, cfg, params)
+    out = []
+    for eng in (graphed, eager):
+        state, gen = eng.init_state(), torch.Generator(device=cuda).manual_seed(7)
+        losses, masks, last = [], [], {}
+        for i in range(10):
+            lr = 1e-3 if i < 5 else 5e-4  # the rate of a replay is the tensor's
+
+            def step():
+                last["out"] = eng.train_step(state, lr, gen, batch)
+
+            ran = _card_runs(step) if i == 9 else step()
+            state, loss, stats = last["out"]
+            losses.append(loss)
+            masks.append(stats["mask_true"])
+        out.append((torch.stack(losses), torch.stack(masks), state, ran))
+    (lg, mg, sg, ran), (le, me, se, ran_eager) = out
+    assert torch.equal(lg, le) and torch.equal(mg, me)
+    for a, b in ((sg.params, se.params), (sg.ema, se.ema)):
+        assert all(torch.equal(a[k], b[k]) for k in b)
+    assert all(torch.equal(a, b) for a, b in zip(sg.tensors(), se.tensors()))
+    each = _each_size(_per_size(cfg))
+    assert ran == ran_eager == {"fwd": each, "dh": each, "dw": each, "other": 0}
+
+
+def _staged_plan(cuda, B=16, S=6, seed=0):
+    from flow_timesnet_tpu_torch.data import device_windows as dw
+
+    rng = np.random.default_rng(seed)
+    t = np.arange(100)[:, None]
+    values = np.clip(4 + 2 * np.sin(2 * np.pi * t / 7 + rng.uniform(0, 6, (1, B)))
+                     + 0.3 * rng.standard_normal((100, B)), 0, None).astype(np.float32)
+    folds = [values[:60], values[60:]]  # 26 and 6 windows a series
+    staged = dw.stage_windows(folds, [np.ones_like(f) for f in folds], 28, 7, 1, "direct",
+                              device=cuda)
+    idx, rv = dw.epoch_index_plan(staged.total, B, shuffle=True, drop_last=True,
+                                  rng=np.random.default_rng(seed))
+    return staged, idx[:S], rv[:S]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("frozen", [False, True], ids=["dynamic", "frozen"])
+def test_resident_epoch_replays_equal_eager_steps_and_never_wait(cuda, frozen):
+    """A resident epoch of 6 replayed steps against 6 eager steps on the
+    gathered batches (dropout on, one generator seed): bit for bit; then a
+    second epoch and a resident evaluation replay under
+    ``set_sync_debug_mode("error")`` with their plans on the card, which
+    runs each kernel 12 times a step on the card and no wrapper."""
+
+    cfg, params, _ = _graph_setup(cuda, frozen, 0.1)
+    staged, idx, rv = _staged_plan(cuda)
+    graphed, eager = _engines(cuda, cfg, params)
+    state, gen = graphed.init_state(), torch.Generator(device=cuda).manual_seed(3)
+    state, losses, mask_true = graphed.train_epoch_resident(state, 1e-3, gen, staged, idx, rv)
+    estate, egen = eager.init_state(), torch.Generator(device=cuda).manual_seed(3)
+    want = []
+    for i, r in zip(idx, rv):
+        estate, loss, _ = eager.train_step(estate, 1e-3, egen, eager.gather_staged_batch(staged, i, r))
+        want.append(loss)
+    assert torch.equal(losses, torch.stack(want))
+    assert all(torch.equal(state.params[k], estate.params[k]) for k in state.params)
+
+    idx_d, rv_d = torch.from_numpy(idx).to(cuda), torch.from_numpy(rv).to(cuda)
+    graphed.evaluate_resident(state.ema, staged, idx_d, rv_d)  # captures its graph
+    torch.cuda.synchronize()
+    _clear_fold_counts()
+    cuda_fold.clear_kernel_runs()
+    torch.cuda.set_sync_debug_mode("error")
+    try:  # the epoch's losses come back as device tensors: nothing waits
+        state, losses2, _ = graphed.train_epoch_resident(state, 1e-3, gen, staged, idx_d, rv_d)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert bool(torch.isfinite(losses2).all())
+    assert not any(_fold_counts().values())  # replays run no wrapper
+    runs = cuda_fold.kernel_runs()
+    each = _each_size(_per_size(cfg) * len(idx))  # every replayed step runs each kernel
+    assert {k: runs[f"{k}_mma"] for k in ("fwd", "dh", "dw")} == {"fwd": each, "dh": each,
+                                                                   "dw": each}
+    assert not any(runs[f"{k}_f32"] for k in ("fwd", "dh", "dw"))
+    # the evaluation reads its sums once, after its replays
+    res = graphed.evaluate_resident(state.ema, staged, idx_d, rv_d)
+    host = graphed.evaluate(state.ema, [graphed.gather_staged_batch(staged, i, r)
+                                        for i, r in zip(idx, rv)])
+    assert res["nll"] == host["nll"] and res["smape"] == host["smape"]
+
+
+@pytest.mark.cuda
+def test_graphs_are_captured_per_state_not_per_engine_swap(cuda, monkeypatch):
+    """A dynamic and a frozen engine on one ``TrainState`` keep their
+    graphs across swaps (the trainer's ``maybe_freeze``); a new state is
+    captured anew."""
+
+    import dataclasses
+
+    from flow_timesnet_tpu_torch import graphs
+
+    captures = []
+    real = graphs.capture
+    monkeypatch.setattr(graphs, "capture", lambda *a, **k: captures.append(1) or real(*a, **k))
+    cfg, params, batch = _graph_setup(cuda, True, 0.1)
+    dyn, _ = _engines(cuda, dataclasses.replace(cfg, frozen_periods=None), params)
+    fro, _ = _engines(cuda, cfg, params)
+    state, gen = dyn.init_state(), torch.Generator(device=cuda).manual_seed(0)
+    for eng in (dyn, fro, dyn, fro, dyn):
+        state, loss, _ = eng.train_step(state, 1e-3, gen, batch)
+    assert len(captures) == 2  # one graph each engine
+    assert dict(fro.model.named_parameters())["mu_head.kernel"] is state.params["mu_head.kernel"]
+    new = dyn.init_state()
+    dyn.train_step(new, 1e-3, gen, batch)
+    assert len(captures) == 3
+    assert bool(torch.isfinite(loss))
+
+
+@pytest.mark.cuda
+def test_capturable_adamw_on_the_card_matches_the_cpu(cuda):
+    """The card's AdamW is ``capturable`` (its step counts and learning rate
+    on the card, another order of operations); five clipped steps with
+    weight decay equal the CPU's (torch's default form, which
+    ``tests/test_torch_optim.py`` holds to optax) within rtol/atol 1e-6,
+    that test's tolerance."""
+
+    from flow_timesnet_tpu_torch import optim
+
+    rng = np.random.default_rng(0)
+    shapes = ((4, 3), (7,), (2, 5, 3))
+    start = [rng.standard_normal(s).astype(np.float32) for s in shapes]
+    grads = [[rng.standard_normal(s).astype(np.float32) for s in shapes] for _ in range(5)]
+    out = {}
+    for dev in ("cpu", cuda):
+        params = [torch.from_numpy(p.copy()).to(dev) for p in start]
+        opt = optim.build_optimizer(params, 1.0, 1e-2)
+        assert opt.adamw.defaults["capturable"] == (dev != "cpu")
+        for i, g in enumerate(grads):
+            opt.set_lr(1e-2 if i < 3 else 3e-3)
+            opt.step([torch.from_numpy(x.copy()).to(dev) for x in g])
+        out[str(dev)] = [p.cpu() for p in params]
+    for a, b in zip(out[str(cuda)], out["cpu"]):
+        torch.testing.assert_close(a, b, rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.cuda
+def test_a_failed_capture_raises_and_runs_nothing_eagerly(cuda):
+    """A forward that reads a value back to the host cannot be captured: the
+    request raises, no graph is kept and the counters count only the
+    warm-up's launches; the card stays usable."""
+
+    cfg, params, batch = _graph_setup(cuda, False, 0.0)
+    graphed, _ = _engines(cuda, cfg, params)
+    forward = graphed.model.forward
+
+    def reads_back(x, *args, **kwargs):
+        float(x.sum())  # a copy to the host: fine eagerly, refused in a capture
+        return forward(x, *args, **kwargs)
+
+    graphed.model.forward = reads_back
+    _clear_fold_counts()
+    with pytest.raises(RuntimeError):
+        graphed.forward(batch["x"])
+    assert not graphed._graphs
+    from flow_timesnet_tpu_torch import graphs
+    assert _fold_counts()["fwd"] == {f"{kh}x{kw}": _per_size(cfg) * graphs.WARMUP_CALLS
+                                     for kh, kw in GRAPH_KERNELS}
+    torch.cuda.synchronize()
+    assert float(torch.ones(3, device=cuda).sum()) == 3.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("compute_dtype", ["bfloat16", "float32"])
+def test_kernels_count_their_runs_as_the_wrappers_count_launches(cuda, compute_dtype):
+    """Eagerly every launch runs, so the kernels' own counts of a training
+    step (``cuda_fold.kernel_runs``) equal the wrappers' counters, kernel by
+    kernel, route by route and size by size."""
+
+    import dataclasses
+
+    cfg, params, batch = _graph_setup(cuda, False, 0.0)
+    _, eng = _engines(cuda, dataclasses.replace(cfg, compute_dtype=compute_dtype), params)
+    state = eng.init_state()
+    eng.train_step(state, 1e-3, None, batch)  # makes the run cells before they are cleared
+    _clear_fold_counts()
+    cuda_fold.clear_kernel_runs()
+    eng.train_step(state, 1e-3, None, batch)
+    counts, runs = _fold_counts(), cuda_fold.kernel_runs()
+    for kind in ("fwd", "dh", "dw"):
+        f32 = {k: n - counts[f"{kind}_mma"].get(k, 0) for k, n in counts[kind].items()}
+        assert runs[f"{kind}_mma"] == counts[f"{kind}_mma"]
+        assert runs[f"{kind}_f32"] == {k: n for k, n in f32.items() if n}
+    mma = compute_dtype == "bfloat16"
+    assert bool(runs["fwd_mma"]) == mma and bool(runs["fwd_f32"]) != mma

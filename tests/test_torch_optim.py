@@ -35,8 +35,9 @@ def _run_both(clip, wd, steps=5, lr=1e-2, grad_scale=1.0):
 
     tp = {k: torch.from_numpy(v.copy()) for k, v in params.items()}
     opt = optim.build_optimizer(tp.values(), clip, wd)
+    opt.set_lr(lr)
     for g in grads:
-        opt.step([torch.from_numpy(g[k].copy()) for k in tp], lr)
+        opt.step([torch.from_numpy(g[k].copy()) for k in tp])
     return {k: np.asarray(v) for k, v in jp.items()}, {k: v.numpy() for k, v in tp.items()}
 
 
