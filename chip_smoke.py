@@ -23,7 +23,15 @@ Phases, each of which fails the run (non-zero exit, no result line):
    bf16 and float32, against its plain version (1e-4; dW 1e-4 of its
    largest value), the same bits twice, each plan equal to its mirror, and
    in float32 against cuDNN's conv2d forward and backward over the grid
-   within 1e-3 (each is timed in phase 8);
+   within 1e-3 (each is timed in phase 8). Then the long-context recipe's shapes
+   (``configs/long_context.yaml``: L=512, 3x3 and 5x5, B=64, 32 channels):
+   every route of the three kernels on the dynamic fold (K=4 at periods
+   511, 168, 24 and 7, Lp 1023, p_cap 511) and the exact extents of p=25
+   and p=171 (Lp 525 and 513), each plan equal to its mirror (the bf16
+   dW's in 64-row items with one band of h each), each kernel equal to its
+   plain version (1e-4; dW rtol 1e-4 and 1e-4 of its largest value) with
+   the same bits twice, then timed over 20 calls beside its bound and cuDNN
+   over the exact grids;
 4. serve: a ``Forecaster`` at the full width of the flagship model
    (``configs/demand_benchmark.yaml``: d_model 128, d_ff 512, two layers,
    2,536,356 parameters, bf16 conv islands) with seeded random weights
@@ -117,7 +125,28 @@ Phases, each of which fails the run (non-zero exit, no result line):
    the same state (1e-5 relative; its seconds beside them),
    ``evaluate_resident`` against ``evaluate`` on the 8 held-out batches
    (1e-5 relative), peak device memory, and a 20-step chunk of each path
-   under the profiler.
+   under the profiler;
+12. serve-long: the long-context recipe at full width (d_model 128, d_ff
+   256, K=4, ``use_checkpoint``, bf16, seeded random weights) serves one
+   request of 48 series x 512 hours with 24 ahead on the live selector,
+   made with numpy from a seed as ``tools/make_long_context_benchmark.py``
+   makes its data: 50 eager and 50 replayed requests (p50, the forward
+   launched 2 x 2 times a size each, replays equal to eager), 20 of each
+   under the profiler, and a float32 request card vs CPU within 1e-4;
+13. train-long: steps at B=64 and the recipe's rate, remat on: 3 + 20
+   eager then replayed steps on the dynamic path, then as many on the
+   frozen spec of a training batch's telemetry continuing the state
+   (replayed = eager, the forward launched twice a pass, the recompute's
+   included); peak device memory and the eager step p50 with
+   ``use_checkpoint`` on and off; 30 steps on one batch lower its loss; a
+   float32 step at B=16 card vs CPU on both paths (loss 1e-5 relative,
+   gradients 1e-4 of the largest); 10 replayed steps of each path under
+   the profiler;
+14. train-long-resident: the training windows (1,328 hours a series)
+   staged on the card and two resident epochs of 594 steps (a plan longer
+   than the 512-row buffer), the first with its capture, its first 20
+   losses equal to the host pipeline's eager steps from the same state, the
+   second steady with no synchronising call.
 
 Launches are counted twice. The wrappers count where they launch a kernel
 (``cuda_fold.launches*``), and each kernel counts its own runs on the card
@@ -135,8 +164,10 @@ rows from the float32 frozen request and parity step) and its runs on the
 card in the replayed paths of phases 9-11 (``launches_serve_graph`` over
 200 replayed requests, ``launches_train_graph`` over 100 replayed steps,
 ``launches_resident`` over a steady resident epoch of 215 steps, each also
-``_frozen``; bf16, so the float32 rows count 0 there). ``[clock]`` lines
-give the time since the start at the end of each phase.
+``_frozen``; bf16, so the float32 rows count 0 there), and for 3x3 and 5x5
+``long_context``: the long-context times of phase 3 by geometry and the launches of
+phases 12-14 (the float32 rows from the long float32 parity steps).
+``[clock]`` lines give the time since the start at the end of each phase.
 
 The last lines are the ``kernels`` JSON line, the card line of ``nvidia-smi``
 and ``{"ok": true, "device": {...}}``.
@@ -191,6 +222,21 @@ WARMUP_STEPS, TIMED_STEPS, OVERFIT_STEPS, PROFILED_STEPS = 5, 100, 30, 20
 GRAPH_REQUESTS, GRAPH_STEPS = 200, 100  # replayed from CUDA graphs, each path
 RESIDENT_CHUNK = 20  # resident steps under the profiler, each path
 DEVICE = "cuda"
+# the long-context recipe (configs/long_context.yaml): hourly, 48 series x 2,400 hours
+LONG_L, LONG_H, LONG_SERIES, LONG_HOURS, LONG_HOLDOUT, LONG_B = 512, 24, 48, 2400, 1072, 64
+LONG_SIZES = ((3, 3), (5, 5))
+LONG_PERIODS = (511, 168, 24, 7)  # the dynamic kernel shape: K=4, Lp 1023, p_cap 511
+LONG_DENSE = (25, 171)  # the daily and weekly periods' exact extents: Lp 525 and 513
+LONG_TRAIN = dict(lr=1e-4, epochs=50, warmup_steps=500, eta_min=1e-5)
+LONG_ENGINE = dict(use_loss_masking=True, grad_clip_norm=1.0, weight_decay=1e-6,
+                   num_series=LONG_SERIES)
+LONG_TF = {"enabled": True, "features": ["day_of_week", "hour"], "encoding": "cyclical",
+           "normalize": True}
+LONG_REQUESTS = 50  # timed long requests, eager and replayed
+LONG_WARMUP, LONG_STEPS, LONG_MEM_STEPS = 3, 20, 10  # long training steps, each path
+LONG_HOST_STEPS = 20  # resident losses held against the host pipeline's eager steps
+LONG_PARITY_B = 16  # rows of the float32 card-vs-CPU long step
+LONG_ITERS = 20  # calls a long-context kernel timing takes
 
 
 def eager(obj):
@@ -323,19 +369,20 @@ def call_ms(torch, fn, iters: int = 100) -> float:
     return start.elapsed_time(end) / iters
 
 
-def measure(torch, kernel, plain, lib, bnd) -> dict:
+def measure(torch, kernel, plain, lib, bnd, iters: int = 100) -> dict:
     """One kernel's numbers on one set of inputs, under the keys of the
     ``kernels`` line: device time of the kernel, of its plain version and of
     cuDNN (``lib``); the bound ``bnd`` = (ms, bound_by, ms counting all
-    taps); and the time of a call back to back, of the kernel and of cuDNN.
-    ``plain`` None leaves the plain version untimed (``plain_ms`` None)."""
+    taps); and the time of a call back to back, of the kernel and of cuDNN,
+    each over ``iters`` calls. ``plain`` None leaves the plain version
+    untimed (``plain_ms`` None)."""
 
     b_ms, b_by, b_all = bnd
-    return {"ms": time_ms(torch, kernel),
+    return {"ms": time_ms(torch, kernel, iters),
             "plain_ms": None if plain is None else time_ms(torch, plain, iters=20),
-            "library_ms": time_ms(torch, lib), "bound_ms": b_ms, "bound_by": b_by,
-            "bound_ms_all_taps": b_all, "call_ms": call_ms(torch, kernel),
-            "library_call_ms": call_ms(torch, lib)}
+            "library_ms": time_ms(torch, lib, iters), "bound_ms": b_ms, "bound_by": b_by,
+            "bound_ms_all_taps": b_all, "call_ms": call_ms(torch, kernel, iters),
+            "library_call_ms": call_ms(torch, lib, iters)}
 
 
 def mean_of(np, rows) -> dict:
@@ -353,14 +400,14 @@ def described(t: dict) -> str:
             f"us ({t['bound_by']}; {t['bound_ms_all_taps'] * 1e3:.3f} us counting all taps)")
 
 
-def valid_taps(periods, kh: int, kw: int, lp: int = LP) -> int:
-    """(output row, tap) pairs inside the fold grid, over the K candidates
-    and ``lp`` rows each (``LP`` on the dynamic path, ``total`` at the exact
-    extent)."""
+def valid_taps(periods, kh: int, kw: int, lp: int = LP, seq_len: int = L) -> int:
+    """(output row, tap) pairs inside the fold grid of a ``seq_len``-step
+    sequence, over the K candidates and ``lp`` rows each (``Lp`` on the
+    dynamic path, ``total`` at the exact extent)."""
 
     total = 0
     for p in periods:
-        cycles = -(-L // p)
+        cycles = -(-seq_len // p)
         for t in range(lp):
             row, col = divmod(t, p)
             total += sum(
@@ -370,15 +417,15 @@ def valid_taps(periods, kh: int, kw: int, lp: int = LP) -> int:
 
 
 def bound(periods, kh: int, kw: int, dtype: str, batch: int = B, kind: str = "fwd",
-          lp: int = LP):
+          lp: int = LP, seq_len: int = L):
     """Least time for one call on an H100 SXM: each input read once and the
     output written once over the memory rate, against the multiply-adds of
     the taps that these periods leave inside the grid over the peak rate of
     the input type. ``kind``: the forward (h, W, bias in; float32 out), the
     dh adjoint (ct, W in; float32 dh out) or the weight gradient (h, ct in;
     float32 dW out); all three do one multiply-add per valid (row, tap)
-    pair and channel pair. K is ``len(periods)``, each over ``lp`` rows.
-    Returns (ms, bound_by, ms counting all kh*kw taps)."""
+    pair and channel pair. K is ``len(periods)``, each over ``lp`` rows of
+    a ``seq_len``-step fold. Returns (ms, bound_by, ms counting all kh*kw taps)."""
 
     k = len(periods)
     elt = 2 if dtype == "bfloat16" else 4
@@ -388,15 +435,16 @@ def bound(periods, kh: int, kw: int, dtype: str, batch: int = B, kind: str = "fw
         "dh": act * elt + w * elt + 2 * k * 4 + act * 4,
         "dw": 2 * act * elt + 2 * k * 4 + w * 4,
     }[kind]
-    ops = 2 * batch * C * C * valid_taps(periods, kh, kw, lp)
+    ops = 2 * batch * C * C * valid_taps(periods, kh, kw, lp, seq_len)
     ops_all = 2 * k * batch * lp * kh * kw * C * C
     t_mem, t_ops = nbytes / HBM_BYTES_PER_S, ops / PEAK_OPS_PER_S[dtype]
     t_all = max(t_mem, ops_all / PEAK_OPS_PER_S[dtype])
     return 1e3 * max(t_mem, t_ops), ("bytes" if t_mem >= t_ops else "operations"), 1e3 * t_all
 
 
-def library_conv(torch, F, h, periods, weight, bias, kh, kw):
-    """cuDNN over each candidate's exact [cycles, p] grid: the yardstick.
+def library_conv(torch, F, h, periods, weight, bias, kh, kw, seq_len: int = L):
+    """cuDNN over each candidate's exact [cycles, p] grid of a
+    ``seq_len``-step fold: the yardstick.
 
     Returns the K convolution calls (grids built beforehand) and a function
     that scatters their output back to the [K, B, Lp, Cout] fold layout."""
@@ -405,7 +453,7 @@ def library_conv(torch, F, h, periods, weight, bias, kh, kw):
     batch = h.shape[1]
     w = weight.permute(3, 2, 0, 1).contiguous()  # HWIO -> OIHW
     for k, p in enumerate(periods):
-        cycles = -(-L // p)
+        cycles = -(-seq_len // p)
         grid = h[k, :, : cycles * p].reshape(batch, cycles, p, C).permute(0, 3, 1, 2).contiguous()
         grids.append((grid, cycles, p))
         calls.append(lambda g=grid: F.conv2d(g, w, bias, padding=(kh // 2, kw // 2)))
@@ -420,11 +468,11 @@ def library_conv(torch, F, h, periods, weight, bias, kh, kw):
     return run, unfold
 
 
-def library_conv_bwd(torch, h, ct, periods, weight, kh, kw, batch):
+def library_conv_bwd(torch, h, ct, periods, weight, kh, kw, batch, seq_len: int = L):
     """cuDNN's convolution backward over each candidate's exact [cycles, p]
-    grid: the yardstick of the dh and dW kernels. Returns the K
-    ``conv2d_input`` calls, the K ``conv2d_weight`` calls (grids built
-    beforehand) and the grids' extents."""
+    grid of a ``seq_len``-step fold: the yardstick of the dh and dW kernels.
+    Returns the K ``conv2d_input`` calls, the K ``conv2d_weight`` calls
+    (grids built beforehand) and the grids' extents."""
 
     from torch.nn import grad as nn_grad
 
@@ -432,7 +480,7 @@ def library_conv_bwd(torch, h, ct, periods, weight, kh, kw, batch):
     pad = (kh // 2, kw // 2)
     grids = []
     for k, p in enumerate(periods):
-        cycles = -(-L // p)
+        cycles = -(-seq_len // p)
 
         def to_grid(x, k=k, p=p, cycles=cycles):
             return x[k, :, : cycles * p].reshape(batch, cycles, p, C).permute(0, 3, 1, 2).contiguous()
@@ -571,17 +619,18 @@ def check_forward(torch, fold, cuda_fold, h, geom, weight, bias, kh, kw, label: 
 
 
 def time_forward(torch, F, fold, cuda_fold, h, geom, periods, weight, bias, kh, kw,
-                 plain=True):
+                 plain=True, iters: int = 100):
     """:func:`measure` of the forward kernel on these inputs; the route is
     that of their dtype; ``plain`` False leaves the plain version untimed."""
 
-    run, _ = library_conv(torch, F, h, periods, weight.to(h.dtype), bias.to(h.dtype), kh, kw)
+    run, _ = library_conv(torch, F, h, periods, weight.to(h.dtype), bias.to(h.dtype), kh, kw,
+                          geom.L)
     dtype = "bfloat16" if h.dtype == torch.bfloat16 else "float32"
     return measure(
         torch,
         lambda: cuda_fold.tap_conv_cuda(h, geom, weight, bias, kh, kw),
         (lambda: fold.tap_conv(h, geom, weight, bias, kh, kw)) if plain else None, run,
-        bound(periods, kh, kw, dtype, h.shape[1], lp=h.shape[2]))
+        bound(periods, kh, kw, dtype, h.shape[1], lp=h.shape[2], seq_len=geom.L), iters)
 
 
 def before_line(np, kind: str, key: str, rows, periods, batch: int) -> str:
@@ -597,13 +646,13 @@ def before_line(np, kind: str, key: str, rows, periods, batch: int) -> str:
 
 
 def time_backward(torch, fold, cuda_fold, h, ct, geom, periods, weight, kh, kw,
-                  kinds=("dh", "dw"), plain=True):
+                  kinds=("dh", "dw"), plain=True, iters: int = 100):
     """:func:`measure` of the dh and dW kernels (``kinds``) on these inputs,
     by kind; each takes the route of their dtype; ``plain`` False leaves the
     plain versions untimed."""
 
     run_dh, run_dw, _ = library_conv_bwd(torch, h, ct, periods, weight.to(h.dtype), kh, kw,
-                                         h.shape[1])
+                                         h.shape[1], geom.L)
     dtype = "bfloat16" if h.dtype == torch.bfloat16 else "float32"
     out = {}
     for kind, kernel, plain_fn, lib in (
@@ -615,7 +664,8 @@ def time_backward(torch, fold, cuda_fold, h, ct, geom, periods, weight, kh, kw,
         if kind not in kinds:
             continue
         out[kind] = measure(torch, kernel, plain_fn if plain else None, lib,
-                            bound(periods, kh, kw, dtype, h.shape[1], kind, h.shape[2]))
+                            bound(periods, kh, kw, dtype, h.shape[1], kind, h.shape[2], geom.L),
+                            iters)
     return out
 
 
@@ -888,17 +938,24 @@ def float32_steps(torch, np, engine_mod, cfg, params, batch, lr, dev):
 
 
 def train_parity(torch, np, engine_mod, losses_mod, cuda_fold, cfg, params, batch_cpu,
-                 per: int = LAUNCHES_PER_PASS // len(KERNEL_SIZES), what: str = "float32 step"):
+                 per: int = LAUNCHES_PER_PASS // len(KERNEL_SIZES), what: str = "float32 step",
+                 engine_kw=None, nll: bool = True):
     """Phase 7, parity: one float32 step with dropout 0, card against CPU
     (on ``cfg``'s path: dynamic, or frozen where it carries a spec). Returns
     the card step's launches of each kernel by size: the CUDA-core routes,
-    ``per`` each (12 in all on the dynamic path), and none on a tensor-core
-    route. On the dynamic path the NB-NLL alone is held card against CPU too."""
+    ``per`` each (12 in all on the dynamic path; the forward twice as many
+    where ``cfg.use_checkpoint`` recomputes it in the backward), and none on
+    a tensor-core route. On the dynamic path (and ``nll``) the NB-NLL alone
+    is held card against CPU too."""
 
     cfg32 = dataclasses.replace(cfg, compute_dtype="float32", dropout=0.0)
+    sizes = tuple(tuple(k) for k in cfg.kernel_set)
+    want = {name: 0 if name.endswith("_mma") else
+            per * (2 if cfg.use_checkpoint and name == "tap_conv_fwd" else 1)
+            for name in path_counters(cuda_fold)}
     out = {}
     for device in ("cuda", "cpu"):
-        eng = engine_mod.Engine(cfg32, params, device=device, **ENGINE)
+        eng = engine_mod.Engine(cfg32, params, device=device, **(engine_kw or ENGINE))
         eng.model.train()
         batch = {k: None if v is None else v.to(device) for k, v in batch_cpu.items()}
         counters = path_counters(cuda_fold)
@@ -908,9 +965,9 @@ def train_parity(torch, np, engine_mod, losses_mod, cuda_fold, cfg, params, batc
         loss.backward()
         if device == "cuda":
             f32 = {name: dict(c) for name, c in counters.items()}  # ... to here
-            check(all(f32[name].get(f"{kh}x{kw}", 0) == (0 if name.endswith("_mma") else per)
-                      for name in f32 for kh, kw in KERNEL_SIZES),
-                  f"{what} launches {f32}: {per} of each CUDA-core kernel and size, no "
+            check(all(f32[name].get(f"{kh}x{kw}", 0) == want[name]
+                      for name in f32 for kh, kw in sizes),
+                  f"{what} launches {f32}: {want} of each CUDA-core kernel and size, no "
                   f"tensor-core one")
         out[device] = (float(loss.detach()), {k: p.grad.cpu() for k, p in
                                               eng.model.named_parameters()})
@@ -923,7 +980,7 @@ def train_parity(torch, np, engine_mod, losses_mod, cuda_fold, cfg, params, batc
           f"{rel:.3e}); max gradient difference {err:.3e} ({worst}) of max |g| {scale:.3e}")
     check(rel <= 1e-5, f"{what} loss card vs CPU {rel:.3e}")
     check(err <= 1e-4 * scale, f"{what} gradients card vs CPU {err:.3e}")
-    if cfg.frozen_periods is not None:
+    if cfg.frozen_periods is not None or not nll:
         return f32
 
     # the NB-NLL alone (torch.lgamma on the card against the CPU)
@@ -962,17 +1019,20 @@ def clear_counts(cuda_fold) -> None:
     cuda_fold.clear_kernel_runs()
 
 
-def check_launches(got: dict, kinds, per_size: int, mma: bool, what: str) -> None:
-    """Each kernel of ``kinds`` launched ``per_size`` times at every size, all
-    on the route its dtype picks: the tensor-core one (``mma``) or none on it."""
+def check_launches(got: dict, kinds, per_size, mma: bool, what: str,
+                   sizes=KERNEL_SIZES) -> None:
+    """Each kernel of ``kinds`` launched ``per_size`` times (an int, or a
+    count by kind) at every kernel size of ``sizes``, all on the route its
+    dtype picks: the tensor-core one (``mma``) or none on it."""
 
     for kind in kinds:
-        for kh, kw in KERNEL_SIZES:
+        want = per_size[kind] if isinstance(per_size, dict) else per_size
+        for kh, kw in sizes:
             size = f"{kh}x{kw}"
             n, n_mma = got[kind].get(size, 0), got[f"{kind}_mma"].get(size, 0)
-            check(n == per_size and n_mma == (per_size if mma else 0),
+            check(n == want and n_mma == (want if mma else 0),
                   f"{what}: {kind} {size} launched {n} times, {n_mma} on the tensor-core "
-                  f"route; {per_size} expected, {'all' if mma else 'none'} on it")
+                  f"route; {want} expected, {'all' if mma else 'none'} on it")
 
 
 def run_counts(cuda_fold) -> dict:
@@ -991,7 +1051,7 @@ def run_counts(cuda_fold) -> dict:
     return out
 
 
-def check_first_call(cuda_fold, kinds, per_size: int, what: str) -> None:
+def check_first_call(cuda_fold, kinds, per_size, what: str, sizes=KERNEL_SIZES) -> None:
     """A graphed path's first call, on the card: the wrappers launched
     ``kinds`` ``per_size`` times (a pass) at every size, on the tensor-core
     route, in each warm-up call and in the capture, and the card ran them in
@@ -1000,10 +1060,11 @@ def check_first_call(cuda_fold, kinds, per_size: int, what: str) -> None:
 
     from flow_timesnet_tpu_torch import graphs
 
-    n = (graphs.WARMUP_CALLS + 1) * per_size
+    n = {k: (graphs.WARMUP_CALLS + 1) * (per_size[k] if isinstance(per_size, dict) else per_size)
+         for k in kinds}
     others = [k for k in ("tap_conv_fwd", "tap_conv_dh", "tap_conv_dw") if k not in kinds]
     for got, by in ((launch_counts(cuda_fold), "wrappers"), (run_counts(cuda_fold), "card")):
-        check_launches(got, kinds, n, True, f"{what} (warm-up, capture, replay; {by})")
+        check_launches(got, kinds, n, True, f"{what} (warm-up, capture, replay; {by})", sizes)
         check(not any(got[k] for k in others), f"{what} ({by}): {got}")
 
 
@@ -1452,6 +1513,532 @@ def train_resident(torch, np, windows, dw, engine_mod, cuda_fold, cfg, params, l
     return out
 
 
+# -- the long-context recipe (configs/long_context.yaml) ---------------------------
+
+def long_config(timesnet):
+    """The ``model:`` block of configs/long_context.yaml, with ``use_checkpoint``
+    from its ``train:`` block and the data dimensions of its hourly benchmark
+    (48 series, the cyclical ``[day_of_week, hour]`` features, no static
+    features)."""
+
+    return timesnet.TimesNetConfig(
+        input_len=LONG_L, pred_len=LONG_H, d_model=128, d_ff=256, n_layers=2, k_periods=4,
+        kernel_set=LONG_SIZES, dropout=0.1, activation="gelu", mode="direct",
+        bottleneck_ratio=4.0, min_period_threshold=4, id_embed_dim=32, static_proj_dim=32,
+        use_zero_mean_context=True, context_rank=8, context_scale=0.05, period_binning=2.0,
+        period_max_unique="0:4,default:2", compute_dtype="bfloat16", time_features=4,
+        id_vocab=LONG_SERIES, use_checkpoint=True,
+    )
+
+
+def long_data(np):
+    """The hourly benchmark of ``tools/make_long_context_benchmark.py`` in
+    numpy (that script needs pandas): 48 series x 2,400 hours of
+    negative-binomial counts with a daily profile, a weekend effect, a slow
+    drift and 6-36 hour bursts, 1 % of the hours missing (0, masked), and
+    per-series dispersion floors. Returns (stamps, counts [T, N], observed
+    [T, N], floors [N])."""
+
+    rng = np.random.default_rng(5)
+    n = LONG_SERIES
+    stamps = np.datetime64("2024-01-01T00", "h") + np.arange(LONG_HOURS)
+    days = stamps.astype("datetime64[D]")
+    hour = (stamps - days).astype(np.int64)
+    dow = (days.astype(np.int64) + 3) % 7  # Monday 0: 1970-01-01 was a Thursday
+    t = np.arange(LONG_HOURS)
+    base = rng.lognormal(1.6, 0.7, n)
+    daily_phase, daily_amp = rng.uniform(0, 2 * np.pi, n), rng.uniform(0.4, 0.9, n)
+    weekly_amp = rng.uniform(0.1, 0.5, n)
+    weekend_sign = np.where(rng.random(n) < 0.5, 1.0, -1.0)
+    drift, alpha = rng.normal(0.0, 5e-5, n), rng.uniform(0.1, 0.45, n)
+    daily = 1.0 + daily_amp * np.sin(2 * np.pi * hour[:, None] / 24.0 + daily_phase)
+    weekly = 1.0 + weekly_amp * weekend_sign * ((dow >= 5)[:, None] - 2.0 / 7.0)
+    mu = np.maximum(base * np.exp(drift * t[:, None]) * daily * weekly, 0.05)
+    for _ in range(n // 2):  # bursts
+        j, start = rng.integers(0, n), rng.integers(0, LONG_HOURS - 36)
+        mu[start:start + int(rng.integers(6, 37)), j] *= rng.uniform(1.8, 3.5)
+    counts = rng.poisson(rng.gamma(1.0 / alpha, mu * alpha)).astype(np.float32)
+    observed = (rng.random((LONG_HOURS, n)) >= 0.01).astype(np.float32)
+    counts *= observed
+    floors = rng.uniform(0.01, 0.1, n).astype(np.float32)
+    return stamps, counts, observed, floors
+
+
+def long_per(cfg) -> int:
+    """Launches of each kernel and size in one pass of the long model: 2
+    inception blocks a layer on the dynamic path, 2 x U on the frozen one."""
+
+    if cfg.frozen_periods is None:
+        return 2 * cfg.n_layers
+    return 2 * unique_periods(cfg.frozen_periods)
+
+
+def long_step_counts(cfg) -> dict:
+    """Launches of each kernel and size in one training step of the long
+    model: the forward twice (the forward pass, then the recompute of every
+    rematerialised region in the backward), dh and dW once."""
+
+    per = long_per(cfg)
+    return {"tap_conv_fwd": (2 if cfg.use_checkpoint else 1) * per, "tap_conv_dh": per,
+            "tap_conv_dw": per}
+
+
+KINDS = ("tap_conv_fwd", "tap_conv_dh", "tap_conv_dw")
+
+
+def long_geometries(torch, fold, dev):
+    """The long recipe's fold geometries: the dynamic one (K=4 at periods the
+    hourly data select, L=512, p_cap 511, Lp 1023) and the exact extents of
+    p=25 and p=171 (Lp 525 and 513)."""
+
+    periods = torch.tensor(LONG_PERIODS, dtype=torch.int32, device=dev)
+    out = {"dynamic": (LONG_PERIODS, fold.make_geometry(periods, LONG_L, LONG_L - 1))}
+    for p in LONG_DENSE:
+        out[f"p{p}"] = ((p,), fold.make_dense_geometry(p, LONG_L, dev))
+    return out
+
+
+def long_kernels(torch, F, fold, cuda_fold, gen, dev) -> dict:
+    """``[kernel]`` at the long recipe's shapes: every route of the three
+    kernels (B=64, 32 channels, 3x3 and 5x5) on the dynamic geometry and the
+    two exact extents. Each plan must equal its mirror (the bf16 dW stages
+    64-row items, ``band`` 1); each kernel its plain version within 1e-4 over
+    every row (dW: rtol 1e-4 and 1e-4 of its largest value) with the same
+    bits twice. Then each is timed as ``[time]`` times the flagship's (device
+    and call time over 20 calls), beside its bound and cuDNN over the exact
+    grids. Returns ``{name: {"dynamic" | "p25" | "p171": times,
+    "max_abs_err": e}}``."""
+
+    out = {}
+    for kh, kw in LONG_SIZES:
+        key = f"{kh}x{kw}"
+        weight = torch.randn((kh, kw, C, C), generator=gen, device=dev) * 0.3
+        bias = torch.randn((C,), generator=gen, device=dev) * 0.1
+        for label, (periods, geom) in long_geometries(torch, fold, dev).items():
+            shape = (len(periods), LONG_B, geom.Lp, C, C, kh, kw, geom.p_max)
+            for name, plan, own in (
+                    ("tap_conv_fwd_mma", cuda_fold.fold_mma_plan(1, *shape),
+                     cuda_fold.fold_mma_plan_of_kernel(1, *shape)),
+                    ("tap_conv_dh_mma", cuda_fold.fold_mma_plan(-1, *shape),
+                     cuda_fold.fold_mma_plan_of_kernel(-1, *shape)),
+                    ("tap_conv_dw_mma", cuda_fold.dw_mma_plan(*shape),
+                     cuda_fold.dw_mma_plan_of_kernel(*shape)),
+                    ("tap_conv_fwd", cuda_fold.fwd_f32_plan(*shape),
+                     cuda_fold.fwd_f32_plan_of_kernel(*shape)),
+                    ("tap_conv_dh", cuda_fold.dh_f32_plan(*shape),
+                     cuda_fold.dh_f32_plan_of_kernel(*shape)),
+                    ("tap_conv_dw", cuda_fold.dw_f32_plan(*shape[:-1]),
+                     cuda_fold.dw_f32_plan_of_kernel(*shape[:-1]))):
+                check(plan == own, f"{name} {key} {label}: the wrapper's plan differs from the "
+                                   f"kernel's")
+                print(f"[kernel] long context {name} {key} {label} Lp={geom.Lp} plan (the "
+                      f"kernel's own): {plan._asdict()}")
+            h32, ct32 = (torch.randn((len(periods), LONG_B, geom.Lp, C), generator=gen,
+                                     device=dev) for _ in range(2))
+            for dtype in (torch.bfloat16, torch.float32):
+                route = "mma" if dtype == torch.bfloat16 else "f32"
+                h, ct = h32.to(dtype), ct32.to(dtype)
+                runs = [(cuda_fold.tap_conv_cuda(h, geom, weight, bias, kh, kw),
+                         cuda_fold.tap_conv_dh_cuda(ct, geom, weight, kh, kw),
+                         cuda_fold.tap_conv_dw_cuda(h, geom, ct, kh, kw)) for _ in range(2)]
+                wants = (fold.tap_conv(h, geom, weight, bias, kh, kw),
+                         fold.tap_conv_dh(ct, geom, weight, kh, kw),
+                         fold.tap_weight_grad(h, geom, ct, kh, kw))
+                torch.cuda.synchronize()
+                same = all(torch.equal(a, b) for a, b in zip(*runs))
+                line = []
+                for kind, got, want in zip(("fwd", "dh", "dw"), runs[0], wants):
+                    err = float((got - want).abs().max())
+                    atol = TOL * float(want.abs().max()) if kind == "dw" else TOL
+                    ok = bool(torch.allclose(got, want, rtol=TOL, atol=atol))
+                    entry = out.setdefault(f"{kind}_{route}_{key}", {"max_abs_err": 0.0})
+                    entry["max_abs_err"] = max(entry["max_abs_err"], err)
+                    line.append(f"{kind} {err:.3e} {'ok' if ok else 'FAIL'}")
+                    check(ok, f"long context {kind}_{route} {key} {label}: {err:.3e} against "
+                              f"the plain version")
+                print(f"[kernel] long context {key} {label} Lp={geom.Lp} {str(dtype)[6:]}: max "
+                      f"|kernel - plain| over every row: {', '.join(line)}; the same bits "
+                      f"twice: {same}")
+                check(same, f"long context {key} {label} {dtype}: the bits differ from run to run")
+                del runs, wants
+                times = {"fwd": time_forward(torch, F, fold, cuda_fold, h, geom, periods, weight,
+                                             bias, kh, kw, plain=False, iters=LONG_ITERS),
+                         **time_backward(torch, fold, cuda_fold, h, ct, geom, periods, weight,
+                                         kh, kw, plain=False, iters=LONG_ITERS)}
+                for kind, t in times.items():
+                    out[f"{kind}_{route}_{key}"][label] = {**t, "lp": geom.Lp,
+                                                           "periods": list(periods)}
+                    print(f"[time] long context {kind}_{route} {key} {label} Lp={geom.Lp} "
+                          f"B={LONG_B}: {described(t)}")
+    return out
+
+
+def long_forecasters(forecaster, params, cfg, data, device="cuda"):
+    """A ``Forecaster`` of the long recipe over the 48 series, and its request:
+    the last 512 hours before the final 24 of the data, hourly stamps."""
+
+    stamps, counts, observed, floors = data
+    split = LONG_HOURS - LONG_HOLDOUT
+    ids = [f"S{j:03d}" for j in range(LONG_SERIES)]
+    scaler = {sid: (float(counts[:split, j].mean()), float(counts[:split, j].std() + 1.0))
+              for j, sid in enumerate(ids)}
+    fc = forecaster.Forecaster(params, cfg, ids, scaler, "zscore", None, floors, LONG_TF,
+                               freq="h", device=device)
+    end = LONG_HOURS - LONG_H
+    return fc, counts[end - LONG_L:end], stamps[end - LONG_L:end]
+
+
+def serve_long(torch, np, forecaster, cuda_fold, cfg, params, data) -> dict:
+    """``[serve-long]``: the long recipe served over its 48 series, one
+    request of 512 hours with 24 ahead on the live selector. Eager
+    (``cuda_graphs`` off) and replayed, ``LONG_REQUESTS`` timed requests each:
+    forecasts finite and >= 0, every eager request launching the forward 2 x
+    2 times a size on the tensor-core route (the card counting the same),
+    every replay running it as many times on the card and no wrapper, replays
+    equal to the eager forecast within rtol/atol 1e-5. A float32 request on
+    the card equals the same request on the CPU within 1e-4. Then 20 requests
+    of each under the profiler."""
+
+    per = long_per(cfg)
+    fc, history, dates = long_forecasters(forecaster, params, cfg, data)
+    eager(fc)
+    first = fc.forecast(history, dates=dates)
+    torch.cuda.synchronize()
+    check(first.shape == (LONG_H, LONG_SERIES) and bool(np.isfinite(first).all())
+          and bool((first >= 0).all()), f"long forecast {first.shape}, finite and >= 0")
+    clear_counts(cuda_fold)  # the eager requests' launches, from here ...
+    ms = []
+    for _ in range(LONG_REQUESTS):
+        t0 = time.perf_counter()
+        out = fc.forecast(history, dates=dates)
+        ms.append(1e3 * (time.perf_counter() - t0))
+        check(np.array_equal(out, first), "an eager long request differs from the first")
+    wrapped, ran = launch_counts(cuda_fold), run_counts(cuda_fold)  # ... to here
+    eager_counts = wrapped
+    check_launches(wrapped, ("tap_conv_fwd",), LONG_REQUESTS * per, True,
+                   f"{LONG_REQUESTS} eager long requests (wrappers)", LONG_SIZES)
+    check(ran == wrapped, f"long requests: the card counted {ran}, the wrappers {wrapped}")
+    check(not any(wrapped[k] for k in ("tap_conv_dh", "tap_conv_dw")), f"{wrapped}")
+    p50 = float(np.median(ms))
+    print(f"[serve-long] {LONG_REQUESTS} eager requests of {LONG_SERIES} series x {LONG_L} hours "
+          f"(+{LONG_H}): latency ms {spread(np, ms)}; launches {wrapped['tap_conv_fwd']} "
+          f"(tensor-core {wrapped['tap_conv_fwd_mma']}), the card's the same; forecast range "
+          f"[{float(first.min()):.3f}, {float(first.max()):.3f}]")
+    prof_eager = profile(torch, lambda: fc.forecast(history, dates=dates), 20,
+                         "eager long request", p50)
+
+    graphed, _, _ = long_forecasters(forecaster, params, cfg, data)
+    clear_counts(cuda_fold)
+    got = graphed.forecast(history, dates=dates)  # warm-up, capture, replay
+    check_first_call(cuda_fold, ("tap_conv_fwd",), per, "first replayed long request",
+                     LONG_SIZES)
+    ms_g = []
+    clear_counts(cuda_fold)  # the replays' launches, from here ...
+    for _ in range(LONG_REQUESTS):
+        t0 = time.perf_counter()
+        out = graphed.forecast(history, dates=dates)
+        ms_g.append(1e3 * (time.perf_counter() - t0))
+        check(np.allclose(out, first, rtol=1e-5, atol=1e-5), "replayed long request vs eager")
+    wrapped, ran = launch_counts(cuda_fold), run_counts(cuda_fold)  # ... to here
+    check(not any(wrapped.values()), f"replayed long requests ran a wrapper: {wrapped}")
+    check_launches(ran, ("tap_conv_fwd",), LONG_REQUESTS * per, True,
+                   f"{LONG_REQUESTS} replayed long requests (card)", LONG_SIZES)
+    p50_g = float(np.median(ms_g))
+    print(f"[serve-long] {LONG_REQUESTS} replayed requests: latency ms {spread(np, ms_g)} "
+          f"({p50 / p50_g:.2f}x the eager p50); forecasts against eager: "
+          f"{'bit for bit' if np.array_equal(got, first) else 'within 1e-5'}; the card ran "
+          f"{ran['tap_conv_fwd']}, the wrappers none")
+    prof_graph = profile(torch, lambda: graphed.forecast(history, dates=dates), 20,
+                         "replayed long request", p50_g)
+
+    cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
+    raw = {}
+    for device in ("cuda", "cpu"):
+        f32, hist, st = long_forecasters(forecaster, params, cfg32, data, device)
+        raw[device] = eager(f32)._forecast_raw(hist, dates=st)[:2]
+    for name, a, b in zip(("rate", "dispersion"), raw["cuda"], raw["cpu"]):
+        err = float(np.abs(a - b).max())
+        print(f"[serve-long] float32 card vs CPU {name}: max abs diff {err:.3e}")
+        check(np.allclose(a, b, rtol=TOL, atol=TOL), f"long float32 {name} card vs CPU {err:.3e}")
+    return {"counts": eager_counts, "counts_graph": ran, "p50": p50, "p50_graph": p50_g,
+            "profile": prof_eager, "profile_graph": prof_graph}
+
+
+def long_batches(np, windows, engine_mod, data, n: int):
+    """The training windows of the long recipe: 512 + 24 hours of the first
+    1,328 (the holdout keeps 1,072), shuffled at B=64 (594 batches an
+    epoch), the first ``n`` gathered; the batcher and a copy function."""
+
+    stamps, counts, observed, floors = data
+    split = LONG_HOURS - LONG_HOLDOUT
+    src = windows.SlidingWindowSource(
+        counts[:split], LONG_L, LONG_H, "direct", valid_mask=observed[:split],
+        series_ids=np.arange(LONG_SERIES), time_index=stamps[:split],
+        time_feature_config=LONG_TF)
+    train = windows.WindowBatcher([src], LONG_B, shuffle=True, drop_last=True, seed=0)
+
+    def to_device(batch, device=DEVICE):
+        floor = floors[batch.series_ids.reshape(-1)].reshape(-1, 1, 1)
+        return engine_mod.batch_to_device(batch, floor=floor, device=device)
+
+    return train, [b for _, b in zip(range(n), train)], to_device
+
+
+def long_steps(torch, np, cuda_fold, eng, state, gen, lr, batches, to_device, what,
+               graphed: bool, counts_per_step: dict):
+    """Steps of ``eng`` on ``batches`` (host clock over ``batch_to_device`` +
+    ``train_step``, synchronised per step), each step's launches counted by
+    the wrappers and by the card: an eager step launches and runs
+    ``counts_per_step`` of each kind at every size; a replayed graph's first
+    step is :func:`check_first_call`'s, a later one runs no wrapper and the
+    same counts on the card. Returns (state, losses, ms, counts over the
+    steps after the warm-up ones)."""
+
+    losses, ms, timed = [], [], {k: {} for k in path_counters(cuda_fold)}
+    for i, batch in enumerate(batches):
+        clear_counts(cuda_fold)  # this step's launches, from here ...
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, loss, _ = eng.train_step(state, lr, gen, to_device(batch))
+        torch.cuda.synchronize()
+        ms.append(1e3 * (time.perf_counter() - t0))
+        losses.append(loss)
+        if graphed and i == 0:
+            check_first_call(cuda_fold, KINDS, counts_per_step, f"{what} step 0", LONG_SIZES)
+            continue
+        wrapped, ran = launch_counts(cuda_fold), run_counts(cuda_fold)  # ... to here
+        if graphed:
+            check(not any(wrapped.values()), f"{what} step {i} ran a wrapper: {wrapped}")
+        else:
+            check_launches(wrapped, KINDS, counts_per_step, True, f"{what} step {i} (wrappers)",
+                           LONG_SIZES)
+        check_launches(ran, KINDS, counts_per_step, True, f"{what} step {i} (card)", LONG_SIZES)
+        if i >= LONG_WARMUP:
+            for k, by_size in ran.items():
+                for size, n in by_size.items():
+                    timed[k][size] = timed[k].get(size, 0) + n
+    losses = torch.stack(losses)
+    check(bool(torch.isfinite(losses).all()), f"{what}: a non-finite loss")
+    return state, losses, ms[LONG_WARMUP:], timed
+
+
+def train_long(torch, np, windows, engine_mod, losses_mod, optim, cuda_fold, cfg, params,
+               data) -> dict:
+    """``[train-long]``: the long recipe's training steps at B=64 and the
+    recipe's rate, remat on. Eager then replayed from one initial state,
+    generator seed and batches: ``LONG_WARMUP + LONG_STEPS`` dynamic steps,
+    then as many frozen ones on the spec of a training batch's telemetry,
+    continuing the state; replayed losses within 1e-5 relative of eager and
+    the state within 1e-4 of its largest value (bit for bit stated). Each
+    step launches the forward 2 x 4 times a size (the recompute doubles it)
+    and dh and dW 4 (2 x 2 x U frozen). Peak device memory and the step p50
+    with ``use_checkpoint`` on and off (eager, before any graph holds a
+    pool); 30 replayed steps on one batch lower its loss; a float32 step
+    with dropout 0 at B=16 equals the CPU's (loss within 1e-5 relative,
+    gradients within 1e-4 of the largest); 10 replayed steps of each path
+    under the profiler."""
+
+    train, batches, to_device = long_batches(np, windows, engine_mod, data,
+                                             LONG_WARMUP + LONG_STEPS)
+    warmup = optim.resolve_warmup(LONG_TRAIN["warmup_steps"], None, len(train))
+    lr = optim.LRController(LONG_TRAIN["lr"], LONG_TRAIN["epochs"],
+                            {"type": "cosine", "eta_min": LONG_TRAIN["eta_min"]},
+                            warmup).lr_for_epoch(1)
+    print(f"[train-long] {train.total} windows, {len(train)} batches of {LONG_B} an epoch; lr "
+          f"{lr:.4e} (epoch 1 of the recipe's cosine schedule, {LONG_TRAIN['warmup_steps']} "
+          f"warm-up steps)")
+
+    # peak memory and p50, remat on and off: eager, before any graph
+    mem = {}
+    for remat in (True, False):
+        c = dataclasses.replace(cfg, use_checkpoint=remat)
+        eng = eager(engine_mod.Engine(c, params, **LONG_ENGINE))
+        state, gen = eng.init_state(), torch.Generator(device=DEVICE).manual_seed(3)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        _, _, ms, _ = long_steps(torch, np, cuda_fold, eng, state, gen, lr,
+                                 batches[:LONG_WARMUP + LONG_MEM_STEPS], to_device,
+                                 f"eager long step (remat {'on' if remat else 'off'})", False,
+                                 long_step_counts(c))
+        peak = torch.cuda.max_memory_allocated()
+        mem[remat] = dict(peak_mib=peak / 2**20, step_mib=(peak - base) / 2**20,
+                          p50=float(np.median(ms)))
+        print(f"[train-long] use_checkpoint {'on' if remat else 'off'}: {LONG_MEM_STEPS} eager "
+              f"steps, step ms {spread(np, ms)}; peak device memory {peak / 2**20:.1f} MiB, "
+              f"{(peak - base) / 2**20:.1f} MiB above what was allocated before the steps")
+        del eng, state
+    print(f"[train-long] remat: peak step memory {mem[True]['step_mib']:.1f} MiB against "
+          f"{mem[False]['step_mib']:.1f} MiB without ({mem[False]['step_mib'] / max(mem[True]['step_mib'], 1e-9):.2f}x); "
+          f"eager step p50 {mem[True]['p50']:.3f} against {mem[False]['p50']:.3f} ms "
+          f"({mem[True]['p50'] / mem[False]['p50']:.2f}x)")
+
+    probe = eager(engine_mod.Engine(cfg, params, **LONG_ENGINE))
+    spec = engine_mod.Engine.frozen_spec_from_telemetry(
+        probe.collect_period_telemetry(None, to_device(batches[0])), cfg.n_layers)
+    check(spec is not None and unique_periods(spec) >= 1, f"long spec {spec}")
+    valid = [sorted({p for p, _, v in layer if v}) for layer in spec]
+    print(f"[train-long] spec {spec} (the telemetry of a training batch): valid periods by "
+          f"layer {valid}")
+    cfgs = {"dynamic": cfg, "frozen": dataclasses.replace(cfg, frozen_periods=spec)}
+    runs = {}
+    for graphed in (False, True):
+        engines = {path: engine_mod.Engine(c, params, **LONG_ENGINE) for path, c in cfgs.items()}
+        if not graphed:
+            for eng in engines.values():
+                eager(eng)
+        state = engines["dynamic"].init_state()
+        gen = torch.Generator(device=DEVICE).manual_seed(11)
+        rec = {}
+        for path, eng in engines.items():
+            what = f"{'replayed' if graphed else 'eager'} long {path}"
+            state, losses, ms, counts = long_steps(torch, np, cuda_fold, eng, state, gen, lr,
+                                                   batches, to_device, what, graphed,
+                                                   long_step_counts(eng.cfg))
+            rec[path] = dict(losses=losses, ms=ms, counts=counts, engine=eng)
+        runs[graphed] = dict(rec=rec, state=state, gen=gen)
+    g, e = runs[True], runs[False]
+    got_t, want_t = ([t.detach() for t in r["state"].tensors()] for r in (g, e))
+    scale = max(1.0, max(float(t.abs().max()) for t in want_t))
+    diff = max(float((a - b).abs().max()) for a, b in zip(got_t, want_t))
+    print(f"[train-long] after {len(batches)} dynamic and {len(batches)} frozen steps: "
+          f"parameters and Adam moments replayed against eager {same_or_diff(torch, got_t, want_t)}")
+    check(diff <= 1e-4 * scale, f"replayed long state against eager: {diff:.3e}")
+    out = {"spec": spec, "mem": mem, "lr": lr}
+    for path in cfgs:
+        got, want = g["rec"][path], e["rec"][path]
+        rel = float(((got["losses"] - want["losses"]).abs() / want["losses"].abs()).max())
+        check(rel <= 1e-5, f"replayed long {path} losses against eager: {rel:.3e} relative")
+        p50, p50_e = float(np.median(got["ms"])), float(np.median(want["ms"]))
+        print(f"[train-long] {path}: {LONG_STEPS} steps of {LONG_B} windows (after "
+              f"{LONG_WARMUP}): eager step ms {spread(np, want['ms'])}, {LONG_B / p50_e * 1e3:.1f} "
+              f"windows/s; replayed step ms {spread(np, got['ms'])}, {LONG_B / p50 * 1e3:.1f} "
+              f"windows/s ({p50_e / p50:.2f}x); losses against eager "
+              f"{same_or_diff(torch, got['losses'], want['losses'])} (max relative {rel:.3e}), "
+              f"first {float(got['losses'][0]):.4f} last {float(got['losses'][-1]):.4f}; launches "
+              f"the card counted in the replayed steps: forward {got['counts']['tap_conv_fwd']}, "
+              f"dh {got['counts']['tap_conv_dh']}, dW {got['counts']['tap_conv_dw']} "
+              f"(tensor-core dW {got['counts']['tap_conv_dw_mma']})")
+        eng, state, gen = got["engine"], g["state"], g["gen"]
+        fixed = to_device(batches[0])
+        prof = profile(torch, lambda: eng.train_step(state, lr, gen, fixed), 10,
+                       f"replayed long {path} step", p50)
+        out[path] = dict(p50=p50, p50_eager=p50_e, counts=want["counts"], profile=prof)
+
+    # 30 replayed steps on one batch at the recipe's base rate lower its loss
+    fit = engine_mod.Engine(cfg, params, **LONG_ENGINE)
+    fit_state, fit_gen = fit.init_state(), torch.Generator(device=DEVICE).manual_seed(4)
+    fixed = to_device(batches[0])
+    fit_losses = torch.stack([fit.train_step(fit_state, LONG_TRAIN["lr"], fit_gen, fixed)[1]
+                              for _ in range(OVERFIT_STEPS)]).cpu().numpy()
+    last = float(np.mean(fit_losses[-5:]))
+    print(f"[train-long] {OVERFIT_STEPS} replayed steps on one batch at lr {LONG_TRAIN['lr']}: "
+          f"loss {fit_losses[0]:.4f} -> {last:.4f} (mean of the last 5)")
+    check(bool(np.isfinite(fit_losses).all()) and last < float(fit_losses[0]),
+          "the long fixed-batch loss did not fall")
+
+    # float32, dropout 0, card against CPU, at B=16 (the CPU's share of the run)
+    parity = {k: None if v is None else v[:LONG_PARITY_B]
+              for k, v in to_device(batches[0], "cpu").items()}
+    for path, c in cfgs.items():
+        out[path]["f32"] = train_parity(
+            torch, np, engine_mod, losses_mod, cuda_fold, c, params, parity, per=long_per(c),
+            what=f"long float32 {path} step (B={LONG_PARITY_B}, remat on)",
+            engine_kw=LONG_ENGINE, nll=False)
+    return out
+
+
+def train_long_resident(torch, np, windows, dw, engine_mod, cuda_fold, cfg, params, data,
+                        lr: float) -> dict:
+    """``[train-long-resident]``: the long recipe's training windows staged
+    on the card, then two dynamic resident epochs of 594 steps of 64 (a plan
+    longer than ``RESIDENT_PLAN_ROWS``): the first with its capture, the
+    second steady under ``set_sync_debug_mode("error")``. The first's
+    first 20 losses must equal those of the host pipeline's eager steps from
+    the same state, generator and windows within 1e-5 relative; launches as
+    ``[train-resident]`` counts them (remat: the forward twice a step)."""
+
+    from flow_timesnet_tpu_torch import graphs
+
+    train, _, to_device = long_batches(np, windows, engine_mod, data, 0)
+    src = train.sources[0]
+    floors = data[3]
+    staged = dw.stage_windows([src.X], [src.M], src.L, src.H, src.stride, "direct",
+                              marks=[src.marks], static=None, sigma_vector=floors, device=DEVICE)
+    check(staged.total == train.total, f"staged {staged.total} windows, batched {train.total}")
+    eng = engine_mod.Engine(cfg, params, **LONG_ENGINE)
+    state, gen = eng.init_state(), torch.Generator(device=DEVICE).manual_seed(21)
+    ref = eager(engine_mod.Engine(cfg, params, **LONG_ENGINE))
+    ref_state = ref.init_state()
+    clone_state(torch, state, ref_state)
+    ref_gen = torch.Generator(device=DEVICE)
+    ref_gen.set_state(gen.get_state())
+    per = long_step_counts(cfg)
+    out = {}
+    for ep in (1, 2):
+        idx, rv = dw.epoch_index_plan(staged.total, LONG_B, shuffle=True, drop_last=True,
+                                      rng=np.random.default_rng([0, ep]))
+        S = len(idx)
+        check(S > engine_mod.RESIDENT_PLAN_ROWS, f"{S} steps, the plan buffer holds "
+                                                 f"{engine_mod.RESIDENT_PLAN_ROWS}")
+        clear_counts(cuda_fold)  # this epoch's launches, from here ...
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        idx_d, rv_d = torch.from_numpy(idx).to(DEVICE), torch.from_numpy(rv).to(DEVICE)
+        if ep == 2:
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            state, losses, mask_true = eng.train_epoch_resident(state, lr, gen, staged, idx_d,
+                                                                rv_d)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        losses = losses.cpu().numpy()  # one fetch
+        seconds = time.perf_counter() - t0
+        wrapped, ran = launch_counts(cuda_fold), run_counts(cuda_fold)  # ... to here
+        check(bool(np.isfinite(losses).all()) and len(losses) == S, f"long epoch {ep} losses")
+        line = (f"[train-long-resident] epoch {ep} (dynamic"
+                f"{', capture included' if ep == 1 else ', steady'}): {S} steps of {LONG_B} in "
+                f"{seconds:.3f} s, {S * LONG_B / seconds:.1f} windows/s, "
+                f"{1e3 * seconds / S:.3f} ms a step, loss mean {losses.mean():.4f}")
+        if ep == 1:
+            warm = graphs.WARMUP_CALLS
+            check_launches(wrapped, KINDS, {k: (warm + 1) * n for k, n in per.items()}, True,
+                           "long resident epoch 1 (wrappers: warm-up and capture)", LONG_SIZES)
+            check_launches(ran, KINDS, {k: (warm + S) * n for k, n in per.items()}, True,
+                           f"long resident epoch 1 (card: warm-up and {S} replays)", LONG_SIZES)
+            train.set_epoch(ep)  # the plan's permutation: the same windows in the same order
+            want = []
+            for _, batch in zip(range(LONG_HOST_STEPS), train):
+                ref_state, loss, _ = ref.train_step(ref_state, lr, ref_gen, to_device(batch))
+                want.append(loss)
+            want = torch.stack(want).cpu().numpy()
+            got = losses[:LONG_HOST_STEPS]
+            rel = float(np.max(np.abs(got - want) / np.abs(want)))
+            line += (f"; its first {LONG_HOST_STEPS} losses against the host pipeline's eager "
+                     f"steps from the same state: max relative {rel:.3e} (bitwise: "
+                     f"{bool(np.array_equal(got, want))})")
+            check(rel <= 1e-5, f"long resident losses against eager {rel:.3e}")
+            out["capture_seconds"] = seconds
+        else:
+            check(not any(wrapped.values()), f"long resident epoch 2 ran a wrapper: {wrapped}")
+            check_launches(ran, KINDS, {k: S * n for k, n in per.items()}, True,
+                           "long resident epoch 2 (card)", LONG_SIZES)
+            line += (f"; no synchronising call, no wrapper launch; the card ran forward "
+                     f"{ran['tap_conv_fwd']}, dh {ran['tap_conv_dh']}, dW {ran['tap_conv_dw']}")
+            out.update(seconds=seconds, steps=S, counts=ran,
+                       peak_mib=torch.cuda.max_memory_allocated() / 2**20)
+        print(line)
+    return out
+
+
+def route_count(counts: dict, kind: str, route: str, key: str) -> int:
+    """Launches of ``kind`` at ``key`` on one route in :func:`launch_counts`'
+    form: the tensor-core route's own count, or every launch less those."""
+
+    n_mma = counts[f"tap_conv_{kind}_mma"].get(key, 0)
+    return n_mma if route == "mma" else counts[f"tap_conv_{kind}"].get(key, 0) - n_mma
+
+
 def path_counters(cuda_fold) -> dict:
     """The launch counters of the fold-conv kernels: every route of each
     kernel, and the tensor-core one."""
@@ -1550,6 +2137,10 @@ def main() -> int:
     # the frozen-period path's exact extents, every route
     dense = check_dense_kernels(torch, F, fold, cuda_fold, gen, dev)
     stamp("kernels at the exact extent")
+    # the long-context recipe's shapes, every route, timed here: late in the
+    # process the profiler loses the records of some sessions
+    long_k = long_kernels(torch, F, fold, cuda_fold, gen, dev)
+    stamp("kernels at the long-context shapes")
 
     # 4. serve at the flagship width -------------------------------------------
     cfg = flagship_config(timesnet)
@@ -1804,6 +2395,22 @@ def main() -> int:
     stamp("train-resident")
     graph_runs = {"serve_graph": graph_serve, "train_graph": graph_train, "resident": resident}
 
+    # 12-14. the long-context recipe, served and trained
+    long_cfg = long_config(timesnet)
+    long_params = flagship_params(torch, convert, long_cfg)
+    print(f"[serve-long] the long-context recipe at full width: "
+          f"{sum(v.numel() for v in long_params.values()):,} parameters, use_checkpoint on")
+    data = long_data(np)
+    served_long = serve_long(torch, np, forecaster, cuda_fold, long_cfg, long_params, data)
+    stamp("serve-long")
+    trained_long = train_long(torch, np, windows, engine_mod, losses_mod, optim, cuda_fold,
+                              long_cfg, long_params, data)
+    stamp("train-long")
+    resident_long = train_long_resident(torch, np, windows, device_windows, engine_mod,
+                                        cuda_fold, long_cfg, long_params, data,
+                                        trained_long["lr"])
+    stamp("train-long-resident")
+
     # the exact-extent numbers, the frozen paths' and the graphs' launches of each kernel
     for row in kernels:
         name = row["name"][len("tap_conv_"):]
@@ -1816,6 +2423,18 @@ def main() -> int:
                 if route != "mma":  # the CUDA-core route: every launch less the tensor-core ones
                     n = got[f"tap_conv_{kind}"].get(key, 0) - n
                 row[f"launches_{run}{'_frozen' if path == 'frozen' else ''}"] = n
+        if name in long_k:  # the long recipe's shapes and paths (3x3 and 5x5)
+            mma_route = route == "mma"
+            row["long_context"] = {
+                **long_k[name],
+                "launches_serve_long": route_count(served_long["counts"], kind, route, key),
+                "launches_train_long": route_count(
+                    trained_long["dynamic"]["counts" if mma_route else "f32"], kind, route, key),
+                "launches_train_long_frozen": route_count(
+                    trained_long["frozen"]["counts" if mma_route else "f32"], kind, route, key),
+                "launches_resident_long": route_count(resident_long["counts"], kind, route, key),
+                "launches_from": "bf16 eager requests, steps and a steady resident epoch; "
+                                 "float32: the long float32 parity steps"}
         row["exact_extent"] = {
             f"p{p}": {**dense[name][f"p{p}"], "lp": L + (-L) % p} for p in DENSE_PERIODS}
         row["exact_extent_max_abs_err"] = dense[name]["max_abs_err"]

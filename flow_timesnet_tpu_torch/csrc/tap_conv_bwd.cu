@@ -151,7 +151,7 @@ constexpr int kMmaRows = 16;     // rows of a sequence per mma k-step
 constexpr int kWarpTile = 32;    // a warp's dW tile: 32 ci x 32 co, 2 x 4 mma tiles
 constexpr int kRowPad = 8;       // bf16 added to each staged row: conflict-free ldmatrix
 constexpr int kMmaMaxWarps = 16;  // one warp per tap of a kernel row: kw <= 16
-constexpr int kMmaStages = 4;  // staged sequences in the ring: three loads in flight
+constexpr int kMmaStages = 4;  // staged items in the ring: three loads in flight
 constexpr int kMmaTargetWarps = 8 * 132;  // pass 1: about 8 warps per SM in all
 
 // The launch plan of tap_conv_dh_kernel; ops/cuda_fold.py::dh_f32_plan mirrors it.
@@ -510,6 +510,24 @@ __device__ __forceinline__ void cp_async_wait_ring() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(kMmaStages - 2) : "memory");
 }
 
+// The launch plan of the bf16 dW: tap_conv_dw_mma_kernel (band 0) or
+// tap_conv_dw_mma_band_kernel (band 1); mirrored by ops/cuda_fold.py::dw_mma_plan.
+struct DwMmaPlan {
+  int lp_pad;        // Lp rounded up to whole items
+  int pad;           // (kh / 2) * p_max + kw / 2: zero rows on each side of a staged sequence
+  int rt;            // rows of ct an item multiplies: lp_pad (band 0) or 64, 32, 16 (band 1)
+  int band;          // 0: an item is a whole sequence between pad zero rows; 1: a row tile
+  int buf_rows;      // rows of h an item stages: lp_pad + 2 pad (band 0), rt + kw - 1 (band 1)
+  int tiles;         // 32 x 32 channel tiles of dW
+  int chunks_per_k;  // chunks of each candidate's items
+  int per_chunk;     // items of a chunk (the last one may hold fewer)
+  int warps;         // warps of a block: one per tap of a kernel row
+  int smem;          // dynamic shared memory of a block, bytes
+  int chunks;        // K * chunks_per_k: the scratch holds chunks * kh * kw * Cin * Cout floats
+};
+
+constexpr int kMmaBandRows[3] = {64, 32, 16};  // band 1: rows of an item, preferred first
+
 // Pass 1 of dW in bf16, on the tensor cores. It replaces the XLA contraction
 // flow_timesnet_tpu/ops/fold.py:265 (_tap_weight_grad) in its bf16 form.
 // Bytes bound it on an H100 SXM (data-sheet figures): h and ct, 3.6 MB at
@@ -526,6 +544,10 @@ __device__ __forceinline__ void cp_async_wait_ring() {
 // tiles of mma.sync m16n8k16 (bf16 in, float32 sums). A sequence is
 // lp_pad / 16 k-steps of 16 rows (Lp = 55: 4, rows 55-63 masked). wgmma
 // would need 64-row tiles of dW and Cin is 32, so mma.sync is the fit.
+//
+// This kernel stages whole sequences (the plan's band 0), where a ring of
+// them fits in shared memory (the flagship: Lp = 55); longer ones take
+// tap_conv_dw_mma_band_kernel below (band 1).
 //
 // What the design does about what held the CUDA-core version back:
 // - Multiply-adds: one mma does 2,048 of them, on bf16 fragments that
@@ -708,6 +730,156 @@ tap_conv_dw_mma_kernel(const __nv_bfloat16* __restrict__ h, const __nv_bfloat16*
   }
 }
 
+// Band 1 of pass 1, where a ring of whole sequences does not fit in shared
+// memory (a ring of four at Lp = 1023 takes 1.0-1.4 MB): an item is a tile
+// of rt = 64 rows (else 32 or 16, the first that fits) of ct of one
+// sequence, and chunks hold items. The block owns one kernel row dc, so an
+// item's kw taps read the one band of rt + kw - 1 rows of h from row
+// t0 + dc*p - kw/2 on; it is staged by cp.async with zero fill wherever a
+// row leaves [0, Lp) (ct's rows past Lp too), so every fragment load reads
+// h, ct or a zero, never stale bits. Beside it the item's (row(t), col(t))
+// table, from which each lane builds its B-fragment masks at each k-step
+// (the whole-sequence kernel builds them once per block: they do not
+// depend on the item there). K-steps wholly past Lp are skipped. The
+// k-step, the ring and the partials are the whole-sequence kernel's.
+__global__ void __launch_bounds__(kMmaMaxWarps * 32)
+tap_conv_dw_mma_band_kernel(const __nv_bfloat16* __restrict__ h,
+                            const __nv_bfloat16* __restrict__ ct,
+                            const int* __restrict__ periods, const int* __restrict__ cycles,
+                            float* __restrict__ partial, int B, int Lp, int Cin, int Cout, int kh,
+                            int kw, int p_max, const DwMmaPlan q, int co_tiles,
+                            int* __restrict__ runs) {
+  count_run(runs);
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int stride_in = Cin + kRowPad, stride_out = Cout + kRowPad;
+  const int h_elems = q.buf_rows * stride_in;  // the item's band of h
+  const int buf_elems = h_elems + q.rt * stride_out;  // then its rt rows of ct
+  auto* bufs = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // the ring: kMmaStages buffers
+  auto* rc_s = reinterpret_cast<int2*>(bufs + kMmaStages * buf_elems);  // [kMmaStages][rt]
+
+  const int rh = kh / 2, rw = kw / 2;
+  const int tiles = gridDim.x / kh;
+  const int dc = static_cast<int>(blockIdx.x) / tiles - rh;
+  const int tile = blockIdx.x % tiles;
+  const int ci0 = (tile / co_tiles) * kWarpTile, co0 = (tile % co_tiles) * kWarpTile;
+  const int chunk = blockIdx.y;  // k * chunks_per_k + chunk within k
+  const int k = chunk / q.chunks_per_k;
+  const int per_seq = q.lp_pad / q.rt;  // items of a sequence
+  const int i0 = (chunk % q.chunks_per_k) * q.per_chunk;
+  const int n_items = min(q.per_chunk, B * per_seq - i0);
+  const int p = min(max(periods[k], 1), p_max);  // the geometry's clamp
+  const int cyc = cycles[k];
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int vin = Cin / 8, vout = Cout / 8;  // 16-byte vectors of a global row
+
+  auto stage = [&](int i) {  // item i of the chunk into its buffer, asynchronously
+    const int item = i0 + i, buf = i % kMmaStages;
+    const int t0 = (item % per_seq) * q.rt, g0 = t0 + dc * p - rw;
+    const size_t seq = static_cast<size_t>(k) * B + item / per_seq;
+    const __nv_bfloat16* hg = h + seq * Lp * Cin;
+    const __nv_bfloat16* cg = ct + seq * Lp * Cout;
+    __nv_bfloat16* hs = bufs + buf * buf_elems;
+    __nv_bfloat16* cs = hs + h_elems;
+    const int nh = q.buf_rows * vin, n = nh + q.rt * vout;
+    for (int j = threadIdx.x; j < n; j += blockDim.x) {
+      if (j < nh) {  // h rows g0 .. g0 + buf_rows - 1
+        const int r = j / vin, g = g0 + r;
+        const bool in = g >= 0 && g < Lp;
+        cp_async16_zfill(hs + r * stride_in + (j % vin) * 8,
+                         hg + static_cast<size_t>(in ? g : 0) * Cin + (j % vin) * 8, in);
+      } else {  // ct rows t0 .. t0 + rt - 1
+        const int e = j - nh, r = e / vout, t = t0 + r;
+        const bool in = t < Lp;
+        cp_async16_zfill(cs + r * stride_out + (e % vout) * 8,
+                         cg + static_cast<size_t>(in ? t : 0) * Cout + (e % vout) * 8, in);
+      }
+    }
+    for (int r = threadIdx.x; r < q.rt; r += blockDim.x) {
+      const int t = t0 + r;  // a row past Lp takes a row far below 0: no tap is valid there
+      rc_s[buf * q.rt + r] = t < Lp ? make_int2(t / p, t % p) : make_int2(-(1 << 30), 0);
+    }
+  };
+  // one commit group per item, empty past the chunk's end; the tables are
+  // plain stores, visible after the barrier that opens their item
+  for (int i = 0; i < kMmaStages - 1; ++i) {
+    if (i < n_items) stage(i);
+    cp_async_commit();
+  }
+
+  const bool m_on1 = ci0 + 16 < Cin;
+  bool n_on[4];
+#pragma unroll
+  for (int nt = 0; nt < 4; ++nt) n_on[nt] = co0 + 8 * nt < Cout;
+  float acc[2][4][4];
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mt][nt][e] = 0.f;
+  // the whole-sequence kernel's ldmatrix addresses; output row t of an item
+  // reads row t + warp of its band (tap dj = warp - rw)
+  const int a_row = (lane & 7) + ((lane >> 4) << 3), a_col = ci0 + ((lane >> 3) & 1) * 8;
+  const int b_row = (lane & 7) + (((lane >> 3) & 1) << 3), b_col = co0 + (lane >> 4) * 8;
+
+  for (int i = 0; i < n_items; ++i) {
+    cp_async_wait_ring();
+    __syncthreads();  // item i is staged everywhere; item i - 1's buffer is free
+    if (i + kMmaStages - 1 < n_items) stage(i + kMmaStages - 1);
+    cp_async_commit();
+    const __nv_bfloat16* hs = bufs + (i % kMmaStages) * buf_elems;
+    const __nv_bfloat16* cs = hs + h_elems;
+    const int2* rc = rc_s + (i % kMmaStages) * q.rt;
+    const int t_item = ((i0 + i) % per_seq) * q.rt;
+    const int ks_end = min(q.rt / kMmaRows, (Lp - t_item + kMmaRows - 1) / kMmaRows);
+    for (int ks = 0; ks < ks_end; ++ks) {
+      const int t0 = ks * kMmaRows;
+      // lane l's pairs of rows t0 + 2 (l % 4) + {0, 1} and + {8, 9}
+      uint32_t m[2] = {0u, 0u};
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int2 e = rc[t0 + 2 * (lane % 4) + (j & 1) + 8 * (j >> 1)];
+        const int r = e.x + dc, c = e.y + warp - rw;
+        if (r >= 0 && r < cyc && c >= 0 && c < p) m[j >> 1] |= (j & 1) ? 0xffff0000u : 0xffffu;
+      }
+      uint32_t bf[4][2] = {};
+#pragma unroll
+      for (int qq = 0; qq < 2; ++qq) {
+        if (!n_on[2 * qq]) continue;
+        uint32_t r[4];
+        ldmatrix_x4_trans(r, cs + (t0 + b_row) * stride_out + b_col + 16 * qq);
+        bf[2 * qq][0] = r[0] & m[0];
+        bf[2 * qq][1] = r[1] & m[1];
+        bf[2 * qq + 1][0] = r[2] & m[0];
+        bf[2 * qq + 1][1] = r[3] & m[1];
+      }
+      uint32_t a[2][4] = {};
+      const __nv_bfloat16* arow = hs + (warp + t0 + a_row) * stride_in + a_col;
+      ldmatrix_x4_trans(a[0], arow);
+      if (m_on1) ldmatrix_x4_trans(a[1], arow + 16);
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt)
+          if ((mt == 0 || m_on1) && n_on[nt]) mma_bf16(acc[mt][nt], a[mt], bf[nt][0], bf[nt][1]);
+    }
+  }
+
+  // partial: [chunks, kh, kw, Cin, Cout], as the whole-sequence kernel writes it
+  float* out = partial + ((static_cast<size_t>(chunk) * kh + dc + rh) * kw + warp) * Cin * Cout;
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt) {
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt) {
+      if (!((mt == 0 || m_on1) && n_on[nt])) continue;
+      const int ci = ci0 + 16 * mt + (lane >> 2), co = co0 + 8 * nt + 2 * (lane & 3);
+      *reinterpret_cast<float2*>(out + ci * Cout + co) = make_float2(acc[mt][nt][0], acc[mt][nt][1]);
+      *reinterpret_cast<float2*>(out + (ci + 8) * Cout + co) =
+          make_float2(acc[mt][nt][2], acc[mt][nt][3]);
+    }
+  }
+}
+
 bool bad_shape(int K, int B, int Lp, int Cin, int Cout, int kh, int kw) {
   return K <= 0 || B <= 0 || Lp <= 0 || Cin <= 0 || Cout <= 0 || kh <= 0 || kw <= 0 ||
          kh % 2 == 0 || kw % 2 == 0;
@@ -824,48 +996,56 @@ int launch_dh_nt(const float* ct, const float* w, const int* periods, const int*
   return static_cast<int>(cudaGetLastError());
 }
 
-// The launch plan of tap_conv_dw_mma_kernel; mirrored by
-// ops/cuda_fold.py::dw_mma_plan.
-struct DwMmaPlan {
-  int lp_pad;        // Lp rounded up to whole k-steps
-  int pad;           // zero rows on each side of a staged h sequence
-  int tiles;         // 32 x 32 channel tiles of dW
-  int chunks_per_k;  // chunks of each candidate's B sequences
-  int per_chunk;     // sequences of a chunk (the last one may hold fewer)
-  int warps;         // warps of a block: one per tap of a kernel row
-  int smem;          // dynamic shared memory of a block, bytes
-  int chunks;        // K * chunks_per_k: the scratch holds chunks * kh * kw * Cin * Cout floats
-};
-
 // 0, or cudaErrorInvalidValue for a shape the kernel cannot take: Cin not a
 // multiple of 16 (an mma's k-depth of A's transpose), Cout not a multiple of
 // 8 (an mma's width), more than 16 taps in a kernel row, p_max outside
-// [1, Lp], or a block that would need more shared memory than one SM has.
+// [1, Lp], a block that would need more shared memory than one SM has at
+// every staging, or more chunks than a grid holds. Band 0 (a whole sequence
+// an item) where its ring fits, else band 1 at the first item height that
+// fits; chunks never straddle two candidates and hold as many items as
+// about kMmaTargetWarps warps in all leave to each.
 int dw_mma_plan(int K, int B, int Lp, int Cin, int Cout, int kh, int kw, int p_max,
                 DwMmaPlan* plan) {
   if (bad_shape(K, B, Lp, Cin, Cout, kh, kw) || Cin % 16 != 0 || Cout % 8 != 0 ||
       kw > kMmaMaxWarps || p_max < 1 || p_max > Lp) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  DwMmaPlan q;
-  q.lp_pad = (Lp + kMmaRows - 1) / kMmaRows * kMmaRows;
-  q.pad = (kh / 2) * p_max + kw / 2;
-  const long long smem =
-      2LL * kMmaStages *
-          ((q.lp_pad + 2LL * q.pad) * (Cin + kRowPad) + 1LL * q.lp_pad * (Cout + kRowPad)) +
-      8LL * kw * (q.lp_pad / kMmaRows) * 32 + 2LL * 4 * q.lp_pad;
-  if (smem > kMaxSmemBytes) return static_cast<int>(cudaErrorInvalidValue);
+  DwMmaPlan q{};
+  const long long lp16 = (Lp + kMmaRows - 1) / kMmaRows * kMmaRows;
+  const long long pad = 1LL * (kh / 2) * p_max + kw / 2;
+  const long long si = Cin + kRowPad, so = Cout + kRowPad;
+  // band 0: the ring of whole sequences, the masks and the row/col table
+  long long smem = 2LL * kMmaStages * ((lp16 + 2 * pad) * si + lp16 * so) +
+                   8LL * kw * (lp16 / kMmaRows) * 32 + 2LL * 4 * lp16;
+  if (smem <= kMaxSmemBytes) {
+    q.lp_pad = q.rt = static_cast<int>(lp16);
+    q.buf_rows = static_cast<int>(lp16 + 2 * pad);
+  } else {  // band 1: the ring of row tiles and their (row, col) tables
+    for (int rt : kMmaBandRows) {
+      smem = 2LL * kMmaStages * ((rt + kw - 1) * si + 1LL * rt * so) + 8LL * kMmaStages * rt;
+      if (smem > kMaxSmemBytes) continue;
+      q.band = 1;
+      q.rt = rt;
+      q.lp_pad = (Lp + rt - 1) / rt * rt;
+      q.buf_rows = rt + kw - 1;
+      break;
+    }
+    if (q.band == 0) return static_cast<int>(cudaErrorInvalidValue);
+  }
+  q.pad = static_cast<int>(pad);
   q.smem = static_cast<int>(smem);
   q.tiles = ((Cin + kWarpTile - 1) / kWarpTile) * ((Cout + kWarpTile - 1) / kWarpTile);
   q.warps = kw;
-  const int want = std::max(1, kMmaTargetWarps / (kh * q.tiles * kw));  // chunks in all
-  const int per_k = std::min(B, (want + K - 1) / K);
-  q.per_chunk = (B + per_k - 1) / per_k;
-  q.chunks_per_k = (B + q.per_chunk - 1) / q.per_chunk;
-  const long long chunks = 1LL * K * q.chunks_per_k;
-  if (chunks > 65535 || 1LL * kh * q.tiles > 0x7fffffffLL) {
+  const long long items = 1LL * B * (q.lp_pad / q.rt);
+  const long long want = std::max(1, kMmaTargetWarps / (kh * q.tiles * kw));  // chunks in all
+  const long long per_k = std::min(items, (want + K - 1) / K);
+  const long long per = (items + per_k - 1) / per_k, cpk = (items + per - 1) / per;
+  const long long chunks = 1LL * K * cpk;
+  if (chunks > 65535 || 1LL * kh * q.tiles > 0x7fffffffLL || items > 0x7fffffffLL) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  q.per_chunk = static_cast<int>(per);
+  q.chunks_per_k = static_cast<int>(cpk);
   q.chunks = static_cast<int>(chunks);
   *plan = q;
   return 0;
@@ -958,17 +1138,18 @@ extern "C" int tap_conv_dw(const void* h, const void* ct, const void* periods,
   return launch_dw_reduce(part, static_cast<float*>(dw), kh * kw * Cin * Cout, q.chunks, s);
 }
 
-// The plan of the bf16 route at this shape, into out[8] in the order of
-// DwMmaPlan: lp_pad, pad, tiles, chunks_per_k, per_chunk, warps, smem,
-// chunks. Returns 0, or cudaErrorInvalidValue for a shape it cannot take.
+// The plan of the bf16 route at this shape, into out[11] in the order of
+// DwMmaPlan: lp_pad, pad, rt, band, buf_rows, tiles, chunks_per_k,
+// per_chunk, warps, smem, chunks. Returns 0, or cudaErrorInvalidValue for a
+// shape it cannot take.
 extern "C" int tap_conv_dw_mma_plan(int K, int B, int Lp, int Cin, int Cout, int kh, int kw,
                                     int p_max, int* out) {
   DwMmaPlan q;
   const int err = dw_mma_plan(K, B, Lp, Cin, Cout, kh, kw, p_max, &q);
   if (err != 0) return err;
-  const int fields[8] = {q.lp_pad, q.pad, q.tiles, q.chunks_per_k,
-                         q.per_chunk, q.warps, q.smem, q.chunks};
-  std::copy(fields, fields + 8, out);
+  const int fields[11] = {q.lp_pad, q.pad, q.rt, q.band, q.buf_rows, q.tiles,
+                          q.chunks_per_k, q.per_chunk, q.warps, q.smem, q.chunks};
+  std::copy(fields, fields + 11, out);
   return 0;
 }
 
@@ -988,15 +1169,26 @@ extern "C" int tap_conv_dw_mma(const void* h, const void* ct, const void* period
   if ((reinterpret_cast<uintptr_t>(h) | reinterpret_cast<uintptr_t>(ct)) % 16 != 0) {
     return static_cast<int>(cudaErrorInvalidValue);  // cp.async copies 16 bytes at a time
   }
-  err = static_cast<int>(reserve_smem(tap_conv_dw_mma_kernel, q.smem));
+  err = static_cast<int>(q.band ? reserve_smem(tap_conv_dw_mma_band_kernel, q.smem)
+                                 : reserve_smem(tap_conv_dw_mma_kernel, q.smem));
   if (err != 0) return err;
   auto s = static_cast<cudaStream_t>(stream);
   auto* part = static_cast<float*>(partial);
-  tap_conv_dw_mma_kernel<<<dim3(kh * q.tiles, q.chunks), q.warps * 32, q.smem, s>>>(
-      static_cast<const __nv_bfloat16*>(h), static_cast<const __nv_bfloat16*>(ct),
-      static_cast<const int*>(periods), static_cast<const int*>(cycles), part, B, Lp, Cin,
-      Cout, kh, kw, p_max, q.lp_pad, q.pad, (Cout + kWarpTile - 1) / kWarpTile, q.chunks_per_k,
-      q.per_chunk, static_cast<int*>(runs));
+  const auto* hp = static_cast<const __nv_bfloat16*>(h);
+  const auto* cp = static_cast<const __nv_bfloat16*>(ct);
+  const auto* per = static_cast<const int*>(periods);
+  const auto* cyc = static_cast<const int*>(cycles);
+  const dim3 grid(kh * q.tiles, q.chunks);
+  const int co_tiles = (Cout + kWarpTile - 1) / kWarpTile;
+  if (q.band) {
+    tap_conv_dw_mma_band_kernel<<<grid, q.warps * 32, q.smem, s>>>(
+        hp, cp, per, cyc, part, B, Lp, Cin, Cout, kh, kw, p_max, q, co_tiles,
+        static_cast<int*>(runs));
+  } else {
+    tap_conv_dw_mma_kernel<<<grid, q.warps * 32, q.smem, s>>>(
+        hp, cp, per, cyc, part, B, Lp, Cin, Cout, kh, kw, p_max, q.lp_pad, q.pad, co_tiles,
+        q.chunks_per_k, q.per_chunk, static_cast<int*>(runs));
+  }
   err = static_cast<int>(cudaGetLastError());
   if (err != 0) return err;
   return launch_dw_reduce(part, static_cast<float*>(dw), kh * kw * Cin * Cout, q.chunks, s);

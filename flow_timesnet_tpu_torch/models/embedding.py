@@ -10,7 +10,7 @@ Normalisations compute in float32 and cast back.
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Optional, Union
 
 import torch
 from torch import nn
@@ -24,12 +24,44 @@ def torch_uniform(shape, fan_in: int, generator: torch.Generator) -> torch.Tenso
     return (torch.rand(shape, generator=generator) * 2.0 - 1.0) * bound
 
 
-def dropout(x: torch.Tensor, rate: float, generator: Optional[torch.Generator]) -> torch.Tensor:
+class DropoutTape:
+    """The dropout masks of one rematerialised region, drawn once.
+
+    In the region's forward each mask is drawn from ``generator``, the
+    step's, and kept (one byte an element); after :meth:`replay` the
+    recompute in the backward takes them back in the order they were drawn.
+    So the recompute multiplies by the forward's masks, and the generator
+    moves on as it does without remat, with no generator state to save and
+    restore (which a CUDA graph capture would not allow on the host).
+    """
+
+    def __init__(self, generator: torch.Generator) -> None:
+        self.generator = generator
+        self.masks: list = []
+        self.at: Optional[int] = None  # None while drawing; the next mask while replaying
+
+    def replay(self) -> None:
+        self.at = 0
+
+    def keep(self, shape, rate: float, device) -> torch.Tensor:
+        """The next keep mask of ``shape``: drawn and kept, or taken back."""
+
+        if self.at is None:
+            mask = torch.rand(shape, generator=self.generator, device=device) >= rate
+            self.masks.append(mask)
+            return mask
+        self.at += 1
+        return self.masks[self.at - 1]
+
+
+def dropout(x: torch.Tensor, rate: float,
+            generator: Optional[Union[torch.Generator, DropoutTape]]) -> torch.Tensor:
     """flax ``nn.Dropout``: keep each element with probability ``1 - rate``
     and scale it by ``1 / (1 - rate)``, in ``x``'s type.
 
     ``generator`` is None in a deterministic pass (the identity); in a
-    training pass it is the step's ``torch.Generator`` on ``x``'s device.
+    training pass it is the step's ``torch.Generator`` on ``x``'s device, or
+    a rematerialised region's :class:`DropoutTape` over it.
     ``F.dropout`` would draw from the global generator instead.
     """
 
@@ -37,7 +69,10 @@ def dropout(x: torch.Tensor, rate: float, generator: Optional[torch.Generator]) 
         return x
     if rate >= 1.0:
         return torch.zeros_like(x)
-    keep = torch.rand(x.shape, generator=generator, device=x.device) >= rate
+    if isinstance(generator, DropoutTape):
+        keep = generator.keep(x.shape, rate, x.device)
+    else:
+        keep = torch.rand(x.shape, generator=generator, device=x.device) >= rate
     return torch.where(keep, x / (1.0 - rate), torch.zeros((), dtype=x.dtype, device=x.device))
 
 

@@ -11,6 +11,10 @@ parameters. In training mode the forward
 takes the step's ``torch.Generator`` for its dropout (embedding, inception
 blocks, residual) and ``row_valid`` to keep padded batch rows out of the
 period statistics; backward runs through the fold conv's autograd Function.
+With ``use_checkpoint`` a training forward that records gradients runs each
+layer's selector and block as one rematerialised region (the JAX package's
+``nn.remat(run_block)``): its activations are recomputed in the backward,
+with the forward's dropout masks (:class:`~.embedding.DropoutTape`).
 """
 
 from __future__ import annotations
@@ -20,11 +24,13 @@ from typing import Optional, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..ops.softplus import softplus20
 from .embedding import (
     DataEmbedding,
     Dense,
+    DropoutTape,
     LayerNorm32,
     LowRankTemporalContext,
     dropout,
@@ -91,11 +97,6 @@ class TimesNetConfig:
             raise NotImplementedError(
                 "period_buckets is not ported yet; it is the last module of the port's "
                 "queue (see ROADMAP.md)"
-            )
-        if self.use_checkpoint:
-            raise NotImplementedError(
-                "use_checkpoint (rematerialising the TimesBlocks in the backward) is not "
-                "ported yet; it comes with a later training slice (see ROADMAP.md)"
             )
 
     @property
@@ -228,6 +229,40 @@ class TimesNet(nn.Module):
             context = emb if context is None else torch.cat([context, emb], dim=-1)
         return context
 
+    def _run_block(self, block, seq, row_valid, generator):
+        """One layer: the shared selector, then the block (a frozen block
+        re-derives its weights from its static bins)."""
+
+        cfg = self.cfg
+        sel = (None if block.frozen is not None else
+               select_periods(seq, cfg.k_periods, cfg.pmax, self.min_thresh, row_valid))
+        return block(seq, sel, row_valid, generator)
+
+    def _run_block_remat(self, block, seq, row_valid, generator):
+        """:meth:`_run_block` as one rematerialised region: autograd keeps
+        only its inputs, and the backward runs it again to rebuild what it
+        needs (``torch.utils.checkpoint``, non-reentrant). The recompute
+        draws no dropout: it replays the masks the forward drew and kept
+        (:class:`~.embedding.DropoutTape`). It records no telemetry either:
+        the block's record is the forward's."""
+
+        tape = None if generator is None else DropoutTape(generator)
+        calls = []
+
+        def region(x, rv):
+            if not calls:  # the forward
+                calls.append(True)
+                return self._run_block(block, x, rv, tape)
+            if tape is not None:
+                tape.replay()
+            record, block.telemetry = block.telemetry, None
+            try:
+                return self._run_block(block, x, rv, tape)
+            finally:
+                block.telemetry = record
+
+        return checkpoint(region, seq, row_valid, use_reentrant=False, preserve_rng_state=False)
+
     def forward(
         self,
         x: torch.Tensor,
@@ -281,13 +316,13 @@ class TimesNet(nn.Module):
             pad = history_tail[:, -1:, :].expand(B, target_steps - hist_steps, N)
             history_tail = torch.cat([history_tail, pad], dim=1)
 
-        # shared period selection + TimesBlock stack
+        # shared period selection + TimesBlock stack; the residual dropout and
+        # the norm stay outside a rematerialised region, as in JAX
+        remat = cfg.use_checkpoint and self.training and torch.is_grad_enabled()
         for i in range(cfg.n_layers):
             block = getattr(self, f"blocks_{i}")
-            # a frozen block re-derives its weights from its static bins
-            sel = (None if block.frozen is not None else
-                   select_periods(seq, cfg.k_periods, cfg.pmax, self.min_thresh, row_valid))
-            updated = block(seq, sel, row_valid, generator)
+            run = self._run_block_remat if remat else self._run_block
+            updated = run(block, seq, row_valid, generator)
             seq = self.layer_norm(seq + dropout(updated - seq, cfg.dropout, generator))
 
         # heads: Dense over time on [B, D, L], then per-feature heads

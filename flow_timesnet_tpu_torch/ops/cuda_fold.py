@@ -122,19 +122,24 @@ MMA_ROWS = 16  # rows of a sequence per mma k-step
 MMA_WARP_TILE = 32  # a warp's dW tile: 32 ci x 32 co
 MMA_ROW_PAD = 8  # bf16 elements added to each staged row
 MMA_MAX_WARPS = 16  # one warp per tap of a kernel row
-MMA_STAGES = 4  # staged sequences in a block's ring of buffers
+MMA_STAGES = 4  # staged items in a block's ring of buffers
+MMA_BAND_ROWS = (64, 32, 16)  # band 1: rows of an item, preferred first
 MMA_TARGET_WARPS = 8 * 132  # pass 1: about 8 warps per SM of an H100 in all
 MAX_SMEM_BYTES = 232448  # the most shared memory one block may use
 
 
 class DwMmaPlan(NamedTuple):
-    """How ``tap_conv_dw_mma`` cuts one call, in the order its C plan reports."""
+    """How ``tap_conv_dw_mma`` cuts one call, in the order its C plan reports.
+    An item is ``rt`` rows of ct of one sequence."""
 
-    lp_pad: int  # Lp rounded up to whole 16-row k-steps
-    pad: int  # zero rows on each side of a staged h sequence
+    lp_pad: int  # Lp rounded up to whole items
+    pad: int  # (kh // 2) * p_max + kw // 2: zero rows on each side of a staged sequence
+    rt: int  # rows of ct an item multiplies: lp_pad (band 0) or 64, 32, 16 (band 1)
+    band: int  # 0: an item is a whole sequence between pad zero rows; 1: a row tile
+    buf_rows: int  # rows of h an item stages: lp_pad + 2 * pad (band 0), rt + kw - 1 (band 1)
     tiles: int  # 32 x 32 channel tiles of dW
-    chunks_per_k: int  # chunks of each candidate's B sequences
-    per_chunk: int  # sequences of a chunk (the last one may hold fewer)
+    chunks_per_k: int  # chunks of each candidate's items
+    per_chunk: int  # items of a chunk (the last one may hold fewer)
     warps: int  # warps of a block: one per tap of a kernel row
     smem: int  # dynamic shared memory of a block, bytes
     chunks: int  # K * chunks_per_k
@@ -152,12 +157,17 @@ def dw_mma_plan(K: int, B: int, Lp: int, cin: int, cout: int, kh: int, kw: int,
     :func:`_raise_on` for a shape it cannot take (the kernel refuses the same
     shapes with ``cudaErrorInvalidValue``).
 
-    A block stages one sequence of h between ``pad = (kh // 2) * p_max + kw // 2``
-    zero rows on each side, ``MMA_STAGES`` times (a ring), beside ct, rows padded
-    by ``MMA_ROW_PAD`` elements, plus its B-fragment masks (8 bytes a lane,
-    warp and k-step) and its row/col table. Chunks never straddle two
-    candidates, and hold as many sequences as about ``MMA_TARGET_WARPS``
-    warps in all leave to each.
+    A block (kernel row dc, channel tile, chunk) stages its items into a
+    ring of ``MMA_STAGES`` buffers, rows padded by ``MMA_ROW_PAD`` elements.
+    Band 0, where that ring fits in ``MAX_SMEM_BYTES``: an item is a whole
+    sequence of ct (``rt = lp_pad``, whole 16-row k-steps), its h staged
+    between ``pad = (kh // 2) * p_max + kw // 2`` zero rows on each side,
+    beside the block's B-fragment masks (8 bytes a lane, warp and k-step)
+    and its row/col table. Band 1, else: an item is ``rt`` rows of one
+    sequence, the first of ``MMA_BAND_ROWS`` that fits, and the block's one
+    kernel row reads one band of ``rt + kw - 1`` rows of h, beside the
+    item's (row, col) table. Chunks never straddle two candidates, and hold
+    as many items as about ``MMA_TARGET_WARPS`` warps in all leave to each.
     """
 
     shape = f"K={K}, B={B}, Lp={Lp}, Cin={cin}, Cout={cout}, {kh}x{kw}, p_max={p_max}"
@@ -170,24 +180,36 @@ def dw_mma_plan(K: int, B: int, Lp: int, cin: int, cout: int, kh: int, kw: int,
         why = f"at most {MMA_MAX_WARPS} taps in a kernel row (one warp each)"
     elif not 1 <= p_max <= Lp:
         why = "p_max must lie in [1, Lp]"
-    if why is None:
-        lp_pad = -(-Lp // MMA_ROWS) * MMA_ROWS
-        pad = (kh // 2) * p_max + kw // 2
-        smem = (2 * MMA_STAGES * ((lp_pad + 2 * pad) * (cin + MMA_ROW_PAD)
-                                  + lp_pad * (cout + MMA_ROW_PAD))
-                + 8 * kw * (lp_pad // MMA_ROWS) * 32 + 2 * 4 * lp_pad)
-        if smem > MAX_SMEM_BYTES:
-            why = f"a block would need {smem} bytes of shared memory, above {MAX_SMEM_BYTES}"
     if why is not None:
         _raise_on(_INVALID_VALUE, "tap_conv_dw_mma", f"{shape}: {why}")
+    lp16 = -(-Lp // MMA_ROWS) * MMA_ROWS
+    pad = (kh // 2) * p_max + kw // 2
+    si, so = cin + MMA_ROW_PAD, cout + MMA_ROW_PAD
+    smem = (2 * MMA_STAGES * ((lp16 + 2 * pad) * si + lp16 * so)
+            + 8 * kw * (lp16 // MMA_ROWS) * 32 + 2 * 4 * lp16)
+    if smem <= MAX_SMEM_BYTES:
+        band, rt, lp_pad, buf_rows = 0, lp16, lp16, lp16 + 2 * pad
+    else:
+        band = None
+        for rt in MMA_BAND_ROWS:
+            smem = 2 * MMA_STAGES * ((rt + kw - 1) * si + rt * so) + 8 * MMA_STAGES * rt
+            if smem <= MAX_SMEM_BYTES:
+                band, lp_pad, buf_rows = 1, -(-Lp // rt) * rt, rt + kw - 1
+                break
+        if band is None:
+            _raise_on(_INVALID_VALUE, "tap_conv_dw_mma",
+                      f"{shape}: a block would need {smem} bytes of shared memory at "
+                      f"{MMA_BAND_ROWS[-1]} rows an item, above {MAX_SMEM_BYTES}")
     tiles = -(-cin // MMA_WARP_TILE) * -(-cout // MMA_WARP_TILE)
+    items = B * (lp_pad // rt)
     want = max(1, MMA_TARGET_WARPS // (kh * tiles * kw))  # chunks in all
-    per_k = min(B, -(-want // K))
-    per_chunk = -(-B // per_k)
-    chunks_per_k = -(-B // per_chunk)
-    if K * chunks_per_k > 65535:
+    per_k = min(items, -(-want // K))
+    per_chunk = -(-items // per_k)
+    chunks_per_k = -(-items // per_chunk)
+    if K * chunks_per_k > 65535 or items > 0x7FFFFFFF:
         _raise_on(_INVALID_VALUE, "tap_conv_dw_mma", f"{shape}: more than 65535 chunks")
-    return DwMmaPlan(lp_pad, pad, tiles, chunks_per_k, per_chunk, kw, smem, K * chunks_per_k)
+    return DwMmaPlan(lp_pad, pad, rt, band, buf_rows, tiles, chunks_per_k, per_chunk, kw, smem,
+                     K * chunks_per_k)
 
 
 # The plan of the bf16 forward and dh template, constant for constant as in

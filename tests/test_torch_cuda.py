@@ -147,6 +147,11 @@ def test_dw_tensor_core_route_matches_plain(cuda, kh, kw, cin, cout):
     (2, 256, 55, 32, 32, 7, 7, 27), (2, 256, 55, 32, 32, 7, 7, 54), (2, 16, 55, 48, 40, 1, 3, 27),
     (3, 7, 35, 128, 64, 5, 3, 17), (2, 4, 55, 24, 32, 3, 3, 27), (2, 4, 55, 32, 12, 3, 3, 27),
     (2, 4, 55, 32, 32, 1, 17, 27), (2, 4, 55, 32, 32, 3, 3, 56), (2, 4, 900, 128, 128, 7, 7, 899),
+    (4, 64, 1023, 32, 32, 3, 3, 511), (4, 64, 1023, 32, 32, 5, 5, 511),
+    (1, 64, 525, 32, 32, 3, 3, 25), (1, 64, 525, 32, 32, 5, 5, 25),
+    (1, 64, 513, 32, 32, 3, 3, 171), (1, 64, 513, 32, 32, 5, 5, 171),
+    (1, 2, 1023, 256, 256, 7, 7, 511), (1, 2, 1023, 512, 512, 3, 3, 511),
+    (2, 4, 900, 1024, 1024, 7, 7, 899),
 ])
 def test_dw_mma_plan_mirrors_the_kernel(cuda, shape):
     """ops/cuda_fold.py::dw_mma_plan gives the plan csrc/tap_conv_bwd.cu
@@ -158,6 +163,38 @@ def test_dw_mma_plan_mirrors_the_kernel(cuda, shape):
             cuda_fold.dw_mma_plan(*shape)
     else:
         assert cuda_fold.dw_mma_plan(*shape) == got
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K,B,p_max,periods", [
+    (4, 64, 511, [511, 168, 24, 7]), (1, 64, 25, [25]), (1, 64, 171, [171])],
+    ids=["dynamic", "p25", "p171"])
+@pytest.mark.parametrize("kh,kw", [(3, 3), (5, 5)])
+def test_dw_tensor_core_route_takes_the_long_context_shapes(cuda, kh, kw, K, B, p_max, periods):
+    """The long-context recipe's bf16 dW (L=512: the dynamic fold, Lp=1023,
+    and the exact extents of p=25 and p=171, Lp=525 and 513), which stages
+    64-row items with one band of h each, against the plain version within
+    rtol 1e-4 and 1e-4 of the largest value, with the same bits twice."""
+
+    L = 512
+    if K == 1:
+        geom = fold.make_dense_geometry(periods[0], L, cuda)
+    else:
+        geom = fold.make_geometry(torch.tensor(periods, dtype=torch.int32, device=cuda), L, p_max)
+    plan = cuda_fold.dw_mma_plan(K, B, geom.Lp, 32, 32, kh, kw, geom.p_max)
+    assert plan.band == 1 and cuda_fold.dw_mma_plan_of_kernel(
+        K, B, geom.Lp, 32, 32, kh, kw, geom.p_max) == plan
+    g = torch.Generator(device=cuda).manual_seed(kh + K)
+    h, ct = (torch.randn((K, B, geom.Lp, 32), generator=g, device=cuda).bfloat16()
+             for _ in range(2))
+    before = cuda_fold.launches_dw_mma[f"{kh}x{kw}"]
+    dw = cuda_fold.tap_conv_dw_cuda(h, geom, ct, kh, kw)
+    again = cuda_fold.tap_conv_dw_cuda(h, geom, ct, kh, kw)
+    torch.cuda.synchronize()
+    assert cuda_fold.launches_dw_mma[f"{kh}x{kw}"] == before + 2
+    want = fold.tap_weight_grad(h, geom, ct, kh, kw)
+    torch.testing.assert_close(dw, want, rtol=1e-4, atol=1e-4 * float(want.abs().max()))
+    assert torch.equal(dw, again)
 
 
 @pytest.mark.cuda
@@ -997,3 +1034,66 @@ def test_kernels_count_their_runs_as_the_wrappers_count_launches(cuda, compute_d
         assert runs[f"{kind}_f32"] == {k: n for k, n in f32.items() if n}
     mma = compute_dtype == "bfloat16"
     assert bool(runs["fwd_mma"]) == mma and bool(runs["fwd_f32"]) != mma
+
+
+# -- use_checkpoint: the rematerialised TimesBlocks on the card ---------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("frozen", [False, True], ids=["dynamic", "frozen"])
+def test_replayed_checkpointed_steps_equal_eager_and_no_remat(cuda, frozen):
+    """Five remat steps at dropout 0.1 replayed from one graph against five
+    eager remat steps and five eager steps without remat, from one state and
+    generator seed: the same losses and state bit for bit (the recompute
+    replays the forward's masks inside the graph too). A replayed step runs
+    the forward twice a pass on the card (the recompute in the backward), dh
+    and dW once."""
+
+    import dataclasses
+
+    cfg, params, batch = _graph_setup(cuda, frozen, 0.1)
+    remat = dataclasses.replace(cfg, use_checkpoint=True)
+    graphed, eager = _engines(cuda, remat, params)
+    _, plain = _engines(cuda, cfg, params)
+    out = []
+    for eng in (graphed, eager, plain):
+        state, gen = eng.init_state(), torch.Generator(device=cuda).manual_seed(7)
+        losses, last = [], {}
+        for i in range(5):
+            def step():
+                last["out"] = eng.train_step(state, 1e-3, gen, batch)
+
+            ran = _card_runs(step) if i == 4 else step()
+            state, loss, _ = last["out"]
+            losses.append(loss)
+        out.append((torch.stack(losses), state, ran))
+    (lg, sg, ran), (le, se, ran_eager), (lp, sp, ran_plain) = out
+    assert torch.equal(lg, le) and torch.equal(lg, lp)
+    assert all(torch.equal(a, b) and torch.equal(a, c)
+               for a, b, c in zip(sg.tensors(), se.tensors(), sp.tensors()))
+    each = _each_size(_per_size(cfg))
+    assert ran == ran_eager == {"fwd": _each_size(2 * _per_size(cfg)), "dh": each, "dw": each,
+                                "other": 0}
+    assert ran_plain == {"fwd": each, "dh": each, "dw": each, "other": 0}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("frozen", [False, True], ids=["dynamic", "frozen"])
+def test_a_checkpointed_step_never_waits_for_the_card(cuda, frozen):
+    """An eager and a replayed remat step at dropout 0.1 make no
+    synchronising call after their warm-up: the recompute reads nothing back
+    to the host."""
+
+    import dataclasses
+
+    cfg, params, batch = _graph_setup(cuda, frozen, 0.1)
+    graphed, eager = _engines(cuda, dataclasses.replace(cfg, use_checkpoint=True), params)
+    for eng in (graphed, eager):
+        state, gen = eng.init_state(), torch.Generator(device=cuda).manual_seed(0)
+        eng.train_step(state, 1e-3, gen, batch)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            eng.train_step(state, 1e-3, gen, batch)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()

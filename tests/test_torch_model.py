@@ -126,9 +126,12 @@ def test_params_from_jax_rejects_a_mismatched_tree(params):
 
 
 def test_not_yet_ported_paths_raise():
-    # the frozen-period path is ported (tests/test_torch_frozen.py); these are not yet
+    # the frozen-period path and use_checkpoint are ported (tests/test_torch_frozen.py,
+    # tests/test_torch_checkpoint.py); period_buckets is not yet
     with pytest.raises(NotImplementedError, match="period_buckets"):
         timesnet.TimesNetConfig(**MODEL_KW, period_buckets="auto")
-    with pytest.raises(NotImplementedError, match="use_checkpoint"):
-        timesnet.TimesNetConfig(**MODEL_KW, use_checkpoint=True)
+    remat = timesnet.TimesNetConfig(**MODEL_KW, use_checkpoint=True)
+    plain = timesnet.TimesNet(timesnet.TimesNetConfig(**MODEL_KW)).state_dict()
+    got = timesnet.TimesNet(remat).state_dict()  # remat keeps the model's keys and shapes
+    assert {k: v.shape for k, v in got.items()} == {k: v.shape for k, v in plain.items()}
     assert timesnet.TimesNetConfig(**MODEL_KW, frozen_periods=(((7, 4, True),),) * 2)
