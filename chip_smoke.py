@@ -146,7 +146,24 @@ Phases, each of which fails the run (non-zero exit, no result line):
    staged on the card and two resident epochs of 594 steps (a plan longer
    than the 512-row buffer), the first with its capture, its first 20
    losses equal to the host pipeline's eager steps from the same state, the
-   second steady with no synchronising call.
+   second steady with no synchronising call;
+15. train-once: the flagship benchmark's CSV (``tools/make_demand_benchmark.py``'s
+   ``train.csv``, 192 series x 560 days, written with numpy byte for byte as
+   the generator writes it) and ``train.py::train_once`` on
+   configs/demand_benchmark.yaml as the port's config layer reads it (overrides
+   for the data paths, ``artifacts.dir`` and ``train.epochs=3`` only): full
+   width and depth on the resident pipeline, a freeze by epoch 3, every
+   artifact written, each epoch's seconds and windows/s, the graphs' warm-up
+   and capture time, the host time around the epochs, every bf16 kernel run
+   on the card at each size (no float32 one); then the checkpoint, scaler and
+   config loaded back into a ``Forecaster`` that serves the CSV's last window,
+   finite and >= 0;
+16. train-once-long: the same for configs/long_context.yaml on its
+   benchmark's ``train.csv`` (48 series x 2,400 hours), one epoch.
+
+The recipes' blocks (the models, schedules and engine settings of phases
+4-14) are read from configs/demand_benchmark.yaml and
+configs/long_context.yaml through the port's config layer.
 
 Launches are counted twice. The wrappers count where they launch a kernel
 (``cuda_fold.launches*``), and each kernel counts its own runs on the card
@@ -166,7 +183,9 @@ card in the replayed paths of phases 9-11 (``launches_serve_graph`` over
 ``launches_resident`` over a steady resident epoch of 215 steps, each also
 ``_frozen``; bf16, so the float32 rows count 0 there), and for 3x3 and 5x5
 ``long_context``: the long-context times of phase 3 by geometry and the launches of
-phases 12-14 (the float32 rows from the long float32 parity steps).
+phases 12-14 (the float32 rows from the long float32 parity steps), and
+``launches_train_once`` / ``launches_train_once_long``: each kernel's runs on
+the card in phases 15 and 16 (bf16 recipes: the float32 rows count 0).
 ``[clock]`` lines give the time since the start at the end of each phase.
 
 The last lines are the ``kernels`` JSON line, the card line of ``nvidia-smi``
@@ -182,6 +201,7 @@ import subprocess
 import sys
 import time
 from pathlib import Path
+from typing import NamedTuple
 
 REPO = Path(__file__).resolve().parent
 PACKAGE = REPO / "flow_timesnet_tpu_torch"
@@ -213,10 +233,6 @@ SOURCE_MMA = "flow_timesnet_tpu_torch/csrc/tap_conv_mma.cu"
 REPLACES_DW = "flow_timesnet_tpu/ops/fold.py:265 (XLA; companion of pallas_fold.py:133)"
 SOURCE = "flow_timesnet_tpu_torch/csrc/tap_conv_fwd.cu"
 SOURCE_BWD = "flow_timesnet_tpu_torch/csrc/tap_conv_bwd.cu"
-# the train: block of configs/demand_benchmark.yaml
-TRAIN = dict(lr=9.878e-4, epochs=30, warmup_steps=400, eta_min=1e-5)
-ENGINE = dict(use_loss_masking=True, grad_clip_norm=1.0, weight_decay=1e-6, ema_decay=0.99,
-              num_series=B)
 DAYS, HELD_OUT_DAYS = 365, 44  # 44 days hold 10 windows a series: 8 batches, the last padded
 WARMUP_STEPS, TIMED_STEPS, OVERFIT_STEPS, PROFILED_STEPS = 5, 100, 30, 20
 GRAPH_REQUESTS, GRAPH_STEPS = 200, 100  # replayed from CUDA graphs, each path
@@ -227,16 +243,12 @@ LONG_L, LONG_H, LONG_SERIES, LONG_HOURS, LONG_HOLDOUT, LONG_B = 512, 24, 48, 240
 LONG_SIZES = ((3, 3), (5, 5))
 LONG_PERIODS = (511, 168, 24, 7)  # the dynamic kernel shape: K=4, Lp 1023, p_cap 511
 LONG_DENSE = (25, 171)  # the daily and weekly periods' exact extents: Lp 525 and 513
-LONG_TRAIN = dict(lr=1e-4, epochs=50, warmup_steps=500, eta_min=1e-5)
-LONG_ENGINE = dict(use_loss_masking=True, grad_clip_norm=1.0, weight_decay=1e-6,
-                   num_series=LONG_SERIES)
-LONG_TF = {"enabled": True, "features": ["day_of_week", "hour"], "encoding": "cyclical",
-           "normalize": True}
 LONG_REQUESTS = 50  # timed long requests, eager and replayed
 LONG_WARMUP, LONG_STEPS, LONG_MEM_STEPS = 3, 20, 10  # long training steps, each path
 LONG_HOST_STEPS = 20  # resident losses held against the host pipeline's eager steps
 LONG_PARITY_B = 16  # rows of the float32 card-vs-CPU long step
 LONG_ITERS = 20  # calls a long-context kernel timing takes
+TRAIN_ONCE_EPOCHS, TRAIN_ONCE_LONG_EPOCHS = 3, 1  # train_once's epochs on each recipe
 
 
 def eager(obj):
@@ -276,20 +288,58 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def flagship_config(timesnet):
+class Recipe(NamedTuple):
+    """One recipe as the phases take it: the merged config ``train_once``
+    builds from its YAML, and from its ``train:`` and ``data:`` blocks the
+    schedule, the engine's settings and the calendar features."""
+
+    merged: dict
+    schedule: dict  # lr, epochs, warmup_steps, eta_min
+    engine: dict  # Engine keyword arguments
+    time_features: dict
+
+
+def load_recipes() -> dict:
+    """Read configs/demand_benchmark.yaml (``"flagship"``, 192 series) and
+    configs/long_context.yaml (``"long"``, 48 series) through the port's
+    config layer (``build.merged_config_from_yaml``)."""
+
+    from flow_timesnet_tpu_torch.build import merged_config_from_yaml
+
+    def recipe(path: str, num_series: int) -> Recipe:
+        merged = merged_config_from_yaml(str(REPO / "configs" / path))
+        t = merged["train"]
+        return Recipe(
+            merged,
+            dict(lr=float(t["lr"]), epochs=int(t["epochs"]),
+                 warmup_steps=int(t["lr_warmup_steps"]),
+                 eta_min=float(t["lr_scheduler"]["eta_min"])),
+            dict(use_loss_masking=bool(t["use_loss_masking"]),
+                 grad_clip_norm=float(t["grad_clip_norm"]), weight_decay=float(t["weight_decay"]),
+                 ema_decay=float(t.get("ema_decay", 0.0) or 0.0), num_series=num_series),
+            dict(merged["data"]["time_features"]))
+
+    return {"flagship": recipe("demand_benchmark.yaml", B),
+            "long": recipe("long_context.yaml", LONG_SERIES)}
+
+
+def recipe_config(rec: Recipe, static_dim: int, id_vocab: int):
+    """The recipe's model (``build.timesnet_config_from_dict``), with the
+    data dimensions of its benchmark."""
+
+    from flow_timesnet_tpu_torch.build import time_feature_dim_of, timesnet_config_from_dict
+
+    return timesnet_config_from_dict(rec.merged, static_dim=static_dim,
+                                     time_feature_dim=time_feature_dim_of(rec.merged),
+                                     id_vocab=id_vocab)
+
+
+def flagship_config(rec: Recipe):
     """The ``model:`` block of configs/demand_benchmark.yaml, with the data
     dimensions of its 192-series benchmark (5 static features, 8 cyclical
     calendar features)."""
 
-    return timesnet.TimesNetConfig(
-        input_len=28, pred_len=7, d_model=128, d_ff=512, n_layers=2, k_periods=2,
-        kernel_set=KERNEL_SIZES, dropout=0.0675, activation="gelu", mode="direct",
-        bottleneck_ratio=4.0, min_period_threshold=7, use_embedding_norm=True,
-        id_embed_dim=32, static_dim=5, static_proj_dim=32, static_layernorm=True,
-        use_zero_mean_context=True, context_rank=8, context_scale=0.05,
-        use_constant_context_bias=False, time_features=8, id_vocab=B,
-        compute_dtype="bfloat16",
-    )
+    return recipe_config(rec, 5, B)
 
 
 def flagship_params(torch, convert, cfg) -> dict:
@@ -323,7 +373,11 @@ def time_ms(torch, fn, iters: int = 100) -> float:
     lower the time; such a shortfall is printed. A session that recorded no
     device time, or lost a tenth of a kernel's launches (one that lost half
     of them has read a kernel far below its time), is taken again, up to
-    ``PROFILER_TRIES`` sessions in all; then the run fails."""
+    ``PROFILER_TRIES`` sessions in all; then the run fails. Late in a long
+    process a session can lose the same number of records every time (11
+    of 100 launches, session after session, on an H100): each retry takes
+    twice the calls of the one before (at most ``8 * iters``), so that such
+    a loss is a smaller share of the session."""
 
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as torch_profile
@@ -331,20 +385,21 @@ def time_ms(torch, fn, iters: int = 100) -> float:
     for _ in range(5):
         fn()
     torch.cuda.synchronize()
-    for _ in range(PROFILER_TRIES):
+    for attempt in range(PROFILER_TRIES):
+        calls = iters * 2 ** min(attempt, 3)
         with torch_profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(iters):
+            for _ in range(calls):
                 fn()
             torch.cuda.synchronize()
         us, whole = 0.0, True
         for e in prof.key_averages():
             if e.device_type.name != "CUDA" or e.count == 0:
                 continue
-            per_call = max(1, round(e.count / iters))  # every call launches the same kernels
-            if e.count != per_call * iters:
+            per_call = max(1, round(e.count / calls))  # every call launches the same kernels
+            if e.count != per_call * calls:
                 print(f"[time] the profiler recorded {e.count} launches of {e.key[:60]} in "
-                      f"{iters} calls")
-                whole = whole and e.count >= 0.9 * per_call * iters
+                      f"{calls} calls")
+                whole = whole and e.count >= 0.9 * per_call * calls
             us += e.self_device_time_total / e.count * per_call
         if us > 0 and whole:
             return us / 1e3
@@ -813,7 +868,7 @@ def train_data(np, windows, L_in: int, H_out: int):
     return train, held_out, sigma
 
 
-def train_phase(torch, np, modules, cfg, params, dev):
+def train_phase(torch, np, modules, rec, cfg, params, dev):
     """Phase 7: flagship training steps on the card. Returns the launch
     counts of the timed steps, the step p50 in ms and the periods the steps
     selected."""
@@ -821,9 +876,10 @@ def train_phase(torch, np, modules, cfg, params, dev):
     windows, engine_mod, optim, cuda_fold = modules
     train, held_out, sigma = train_data(np, windows, cfg.input_len, cfg.pred_len)
     check(len(held_out) == 8, f"{len(held_out)} held-out batches")
-    warmup = optim.resolve_warmup(TRAIN["warmup_steps"], None, len(train))
-    lr_ctl = optim.LRController(TRAIN["lr"], TRAIN["epochs"],
-                                {"type": "cosine", "eta_min": TRAIN["eta_min"]}, warmup)
+    sched = rec.schedule
+    warmup = optim.resolve_warmup(sched["warmup_steps"], None, len(train))
+    lr_ctl = optim.LRController(sched["lr"], sched["epochs"],
+                                {"type": "cosine", "eta_min": sched["eta_min"]}, warmup)
     lr = lr_ctl.lr_for_epoch(1)
 
     def to_device(batch):
@@ -833,7 +889,7 @@ def train_phase(torch, np, modules, cfg, params, dev):
     t0 = time.perf_counter()
     host_batches = [b for _, b in zip(range(WARMUP_STEPS + TIMED_STEPS), train)]
     gather_ms = 1e3 * (time.perf_counter() - t0) / len(host_batches)
-    eng = eager(engine_mod.Engine(cfg, params, **ENGINE))
+    eng = eager(engine_mod.Engine(cfg, params, **rec.engine))
     check(eng.device.type == "cuda", f"default device is {eng.device}")
     state = eng.init_state()
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -871,7 +927,7 @@ def train_phase(torch, np, modules, cfg, params, dev):
                   f"{name} {kh}x{kw} launched {n} times in {TIMED_STEPS} steps")
     p50 = float(np.median(step_ms))
     print(f"[train] {TIMED_STEPS} steps of {B_TRAIN} windows (after {WARMUP_STEPS} warm-up), "
-          f"lr {lr:.4e} (epoch 1 of the cosine schedule with {TRAIN['warmup_steps']} warm-up "
+          f"lr {lr:.4e} (epoch 1 of the cosine schedule with {sched['warmup_steps']} warm-up "
           f"steps over {len(train)} batches an epoch): step ms {spread(np, step_ms)}")
     print(f"[train] windows/s at the p50 {B_TRAIN / p50 * 1e3:.1f}, peak device memory "
           f"{peak_mib:.1f} MiB, host gather {gather_ms:.3f} ms a batch (before the timing), "
@@ -881,13 +937,13 @@ def train_phase(torch, np, modules, cfg, params, dev):
 
     # 30 steps on one fixed batch at the schedule's base rate lower its loss
     fixed = to_device(host_batches[0])
-    fit = eager(engine_mod.Engine(cfg, params, **ENGINE))
+    fit = eager(engine_mod.Engine(cfg, params, **rec.engine))
     fit_state = fit.init_state()
-    fit_losses = [fit.train_step(fit_state, TRAIN["lr"], gen, fixed)[1]
+    fit_losses = [fit.train_step(fit_state, sched["lr"], gen, fixed)[1]
                   for _ in range(OVERFIT_STEPS)]
     fit_losses = torch.stack(fit_losses).cpu().numpy()
     last = float(np.mean(fit_losses[-5:]))
-    print(f"[train] {OVERFIT_STEPS} steps on one batch at lr {TRAIN['lr']}: loss "
+    print(f"[train] {OVERFIT_STEPS} steps on one batch at lr {sched['lr']}: loss "
           f"{fit_losses[0]:.4f} -> {last:.4f} (mean of the last 5)")
     check(bool(np.isfinite(fit_losses).all()) and last < float(fit_losses[0]),
           "the fixed-batch loss did not fall")
@@ -909,14 +965,14 @@ def train_phase(torch, np, modules, cfg, params, dev):
                 batches=host_batches, to_device=to_device)
 
 
-def float32_steps(torch, np, engine_mod, cfg, params, batch, lr, dev):
+def float32_steps(torch, np, engine_mod, cfg, params, engine_kw, batch, lr, dev):
     """Phase 7, float32: the flagship at full width with
     ``compute_dtype="float32"`` (the JAX package's default, which runs the
     CUDA-core fold-conv kernels) takes 5 + 20 timed steps on one batch, then
     20 under the profiler: device time per step and the fold conv's."""
 
     eng = eager(engine_mod.Engine(dataclasses.replace(cfg, compute_dtype="float32"), params,
-                                  **ENGINE))
+                                  **engine_kw))
     state = eng.init_state()
     gen = torch.Generator(device=dev).manual_seed(1)
 
@@ -937,9 +993,9 @@ def float32_steps(torch, np, engine_mod, cfg, params, batch, lr, dev):
     profile(torch, step, PROFILED_STEPS, "float32 step", p50)
 
 
-def train_parity(torch, np, engine_mod, losses_mod, cuda_fold, cfg, params, batch_cpu,
+def train_parity(torch, np, engine_mod, losses_mod, cuda_fold, cfg, params, engine_kw, batch_cpu,
                  per: int = LAUNCHES_PER_PASS // len(KERNEL_SIZES), what: str = "float32 step",
-                 engine_kw=None, nll: bool = True):
+                 nll: bool = True):
     """Phase 7, parity: one float32 step with dropout 0, card against CPU
     (on ``cfg``'s path: dynamic, or frozen where it carries a spec). Returns
     the card step's launches of each kernel by size: the CUDA-core routes,
@@ -955,7 +1011,7 @@ def train_parity(torch, np, engine_mod, losses_mod, cuda_fold, cfg, params, batc
             for name in path_counters(cuda_fold)}
     out = {}
     for device in ("cuda", "cpu"):
-        eng = engine_mod.Engine(cfg32, params, device=device, **(engine_kw or ENGINE))
+        eng = engine_mod.Engine(cfg32, params, device=device, **engine_kw)
         eng.model.train()
         batch = {k: None if v is None else v.to(device) for k, v in batch_cpu.items()}
         counters = path_counters(cuda_fold)
@@ -1146,7 +1202,7 @@ def serve_frozen(torch, np, engine_mod, cuda_fold, make_fc, request, cfg, batch,
                 first=first)
 
 
-def train_frozen(torch, np, engine_mod, cuda_fold, cfg, params, trained, dev):
+def train_frozen(torch, np, engine_mod, cuda_fold, cfg, params, engine_kw, trained, dev):
     """Phase 7, frozen: the spec from telemetry on a training batch (the
     dynamic engine's trained state); an engine on it continues that state
     (the trainer's engine swap) for 5 + ``FROZEN_STEPS`` timed steps at
@@ -1160,7 +1216,7 @@ def train_frozen(torch, np, engine_mod, cuda_fold, cfg, params, trained, dev):
     print(f"[train-frozen] spec {spec} (from the telemetry of a training batch, read back "
           f"from JSON), {per} launches of each kernel size a step")
     feng = eager(engine_mod.Engine(dataclasses.replace(cfg, frozen_periods=spec), params,
-                                   **ENGINE))
+                                   **engine_kw))
     batches = trained["batches"][: WARMUP_STEPS + FROZEN_STEPS]
     losses = []
     for batch in batches[:WARMUP_STEPS]:
@@ -1253,7 +1309,7 @@ def serve_graph(torch, np, cuda_fold, make_fc, request, cfg, spec, eager_runs: d
     return out
 
 
-def train_graph(torch, np, engine_mod, cuda_fold, cfg, params, trained, spec,
+def train_graph(torch, np, engine_mod, cuda_fold, cfg, params, engine_kw, trained, spec,
                 eager_p50: dict) -> dict:
     """Phase 10: training steps replayed from the step's CUDA graph (the
     ``Engine.train_step`` default), against eager steps from the same
@@ -1279,7 +1335,7 @@ def train_graph(torch, np, engine_mod, cuda_fold, cfg, params, trained, spec,
     kinds = ("tap_conv_fwd", "tap_conv_dh", "tap_conv_dw")
     runs = {}
     for graphed in (False, True):
-        engines = {path: engine_mod.Engine(c, params, **ENGINE) for path, c in cfgs.items()}
+        engines = {path: engine_mod.Engine(c, params, **engine_kw) for path, c in cfgs.items()}
         if not graphed:
             for eng in engines.values():
                 eager(eng)
@@ -1359,7 +1415,8 @@ def clone_state(torch, src, dst) -> None:
             d.copy_(s_)
 
 
-def train_resident(torch, np, windows, dw, engine_mod, cuda_fold, cfg, params, lr) -> dict:
+def train_resident(torch, np, windows, dw, engine_mod, cuda_fold, cfg, params, engine_kw,
+                   lr) -> dict:
     """Phase 11: the device-resident epoch, driven as the JAX package's
     trainer drives it (``train.py:923-1071``). The 192-series data of phase
     7 are staged on the card once (the batchers' own sources, as
@@ -1416,7 +1473,7 @@ def train_resident(torch, np, windows, dw, engine_mod, cuda_fold, cfg, params, l
         staged.X, staged.M, staged.marks, staged_val.X, staged_val.M, staged_val.marks)) / 2**20
     probe_batch = to_device(train._gather_global(probe_idx[0].astype(np.int64)))
 
-    dyn = engine_mod.Engine(cfg, params, **ENGINE)
+    dyn = engine_mod.Engine(cfg, params, **engine_kw)
     state, gen = dyn.init_state(), torch.Generator(device=DEVICE).manual_seed(21)
     eng, path, spec = dyn, "dynamic", None
     torch.cuda.reset_peak_memory_stats()
@@ -1430,14 +1487,14 @@ def train_resident(torch, np, windows, dw, engine_mod, cuda_fold, cfg, params, l
             spec = engine_mod.Engine.frozen_spec_from_telemetry(tele, cfg.n_layers)
             check(spec is not None and unique_periods(spec) >= 1, f"probe spec {spec}")
             eng = engine_mod.Engine(dataclasses.replace(cfg, frozen_periods=spec), params,
-                                    **ENGINE)
+                                    **engine_kw)
             path = "frozen"
         idx, rv = dw.epoch_index_plan(staged.total, B_TRAIN, shuffle=True, drop_last=True,
                                       rng=np.random.default_rng([0, ep]))
         S = len(idx)
         first = ep in (1, 3)
         if first:  # the eager reference: the same state, generator and windows
-            ref = eager(engine_mod.Engine(eng.cfg, params, **ENGINE))
+            ref = eager(engine_mod.Engine(eng.cfg, params, **engine_kw))
             ref_state = ref.init_state()
             clone_state(torch, state, ref_state)
             ref_gen = torch.Generator(device=DEVICE)
@@ -1515,53 +1572,171 @@ def train_resident(torch, np, windows, dw, engine_mod, cuda_fold, cfg, params, l
 
 # -- the long-context recipe (configs/long_context.yaml) ---------------------------
 
-def long_config(timesnet):
+def long_config(rec: Recipe):
     """The ``model:`` block of configs/long_context.yaml, with ``use_checkpoint``
     from its ``train:`` block and the data dimensions of its hourly benchmark
     (48 series, the cyclical ``[day_of_week, hour]`` features, no static
     features)."""
 
-    return timesnet.TimesNetConfig(
-        input_len=LONG_L, pred_len=LONG_H, d_model=128, d_ff=256, n_layers=2, k_periods=4,
-        kernel_set=LONG_SIZES, dropout=0.1, activation="gelu", mode="direct",
-        bottleneck_ratio=4.0, min_period_threshold=4, id_embed_dim=32, static_proj_dim=32,
-        use_zero_mean_context=True, context_rank=8, context_scale=0.05, period_binning=2.0,
-        period_max_unique="0:4,default:2", compute_dtype="bfloat16", time_features=4,
-        id_vocab=LONG_SERIES, use_checkpoint=True,
-    )
+    return recipe_config(rec, 0, LONG_SERIES)
 
 
 def long_data(np):
-    """The hourly benchmark of ``tools/make_long_context_benchmark.py`` in
-    numpy (that script needs pandas): 48 series x 2,400 hours of
-    negative-binomial counts with a daily profile, a weekend effect, a slow
-    drift and 6-36 hour bursts, 1 % of the hours missing (0, masked), and
-    per-series dispersion floors. Returns (stamps, counts [T, N], observed
-    [T, N], floors [N])."""
+    """The hourly benchmark of ``tools/make_long_context_benchmark.py`` at
+    48 series x 2,400 hours in all (:func:`simulate_long`): negative-binomial
+    counts with a daily profile, a weekend effect, a slow drift and 6-36 hour
+    bursts, 1 % of the hours missing (0, masked), and per-series dispersion
+    floors. Returns (stamps, counts [T, N], observed [T, N], floors [N])."""
 
-    rng = np.random.default_rng(5)
-    n = LONG_SERIES
-    stamps = np.datetime64("2024-01-01T00", "h") + np.arange(LONG_HOURS)
+    rng, stamps, counts, observed = simulate_long(np, 5, LONG_SERIES, LONG_HOURS)
+    counts = counts.astype(np.float32)
+    observed = observed.astype(np.float32)
+    counts *= observed
+    floors = rng.uniform(0.01, 0.1, LONG_SERIES).astype(np.float32)
+    return stamps, counts, observed, floors
+
+
+# -- the benchmarks' CSVs, written with numpy (the generators need pandas) ------
+
+DEMAND_COLUMNS = ("영업일자", "영업장명_메뉴명", "매출수량")
+DEMAND_TEST_FILES, DEMAND_TEST_HISTORY, DEMAND_HORIZON = 5, 28, 7
+LONG_TEST_FILES, LONG_TEST_HISTORY, LONG_HORIZON = 2, 512, 24
+
+
+def simulate_demand(np, seed: int = 7, n_stores: int = 8, n_menus: int = 24,
+                    t_train: int = 560):
+    """``tools/make_demand_benchmark.py::simulate`` with ``datetime64`` days in
+    place of ``pd.date_range``: the same draws in the same order. Returns
+    (days [T] datetime64[D], ids, demand [T, N] float64, observed [T, N])."""
+
+    import math
+
+    rng = np.random.default_rng(seed)
+
+    def store_name(st: int) -> str:
+        letter, block = chr(ord("A") + st % 26), st // 26
+        return f"매장{letter}{block}" if block else f"매장{letter}"
+
+    ids = [f"{store_name(st)}_메뉴{m + 1:02d}" for st in range(n_stores) for m in range(n_menus)]
+    n = len(ids)
+    total_days = t_train + DEMAND_TEST_FILES * DEMAND_HORIZON + DEMAND_TEST_HISTORY
+    days = np.datetime64("2023-01-01") + np.arange(total_days)
+    t = np.arange(total_days)
+    dow = (days.astype(np.int64) + 3) % 7  # Monday 0: 1970-01-01 was a Thursday
+    week_profiles = np.empty((n_stores, 7))
+    for st in range(n_stores):
+        if st % 2 == 0:
+            prof = np.array([0.8, 0.8, 0.9, 1.0, 1.2, 1.6, 1.5])
+        else:
+            prof = np.array([1.3, 1.25, 1.2, 1.15, 1.1, 0.6, 0.5])
+        week_profiles[st] = prof * rng.uniform(0.9, 1.1, 7)
+    base = rng.lognormal(mean=2.0, sigma=0.9, size=n)
+    store_scale = rng.lognormal(mean=0.0, sigma=0.4, size=n_stores)
+    trend = rng.normal(0.0, 0.0004, size=n)
+    annual_amp = rng.uniform(0.05, 0.3, size=n)
+    annual_phase = rng.uniform(0, 2 * math.pi, size=n)
+    alpha = rng.uniform(0.08, 0.5, size=n)
+    intermittent = rng.random(n) < 0.15
+    mu = np.empty((total_days, n))
+    for j in range(n):
+        st = j // n_menus
+        annual = 1.0 + annual_amp[j] * np.sin(2 * math.pi * t / 365.25 + annual_phase[j])
+        level = base[j] * store_scale[st] * np.exp(trend[j] * t)
+        mu[:, j] = level * week_profiles[st][dow] * annual
+    for st in range(n_stores):  # promotions
+        starts = rng.integers(0, total_days - 3, rng.integers(8, 20))
+        for start in starts:
+            dur = int(rng.integers(1, 4))
+            mu[start:start + dur, st * n_menus:(st + 1) * n_menus] *= rng.uniform(1.5, 3.0)
+    lam = rng.gamma(1.0 / alpha[None, :], mu * alpha[None, :])
+    demand = rng.poisson(lam).astype(np.float64)
+    demand[:, intermittent] = np.where(
+        rng.random((total_days, intermittent.sum())) < 0.55, 0.0, demand[:, intermittent])
+    for st in range(n_stores):  # closures: whole store zero-days
+        for c in rng.integers(0, total_days, rng.integers(5, 15)):
+            demand[c, st * n_menus:(st + 1) * n_menus] = 0.0
+    observed = rng.random((total_days, n)) >= 0.02  # rows missing from the CSV
+    return days, ids, demand, observed
+
+
+def simulate_long(np, seed: int, n_series: int, total: int):
+    """``tools/make_long_context_benchmark.py::simulate`` over ``total`` hours
+    with ``datetime64`` stamps: the same draws in the same order. Returns
+    (the generator, stamps [T] datetime64[h], demand [T, N] float64,
+    observed [T, N])."""
+
+    import math
+
+    rng = np.random.default_rng(seed)
+    stamps = np.datetime64("2024-01-01T00", "h") + np.arange(total)
     days = stamps.astype("datetime64[D]")
     hour = (stamps - days).astype(np.int64)
-    dow = (days.astype(np.int64) + 3) % 7  # Monday 0: 1970-01-01 was a Thursday
-    t = np.arange(LONG_HOURS)
-    base = rng.lognormal(1.6, 0.7, n)
-    daily_phase, daily_amp = rng.uniform(0, 2 * np.pi, n), rng.uniform(0.4, 0.9, n)
-    weekly_amp = rng.uniform(0.1, 0.5, n)
-    weekend_sign = np.where(rng.random(n) < 0.5, 1.0, -1.0)
-    drift, alpha = rng.normal(0.0, 5e-5, n), rng.uniform(0.1, 0.45, n)
-    daily = 1.0 + daily_amp * np.sin(2 * np.pi * hour[:, None] / 24.0 + daily_phase)
-    weekly = 1.0 + weekly_amp * weekend_sign * ((dow >= 5)[:, None] - 2.0 / 7.0)
-    mu = np.maximum(base * np.exp(drift * t[:, None]) * daily * weekly, 0.05)
-    for _ in range(n // 2):  # bursts
-        j, start = rng.integers(0, n), rng.integers(0, LONG_HOURS - 36)
-        mu[start:start + int(rng.integers(6, 37)), j] *= rng.uniform(1.8, 3.5)
-    counts = rng.poisson(rng.gamma(1.0 / alpha, mu * alpha)).astype(np.float32)
-    observed = (rng.random((LONG_HOURS, n)) >= 0.01).astype(np.float32)
-    counts *= observed
-    floors = rng.uniform(0.01, 0.1, n).astype(np.float32)
-    return stamps, counts, observed, floors
+    dow = (days.astype(np.int64) + 3) % 7
+    t = np.arange(total)
+    base = rng.lognormal(mean=1.6, sigma=0.7, size=n_series)
+    daily_phase = rng.uniform(0, 2 * math.pi, n_series)
+    daily_amp = rng.uniform(0.4, 0.9, n_series)
+    weekly_amp = rng.uniform(0.1, 0.5, n_series)
+    weekend_sign = np.where(rng.random(n_series) < 0.5, 1.0, -1.0)
+    drift = rng.normal(0.0, 5e-5, n_series)
+    alpha = rng.uniform(0.1, 0.45, n_series)
+    mu = np.empty((total, n_series))
+    weekend = (dow >= 5).astype(np.float64)
+    for j in range(n_series):
+        daily = 1.0 + daily_amp[j] * np.sin(2 * math.pi * hour / 24.0 + daily_phase[j])
+        weekly = 1.0 + weekly_amp[j] * weekend_sign[j] * (weekend - 2.0 / 7.0)
+        level = base[j] * np.exp(drift[j] * t)
+        mu[:, j] = np.maximum(level * daily * weekly, 0.05)
+    for _ in range(max(4, n_series // 2)):  # bursts
+        j = rng.integers(0, n_series)
+        start = rng.integers(0, total - 36)
+        dur = int(rng.integers(6, 37))
+        mu[start:start + dur, j] *= rng.uniform(1.8, 3.5)
+    lam = rng.gamma(1.0 / alpha[None, :], mu * alpha[None, :])
+    demand = rng.poisson(lam).astype(np.float64)
+    observed = rng.random((total, n_series)) >= 0.01
+    return rng, stamps, demand, observed
+
+
+def _write_long_csv(np, path, header, stamps, ids, values, observed, encoding: str) -> int:
+    """The generators' ``to_long(...).to_csv``: one row per observed (stamp,
+    id), sorted by stamp text then id, the count as an integer. Returns the
+    row count."""
+
+    order = sorted(range(len(ids)), key=ids.__getitem__)
+    lines = [",".join(header)]
+    counts = values.astype(np.int64)
+    for ti, stamp in enumerate(stamps):
+        for j in order:
+            if observed[ti, j]:
+                lines.append(f"{stamp},{ids[j]},{counts[ti, j]}")
+    Path(path).parent.mkdir(parents=True, exist_ok=True)
+    with open(path, "w", encoding=encoding, newline="") as f:
+        f.write("\n".join(lines) + "\n")
+    return len(lines) - 1
+
+
+def write_demand_csv(np, path, seed: int = 7, n_stores: int = 8, n_menus: int = 24,
+                     t_train: int = 560) -> int:
+    """``train.csv`` of ``tools/make_demand_benchmark.py OUTDIR`` (its first
+    ``t_train`` days, UTF-8 with a byte-order mark), byte for byte."""
+
+    days, ids, demand, observed = simulate_demand(np, seed, n_stores, n_menus, t_train)
+    return _write_long_csv(np, path, DEMAND_COLUMNS, [str(d) for d in days[:t_train]], ids,
+                           demand[:t_train], observed[:t_train], "utf-8-sig")
+
+
+def write_long_context_csv(np, path, seed: int = 5, n_series: int = 48,
+                           t_train: int = 2400) -> int:
+    """``train.csv`` of ``tools/make_long_context_benchmark.py OUTDIR`` (its
+    first ``t_train`` hours), byte for byte."""
+
+    total = t_train + LONG_TEST_FILES * LONG_HORIZON + LONG_TEST_HISTORY
+    _, stamps, demand, observed = simulate_long(np, seed, n_series, total)
+    text = [str(s).replace("T", " ") + ":00:00" for s in stamps[:t_train]]
+    ids = [f"S{j:03d}" for j in range(n_series)]
+    return _write_long_csv(np, path, ("date", "id", "target"), text, ids, demand[:t_train],
+                           observed[:t_train], "utf-8")
 
 
 def long_per(cfg) -> int:
@@ -1673,7 +1848,7 @@ def long_kernels(torch, F, fold, cuda_fold, gen, dev) -> dict:
     return out
 
 
-def long_forecasters(forecaster, params, cfg, data, device="cuda"):
+def long_forecasters(forecaster, rec, params, cfg, data, device="cuda"):
     """A ``Forecaster`` of the long recipe over the 48 series, and its request:
     the last 512 hours before the final 24 of the data, hourly stamps."""
 
@@ -1682,13 +1857,13 @@ def long_forecasters(forecaster, params, cfg, data, device="cuda"):
     ids = [f"S{j:03d}" for j in range(LONG_SERIES)]
     scaler = {sid: (float(counts[:split, j].mean()), float(counts[:split, j].std() + 1.0))
               for j, sid in enumerate(ids)}
-    fc = forecaster.Forecaster(params, cfg, ids, scaler, "zscore", None, floors, LONG_TF,
+    fc = forecaster.Forecaster(params, cfg, ids, scaler, "zscore", None, floors, rec.time_features,
                                freq="h", device=device)
     end = LONG_HOURS - LONG_H
     return fc, counts[end - LONG_L:end], stamps[end - LONG_L:end]
 
 
-def serve_long(torch, np, forecaster, cuda_fold, cfg, params, data) -> dict:
+def serve_long(torch, np, forecaster, cuda_fold, rec, cfg, params, data) -> dict:
     """``[serve-long]``: the long recipe served over its 48 series, one
     request of 512 hours with 24 ahead on the live selector. Eager
     (``cuda_graphs`` off) and replayed, ``LONG_REQUESTS`` timed requests each:
@@ -1700,7 +1875,7 @@ def serve_long(torch, np, forecaster, cuda_fold, cfg, params, data) -> dict:
     of each under the profiler."""
 
     per = long_per(cfg)
-    fc, history, dates = long_forecasters(forecaster, params, cfg, data)
+    fc, history, dates = long_forecasters(forecaster, rec, params, cfg, data)
     eager(fc)
     first = fc.forecast(history, dates=dates)
     torch.cuda.synchronize()
@@ -1727,7 +1902,7 @@ def serve_long(torch, np, forecaster, cuda_fold, cfg, params, data) -> dict:
     prof_eager = profile(torch, lambda: fc.forecast(history, dates=dates), 20,
                          "eager long request", p50)
 
-    graphed, _, _ = long_forecasters(forecaster, params, cfg, data)
+    graphed, _, _ = long_forecasters(forecaster, rec, params, cfg, data)
     clear_counts(cuda_fold)
     got = graphed.forecast(history, dates=dates)  # warm-up, capture, replay
     check_first_call(cuda_fold, ("tap_conv_fwd",), per, "first replayed long request",
@@ -1754,7 +1929,7 @@ def serve_long(torch, np, forecaster, cuda_fold, cfg, params, data) -> dict:
     cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
     raw = {}
     for device in ("cuda", "cpu"):
-        f32, hist, st = long_forecasters(forecaster, params, cfg32, data, device)
+        f32, hist, st = long_forecasters(forecaster, rec, params, cfg32, data, device)
         raw[device] = eager(f32)._forecast_raw(hist, dates=st)[:2]
     for name, a, b in zip(("rate", "dispersion"), raw["cuda"], raw["cpu"]):
         err = float(np.abs(a - b).max())
@@ -1764,7 +1939,7 @@ def serve_long(torch, np, forecaster, cuda_fold, cfg, params, data) -> dict:
             "profile": prof_eager, "profile_graph": prof_graph}
 
 
-def long_batches(np, windows, engine_mod, data, n: int):
+def long_batches(np, windows, engine_mod, rec, data, n: int):
     """The training windows of the long recipe: 512 + 24 hours of the first
     1,328 (the holdout keeps 1,072), shuffled at B=64 (594 batches an
     epoch), the first ``n`` gathered; the batcher and a copy function."""
@@ -1774,7 +1949,7 @@ def long_batches(np, windows, engine_mod, data, n: int):
     src = windows.SlidingWindowSource(
         counts[:split], LONG_L, LONG_H, "direct", valid_mask=observed[:split],
         series_ids=np.arange(LONG_SERIES), time_index=stamps[:split],
-        time_feature_config=LONG_TF)
+        time_feature_config=rec.time_features)
     train = windows.WindowBatcher([src], LONG_B, shuffle=True, drop_last=True, seed=0)
 
     def to_device(batch, device=DEVICE):
@@ -1822,7 +1997,7 @@ def long_steps(torch, np, cuda_fold, eng, state, gen, lr, batches, to_device, wh
     return state, losses, ms[LONG_WARMUP:], timed
 
 
-def train_long(torch, np, windows, engine_mod, losses_mod, optim, cuda_fold, cfg, params,
+def train_long(torch, np, windows, engine_mod, losses_mod, optim, cuda_fold, rec, cfg, params,
                data) -> dict:
     """``[train-long]``: the long recipe's training steps at B=64 and the
     recipe's rate, remat on. Eager then replayed from one initial state,
@@ -1838,21 +2013,21 @@ def train_long(torch, np, windows, engine_mod, losses_mod, optim, cuda_fold, cfg
     gradients within 1e-4 of the largest); 10 replayed steps of each path
     under the profiler."""
 
-    train, batches, to_device = long_batches(np, windows, engine_mod, data,
+    train, batches, to_device = long_batches(np, windows, engine_mod, rec, data,
                                              LONG_WARMUP + LONG_STEPS)
-    warmup = optim.resolve_warmup(LONG_TRAIN["warmup_steps"], None, len(train))
-    lr = optim.LRController(LONG_TRAIN["lr"], LONG_TRAIN["epochs"],
-                            {"type": "cosine", "eta_min": LONG_TRAIN["eta_min"]},
+    warmup = optim.resolve_warmup(rec.schedule["warmup_steps"], None, len(train))
+    lr = optim.LRController(rec.schedule["lr"], rec.schedule["epochs"],
+                            {"type": "cosine", "eta_min": rec.schedule["eta_min"]},
                             warmup).lr_for_epoch(1)
     print(f"[train-long] {train.total} windows, {len(train)} batches of {LONG_B} an epoch; lr "
-          f"{lr:.4e} (epoch 1 of the recipe's cosine schedule, {LONG_TRAIN['warmup_steps']} "
+          f"{lr:.4e} (epoch 1 of the recipe's cosine schedule, {rec.schedule['warmup_steps']} "
           f"warm-up steps)")
 
     # peak memory and p50, remat on and off: eager, before any graph
     mem = {}
     for remat in (True, False):
         c = dataclasses.replace(cfg, use_checkpoint=remat)
-        eng = eager(engine_mod.Engine(c, params, **LONG_ENGINE))
+        eng = eager(engine_mod.Engine(c, params, **rec.engine))
         state, gen = eng.init_state(), torch.Generator(device=DEVICE).manual_seed(3)
         torch.cuda.synchronize()
         base = torch.cuda.memory_allocated()
@@ -1873,7 +2048,7 @@ def train_long(torch, np, windows, engine_mod, losses_mod, optim, cuda_fold, cfg
           f"eager step p50 {mem[True]['p50']:.3f} against {mem[False]['p50']:.3f} ms "
           f"({mem[True]['p50'] / mem[False]['p50']:.2f}x)")
 
-    probe = eager(engine_mod.Engine(cfg, params, **LONG_ENGINE))
+    probe = eager(engine_mod.Engine(cfg, params, **rec.engine))
     spec = engine_mod.Engine.frozen_spec_from_telemetry(
         probe.collect_period_telemetry(None, to_device(batches[0])), cfg.n_layers)
     check(spec is not None and unique_periods(spec) >= 1, f"long spec {spec}")
@@ -1883,20 +2058,20 @@ def train_long(torch, np, windows, engine_mod, losses_mod, optim, cuda_fold, cfg
     cfgs = {"dynamic": cfg, "frozen": dataclasses.replace(cfg, frozen_periods=spec)}
     runs = {}
     for graphed in (False, True):
-        engines = {path: engine_mod.Engine(c, params, **LONG_ENGINE) for path, c in cfgs.items()}
+        engines = {path: engine_mod.Engine(c, params, **rec.engine) for path, c in cfgs.items()}
         if not graphed:
             for eng in engines.values():
                 eager(eng)
         state = engines["dynamic"].init_state()
         gen = torch.Generator(device=DEVICE).manual_seed(11)
-        rec = {}
+        by_path = {}
         for path, eng in engines.items():
             what = f"{'replayed' if graphed else 'eager'} long {path}"
             state, losses, ms, counts = long_steps(torch, np, cuda_fold, eng, state, gen, lr,
                                                    batches, to_device, what, graphed,
                                                    long_step_counts(eng.cfg))
-            rec[path] = dict(losses=losses, ms=ms, counts=counts, engine=eng)
-        runs[graphed] = dict(rec=rec, state=state, gen=gen)
+            by_path[path] = dict(losses=losses, ms=ms, counts=counts, engine=eng)
+        runs[graphed] = dict(rec=by_path, state=state, gen=gen)
     g, e = runs[True], runs[False]
     got_t, want_t = ([t.detach() for t in r["state"].tensors()] for r in (g, e))
     scale = max(1.0, max(float(t.abs().max()) for t in want_t))
@@ -1926,13 +2101,13 @@ def train_long(torch, np, windows, engine_mod, losses_mod, optim, cuda_fold, cfg
         out[path] = dict(p50=p50, p50_eager=p50_e, counts=want["counts"], profile=prof)
 
     # 30 replayed steps on one batch at the recipe's base rate lower its loss
-    fit = engine_mod.Engine(cfg, params, **LONG_ENGINE)
+    fit = engine_mod.Engine(cfg, params, **rec.engine)
     fit_state, fit_gen = fit.init_state(), torch.Generator(device=DEVICE).manual_seed(4)
     fixed = to_device(batches[0])
-    fit_losses = torch.stack([fit.train_step(fit_state, LONG_TRAIN["lr"], fit_gen, fixed)[1]
+    fit_losses = torch.stack([fit.train_step(fit_state, rec.schedule["lr"], fit_gen, fixed)[1]
                               for _ in range(OVERFIT_STEPS)]).cpu().numpy()
     last = float(np.mean(fit_losses[-5:]))
-    print(f"[train-long] {OVERFIT_STEPS} replayed steps on one batch at lr {LONG_TRAIN['lr']}: "
+    print(f"[train-long] {OVERFIT_STEPS} replayed steps on one batch at lr {rec.schedule['lr']}: "
           f"loss {fit_losses[0]:.4f} -> {last:.4f} (mean of the last 5)")
     check(bool(np.isfinite(fit_losses).all()) and last < float(fit_losses[0]),
           "the long fixed-batch loss did not fall")
@@ -1942,13 +2117,13 @@ def train_long(torch, np, windows, engine_mod, losses_mod, optim, cuda_fold, cfg
               for k, v in to_device(batches[0], "cpu").items()}
     for path, c in cfgs.items():
         out[path]["f32"] = train_parity(
-            torch, np, engine_mod, losses_mod, cuda_fold, c, params, parity, per=long_per(c),
-            what=f"long float32 {path} step (B={LONG_PARITY_B}, remat on)",
-            engine_kw=LONG_ENGINE, nll=False)
+            torch, np, engine_mod, losses_mod, cuda_fold, c, params, rec.engine, parity,
+            per=long_per(c), what=f"long float32 {path} step (B={LONG_PARITY_B}, remat on)",
+            nll=False)
     return out
 
 
-def train_long_resident(torch, np, windows, dw, engine_mod, cuda_fold, cfg, params, data,
+def train_long_resident(torch, np, windows, dw, engine_mod, cuda_fold, rec, cfg, params, data,
                         lr: float) -> dict:
     """``[train-long-resident]``: the long recipe's training windows staged
     on the card, then two dynamic resident epochs of 594 steps of 64 (a plan
@@ -1960,15 +2135,15 @@ def train_long_resident(torch, np, windows, dw, engine_mod, cuda_fold, cfg, para
 
     from flow_timesnet_tpu_torch import graphs
 
-    train, _, to_device = long_batches(np, windows, engine_mod, data, 0)
+    train, _, to_device = long_batches(np, windows, engine_mod, rec, data, 0)
     src = train.sources[0]
     floors = data[3]
     staged = dw.stage_windows([src.X], [src.M], src.L, src.H, src.stride, "direct",
                               marks=[src.marks], static=None, sigma_vector=floors, device=DEVICE)
     check(staged.total == train.total, f"staged {staged.total} windows, batched {train.total}")
-    eng = engine_mod.Engine(cfg, params, **LONG_ENGINE)
+    eng = engine_mod.Engine(cfg, params, **rec.engine)
     state, gen = eng.init_state(), torch.Generator(device=DEVICE).manual_seed(21)
-    ref = eager(engine_mod.Engine(cfg, params, **LONG_ENGINE))
+    ref = eager(engine_mod.Engine(cfg, params, **rec.engine))
     ref_state = ref.init_state()
     clone_state(torch, state, ref_state)
     ref_gen = torch.Generator(device=DEVICE)
@@ -2051,6 +2226,117 @@ def path_counters(cuda_fold) -> dict:
 T0 = time.perf_counter()
 
 
+# -- train_once from a config and a CSV ---------------------------------------
+
+def train_once_phase(torch, np, cuda_fold, label: str, recipe: str, write_csv, epochs: int,
+                     sizes, must_freeze: bool) -> dict:
+    """``[train-once]`` / ``[train-once-long]``: the recipe's benchmark CSV
+    written with numpy into a temporary directory, then the port's
+    ``train_once`` on the recipe as the port's config layer reads it, with
+    overrides for the data paths, ``artifacts.dir`` and ``train.epochs`` only:
+    full width and depth, on the resident pipeline (and, with ``must_freeze``,
+    on the frozen-period path by the last epoch). Each epoch's seconds and
+    windows/s, the graphs' warm-up and capture time, the host time around
+    the epochs and each hand kernel's runs on the card (every bf16 kernel
+    must have run at each size, no float32 one). Then the checkpoint, the
+    scaler pickle and ``config_used.yaml`` are loaded back into a
+    ``Forecaster``, which forecasts the last window of the CSV: finite and
+    >= 0. Returns the card's kernel runs."""
+
+    import tempfile
+
+    from flow_timesnet_tpu_torch import convert, forecaster, graphs
+    from flow_timesnet_tpu_torch.build import timesnet_config_from_dict
+    from flow_timesnet_tpu_torch.config import PipelineConfig, load_yaml
+    from flow_timesnet_tpu_torch.data.pivot import read_long_pivot
+    from flow_timesnet_tpu_torch.train import train_once
+    from flow_timesnet_tpu_torch.utils import artifacts
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        data = Path(tmp) / "data"
+        t0 = time.perf_counter()
+        rows = write_csv(np, data / "train.csv")
+        print(f"[{label}] wrote {rows} rows of {recipe}'s benchmark in "
+              f"{time.perf_counter() - t0:.2f} s")
+        cfg = PipelineConfig.from_files(str(REPO / "configs" / recipe), overrides=[
+            f"data.train_csv={data / 'train.csv'}", f"data.test_dir={data / 'test'}",
+            f"data.sample_submission={data / 'sample_submission.csv'}",
+            f"artifacts.dir={Path(tmp) / 'artifacts'}", f"train.epochs={epochs}"])
+        captures = []
+        real_capture = graphs.capture
+
+        def timed_capture(*args, **kwargs):  # warm-up and capture of each graph
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = real_capture(*args, **kwargs)
+            torch.cuda.synchronize()
+            captures.append(time.perf_counter() - t)
+            return out
+
+        clear_counts(cuda_fold)
+        graphs.capture = timed_capture
+        try:
+            t0 = time.perf_counter()
+            best_nll, paths = train_once(cfg)
+            seconds = time.perf_counter() - t0
+        finally:
+            graphs.capture = real_capture
+        ran = run_counts(cuda_fold)
+        m = paths["metrics"]
+        check(m["input_pipeline"] == "device", f"{label}: the {m['input_pipeline']} pipeline ran")
+        check(len(m["epoch_seconds"]) == epochs, f"{label}: {len(m['epoch_seconds'])} epochs")
+        check(any(m["epoch_frozen"]) or not must_freeze, f"{label}: no epoch froze")
+        check(bool(np.isfinite(m["epoch_loss"]).all()) and bool(np.isfinite(best_nll)),
+              f"{label}: losses {m['epoch_loss']}, best NLL {best_nll}")
+        for ep in range(epochs):
+            print(f"[{label}] epoch {ep + 1}: {m['epoch_seconds'][ep]:.3f} s "
+                  f"({m['epoch_windows_per_s'][ep]:.1f} windows/s; the probe "
+                  f"{m['epoch_probe_seconds'][ep]:.3f} s), "
+                  f"{'frozen' if m['epoch_frozen'][ep] else 'dynamic'}, loss "
+                  f"{m['epoch_loss'][ep]:.6f}, val NLL {m['epoch_val_nll'][ep]:.6f}, val sMAPE "
+                  f"{m['epoch_val_smape'][ep]:.6f}, evaluation {m['epoch_eval_seconds'][ep]:.3f} s")
+        print(f"[{label}] train_once {seconds:.3f} s: setup {m['setup_seconds']:.3f} s, epochs "
+              f"{sum(m['epoch_seconds']):.3f} s, evaluations {sum(m['epoch_eval_seconds']):.3f} s, "
+              f"between epochs {m['between_epochs_seconds']:.3f} s, artifacts "
+              f"{m['artifact_seconds']:.3f} s; {len(captures)} graphs warmed up and captured in "
+              f"{sum(captures):.3f} s (inside the epochs and evaluations); best epoch "
+              f"{m['best_epoch']}, val NLL {best_nll:.6f}, sMAPE {m['smape']:.6f}")
+        for kind in KINDS:
+            for kh, kw in sizes:
+                size = f"{kh}x{kw}"
+                check(ran[f"{kind}_mma"].get(size, 0) > 0 and ran[kind] == ran[f"{kind}_mma"],
+                      f"{label}: {kind} {size} ran {ran[kind]}, tensor-core {ran[kind + '_mma']}")
+        print(f"[{label}] the card ran {ran}")
+        art = {k: Path(paths[k]) for k in ("model", "scaler", "schema", "config", "signature",
+                                           "metadata")}
+        check(all(p.is_file() for p in art.values()), f"{label}: artifacts {art}")
+        print(f"[{label}] artifacts: {', '.join(sorted(p.name for p in art.values()))}")
+
+        used = load_yaml(str(art["config"]))
+        meta = artifacts.load_pickle(str(art["scaler"]))
+        tree, aux = artifacts.load_checkpoint(str(art["model"]))
+        tf = meta["time_features"]
+        model_cfg = timesnet_config_from_dict(
+            used, static_dim=meta["static_features"].shape[1], time_feature_dim=tf["feature_dim"],
+            id_vocab=len(meta["ids"]))
+        fc = forecaster.Forecaster(
+            convert.params_from_jax(tree, model_cfg), model_cfg, meta["ids"], meta["scaler"],
+            meta["method"], meta["static_features"],
+            np.asarray(aux["min_sigma_vector"]).reshape(-1), tf["config"], tf["freq"])
+        d = used["data"]
+        wide = read_long_pivot(d["train_csv"], d["date_col"], d["id_col"], d["target_col"],
+                               encoding=d["encoding"])
+        check(wide.columns == list(meta["ids"]), f"{label}: ids of the CSV and the scaler")
+        L = model_cfg.input_len
+        out = fc.forecast(wide.values[-L:], dates=wide.index[-L:])
+        check(out.shape == (model_cfg.pred_len, len(meta["ids"])) and bool(np.isfinite(out).all())
+              and bool((out >= 0).all()), f"{label}: forecast {out.shape}, finite and >= 0")
+        print(f"[{label}] the artifacts served {len(meta['ids'])} series x {L} steps "
+              f"(freq {tf['freq']}, spec {'frozen' if used['train'].get('frozen_periods_spec') else 'none'} "
+              f"stored): forecast [{float(out.min()):.3f}, {float(out.max()):.3f}]")
+    return ran
+
+
 def stamp(phase: str) -> None:
     print(f"[clock] {phase} done at {time.perf_counter() - T0:.1f} s")
 
@@ -2072,8 +2358,10 @@ def main() -> int:
     from flow_timesnet_tpu_torch import losses as losses_mod
     from flow_timesnet_tpu_torch.data import device_windows, windows
     from flow_timesnet_tpu_torch.device import resolve_device
-    from flow_timesnet_tpu_torch.models import timesnet
     from flow_timesnet_tpu_torch.ops import _build, cuda_fold, fold
+
+    recipes = load_recipes()
+    flag_rec, long_rec = recipes["flagship"], recipes["long"]
 
     # 1. environment ----------------------------------------------------------
     dev = resolve_device("cuda")  # the port's device policy, TF32 off included
@@ -2143,7 +2431,7 @@ def main() -> int:
     stamp("kernels at the long-context shapes")
 
     # 4. serve at the flagship width -------------------------------------------
-    cfg = flagship_config(timesnet)
+    cfg = flagship_config(flag_rec)
     params = flagship_params(torch, convert, cfg)
     n_params = sum(v.numel() for v in params.values())
     check(n_params == 2_536_356, f"flagship parameter count {n_params}")
@@ -2274,18 +2562,19 @@ def main() -> int:
     bwd_err = check_backward_kernels(torch, fold, cuda_fold, gen, dev)
 
     # 7. train at the flagship width -----------------------------------------------
-    trained = train_phase(torch, np, (windows, engine_mod, optim, cuda_fold), cfg, params, dev)
+    trained = train_phase(torch, np, (windows, engine_mod, optim, cuda_fold), flag_rec, cfg,
+                          params, dev)
     f32_counts = train_parity(torch, np, engine_mod, losses_mod, cuda_fold, cfg, params,
-                                 trained["parity_batch"])
+                              flag_rec.engine, trained["parity_batch"])
     step_prof = profile(torch, trained["step"], PROFILED_STEPS, "step", trained["p50"])
     stamp("train")
 
     # 7, frozen: the trainer's swap to the frozen-period path ------------------------
     frozen_step, frozen_p50, train_spec, frozen_counts = train_frozen(
-        torch, np, engine_mod, cuda_fold, cfg, params, trained, dev)
+        torch, np, engine_mod, cuda_fold, cfg, params, flag_rec.engine, trained, dev)
     f32_frozen = train_parity(torch, np, engine_mod, losses_mod, cuda_fold,
                               dataclasses.replace(cfg, frozen_periods=train_spec), params,
-                              trained["parity_batch"], per=2 * unique_periods(train_spec),
+                              flag_rec.engine, trained["parity_batch"], per=2 * unique_periods(train_spec),
                               what="float32 frozen step")
     stamp("train-frozen")
 
@@ -2374,7 +2663,8 @@ def main() -> int:
     # the float32 step's and the frozen paths' profiles, after the kernel
     # timings: a profiler session of a whole step, just before them, made
     # later sessions lose records
-    float32_steps(torch, np, engine_mod, cfg, params, trained["fixed"], trained["lr"], dev)
+    float32_steps(torch, np, engine_mod, cfg, params, flag_rec.engine, trained["fixed"],
+                  trained["lr"], dev)
     versus(profile(torch, served_frozen["request"], PROFILED, "frozen request",
                    served_frozen["p50"]), req_prof, "request")
     versus(profile(torch, frozen_step, PROFILED_STEPS, "frozen step", frozen_p50), step_prof,
@@ -2387,29 +2677,41 @@ def main() -> int:
     graph_serve = serve_graph(torch, np, cuda_fold, make_fc, request, cfg, served_frozen["spec"],
                               eager_runs)
     stamp("serve-graph")
-    graph_train = train_graph(torch, np, engine_mod, cuda_fold, cfg, params, trained, train_spec,
+    graph_train = train_graph(torch, np, engine_mod, cuda_fold, cfg, params, flag_rec.engine,
+                              trained, train_spec,
                               {"dynamic": trained["p50"], "frozen": frozen_p50})
     stamp("train-graph")
     resident = train_resident(torch, np, windows, device_windows, engine_mod, cuda_fold, cfg,
-                              params, trained["lr"])
+                              params, flag_rec.engine, trained["lr"])
     stamp("train-resident")
     graph_runs = {"serve_graph": graph_serve, "train_graph": graph_train, "resident": resident}
 
     # 12-14. the long-context recipe, served and trained
-    long_cfg = long_config(timesnet)
+    long_cfg = long_config(long_rec)
     long_params = flagship_params(torch, convert, long_cfg)
     print(f"[serve-long] the long-context recipe at full width: "
           f"{sum(v.numel() for v in long_params.values()):,} parameters, use_checkpoint on")
     data = long_data(np)
-    served_long = serve_long(torch, np, forecaster, cuda_fold, long_cfg, long_params, data)
+    served_long = serve_long(torch, np, forecaster, cuda_fold, long_rec, long_cfg, long_params,
+                             data)
     stamp("serve-long")
     trained_long = train_long(torch, np, windows, engine_mod, losses_mod, optim, cuda_fold,
-                              long_cfg, long_params, data)
+                              long_rec, long_cfg, long_params, data)
     stamp("train-long")
     resident_long = train_long_resident(torch, np, windows, device_windows, engine_mod,
-                                        cuda_fold, long_cfg, long_params, data,
+                                        cuda_fold, long_rec, long_cfg, long_params, data,
                                         trained_long["lr"])
     stamp("train-long-resident")
+
+    # 15-16. train_once from a config and a CSV: the flagship and the long recipe
+    train_once_runs = {
+        "train_once": train_once_phase(torch, np, cuda_fold, "train-once", "demand_benchmark.yaml",
+                                       write_demand_csv, TRAIN_ONCE_EPOCHS, KERNEL_SIZES, True)}
+    stamp("train-once")
+    train_once_runs["train_once_long"] = train_once_phase(
+        torch, np, cuda_fold, "train-once-long", "long_context.yaml", write_long_context_csv,
+        TRAIN_ONCE_LONG_EPOCHS, LONG_SIZES, False)
+    stamp("train-once-long")
 
     # the exact-extent numbers, the frozen paths' and the graphs' launches of each kernel
     for row in kernels:
@@ -2435,6 +2737,8 @@ def main() -> int:
                 "launches_resident_long": route_count(resident_long["counts"], kind, route, key),
                 "launches_from": "bf16 eager requests, steps and a steady resident epoch; "
                                  "float32: the long float32 parity steps"}
+        for run, got in train_once_runs.items():  # bf16 recipes: the float32 rows ran nothing
+            row[f"launches_{run}"] = route_count(got, kind, route, key)
         row["exact_extent"] = {
             f"p{p}": {**dense[name][f"p{p}"], "lp": L + (-L) % p} for p in DENSE_PERIODS}
         row["exact_extent_max_abs_err"] = dense[name]["max_abs_err"]

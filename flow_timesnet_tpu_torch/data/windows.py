@@ -6,9 +6,10 @@ Samples are (window, series) pairs: ``len = windows_per_series * N``,
 dim 1). A batch is one vectorised numpy gather. Calendar features come from
 ``datetime64`` dates through ``data/time_features.py``. The shuffle draws
 from ``np.random.default_rng`` exactly as the JAX package's batcher does, so
-both give the same batches for the same seed and epoch. Augmentation
-(``add_noise_std``, ``time_shift``) and the native C++ gather are not ported
-yet.
+both give the same batches for the same seed and epoch. :func:`build_batcher`
+assembles a batcher over per-fold arrays as the JAX trainer does.
+Augmentation (``add_noise_std``, ``time_shift``) and the native C++ gather
+are not ported yet.
 """
 
 from __future__ import annotations
@@ -53,6 +54,7 @@ class SlidingWindowSource:
         time_index: np.ndarray | None = None,
         time_features: np.ndarray | None = None,
         time_feature_config: Dict[str, Any] | None = None,
+        time_frequency: str | None = None,
     ) -> None:
         if mode not in ("direct", "recursive"):
             raise ValueError("mode must be 'direct' or 'recursive'")
@@ -107,6 +109,9 @@ class SlidingWindowSource:
                 "time features enabled but no time_index or precomputed time_features provided"
             )
         self.time_feature_dim = 0 if self.marks is None else int(self.marks.shape[1])
+        # the pandas alias of the time index's step (the JAX package reads
+        # it off its DatetimeIndex); None where the index has none
+        self.time_frequency = time_frequency if time_index is not None else None
 
         if series_static is not None:
             static = np.asarray(series_static, dtype=np.float32)
@@ -202,6 +207,13 @@ class WindowBatcher:
                 return s.time_feature_dim
         return 0
 
+    @property
+    def time_frequency(self) -> Optional[str]:
+        for s in self.sources:
+            if s.time_frequency:
+                return str(s.time_frequency)
+        return None
+
     def _gather_global(self, idx: np.ndarray) -> WindowBatch:
         pieces: List[WindowBatch] = []
         order = np.argsort(idx, kind="stable")
@@ -261,3 +273,68 @@ def pad_batch_rows(batch: WindowBatch, target: int) -> WindowBatch:
     if pad <= 0:
         return batch
     return _map_batch(lambda _, v: np.pad(v, [(0, pad)] + [(0, 0)] * (v.ndim - 1)), batch)
+
+
+def build_batcher(
+    arrays: List[np.ndarray],
+    masks: List[Optional[np.ndarray]],
+    input_len: int,
+    pred_len: int,
+    stride: int,
+    mode: str,
+    batch_size: int,
+    shuffle: bool,
+    drop_last: bool,
+    recursive_pred_len: int | None = None,
+    augment: Dict[str, Any] | None = None,
+    series_static: List[Optional[np.ndarray]] | None = None,
+    series_ids: List[Optional[np.ndarray]] | None = None,
+    time_indices: List[Optional[np.ndarray]] | None = None,
+    time_features: List[Optional[np.ndarray]] | None = None,
+    time_feature_config: Dict[str, Any] | None = None,
+    seed: int = 0,
+    pad_final: bool = False,
+    time_frequency: str | None = None,
+) -> WindowBatcher:
+    """Assemble a :class:`WindowBatcher` over per-fold arrays, as the JAX
+    package's ``build_batcher`` does. ``time_indices`` are ``datetime64``
+    arrays; ``time_frequency`` is their step's pandas alias (the JAX
+    package reads it off each ``DatetimeIndex``)."""
+
+    if len(arrays) != len(masks):
+        raise ValueError("arrays and masks must have the same length")
+    for name, aux in (
+        ("series_static", series_static),
+        ("series_ids", series_ids),
+        ("time_indices", time_indices),
+        ("time_features", time_features),
+    ):
+        if aux is not None and len(aux) != len(arrays):
+            raise ValueError(f"{name} must match arrays length when provided")
+    sources = [
+        SlidingWindowSource(
+            arr,
+            input_len,
+            pred_len,
+            mode,
+            recursive_pred_len,
+            augment,
+            stride=stride,
+            valid_mask=msk,
+            series_static=series_static[i] if series_static is not None else None,
+            series_ids=series_ids[i] if series_ids is not None else None,
+            time_index=time_indices[i] if time_indices is not None else None,
+            time_features=time_features[i] if time_features is not None else None,
+            time_feature_config=time_feature_config,
+            time_frequency=time_frequency,
+        )
+        for i, (arr, msk) in enumerate(zip(arrays, masks))
+    ]
+    return WindowBatcher(
+        sources,
+        batch_size=batch_size,
+        shuffle=shuffle,
+        drop_last=drop_last,
+        seed=seed,
+        pad_final=pad_final,
+    )

@@ -77,7 +77,9 @@ def _run_cell(device: torch.device, kind: str, kh: int, kw: int) -> int:
         if torch.cuda.is_current_stream_capturing():
             raise RuntimeError("the kernel run cells are made by an eager launch, "
                                "before any CUDA graph capture")
-        buf = _run_buffers[device] = torch.zeros(_RUN_CELLS, dtype=torch.int32, device=device)
+        with torch.inference_mode(False):  # a normal tensor, which clear_kernel_runs may zero
+            buf = torch.zeros(_RUN_CELLS, dtype=torch.int32, device=device)
+        _run_buffers[device] = buf
     return buf.data_ptr() + 4 * slot
 
 

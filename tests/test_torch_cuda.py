@@ -1097,3 +1097,72 @@ def test_a_checkpointed_step_never_waits_for_the_card(cuda, frozen):
         finally:
             torch.cuda.set_sync_debug_mode(0)
     torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_train_once_replays_graphs_across_engine_swaps(cuda, tmp_path, monkeypatch):
+    """``train_once`` on the card through the scripted engine swaps of
+    ``tests/test_torch_train_once_control.py`` (AABBAA: freeze at epoch 2,
+    drift back to the dynamic engine at 3, a second spec at 4, a drift at
+    5, and at 6 the engine swapped out at 3 takes up the state again) at
+    bf16 with dropout on, once replaying CUDA graphs and once op by op
+    (``Engine.cuda_graphs = False``). Each engine's graphs were captured on
+    the state as it stood then; replayed after the state moved on, they
+    must give what the eager dispatch gives: every epoch's losses and
+    validation metrics equal bit for bit, and the same best checkpoint."""
+
+    import os
+    import sys
+
+    sys.path.insert(0, os.path.dirname(__file__))
+    from test_torch_train_once_control import (
+        control_config, record_epochs, script_specs, write_csv,
+    )
+
+    from flow_timesnet_tpu_torch import train as ptrain
+    from flow_timesnet_tpu_torch.engine import Engine
+
+    csv_path = write_csv(tmp_path)
+    wrappers = (cuda_fold.launches, cuda_fold.launches_dh, cuda_fold.launches_dw)
+    runs = {}
+    for graphed in (True, False):
+        with monkeypatch.context() as m:
+            specs = script_specs(m, "AABBAA")
+            log = record_epochs(m)
+            if not graphed:
+                init = Engine.__init__
+
+                def eager_init(self, *args, **kwargs):
+                    init(self, *args, **kwargs)
+                    self.cuda_graphs = False
+
+                m.setattr(Engine, "__init__", eager_init)
+            cfg = control_config(csv_path, tmp_path / f"graphed_{graphed}", 6)
+            cfg["train"]["device"] = "cuda"
+            cfg["model"].update(d_model=64, d_ff=128, dropout=0.1, compute_dtype="bfloat16")
+            _clear_fold_counts()
+            cuda_fold.clear_kernel_runs()
+            best, paths = ptrain.train_once(cfg)
+            ran = sum(n for kind in cuda_fold.kernel_runs().values() for n in kind.values())
+            wrapped = sum(sum(counter.values()) for counter in wrappers)
+            runs[graphed] = dict(specs=specs, log=log, best=best, paths=paths, ran=ran,
+                                 wrapped=wrapped)
+
+    g, e = runs[True], runs[False]
+    want = [None, "A", None, "B", None, "A"]
+    for run in (g, e):
+        assert run["log"]["specs"] == [None if k is None else run["specs"][k] for k in want]
+        assert run["log"]["engines"][5] is run["log"]["engines"][1]
+    assert g["specs"] == e["specs"]
+    # the graphed run replays (the kernels ran more often than any wrapper
+    # launched them); the eager run launches every kernel through its wrapper
+    assert g["ran"] > g["wrapped"] > 0 and e["ran"] == e["wrapped"] > 0
+    for ep, (lg, le) in enumerate(zip(g["log"]["losses"], e["log"]["losses"]), start=1):
+        assert np.array_equal(lg, le), f"epoch {ep}: losses"
+    for ep, (mg, me) in enumerate(zip(g["log"]["metrics"], e["log"]["metrics"]), start=1):
+        assert (float(mg["nll"]), float(mg["smape"])) == (float(me["nll"]), float(me["smape"])), (
+            f"epoch {ep}: validation metrics")
+    assert g["best"] == e["best"]
+    assert g["paths"]["metrics"]["best_epoch"] == e["paths"]["metrics"]["best_epoch"]
+    assert (tmp_path / "graphed_True" / "timesnet.msgpack").read_bytes() == (
+        tmp_path / "graphed_False" / "timesnet.msgpack").read_bytes()

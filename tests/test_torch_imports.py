@@ -1,9 +1,9 @@
 """Import hygiene of the PyTorch port: no JAX and nothing of the JAX package.
 
 Every module of ``flow_timesnet_tpu_torch`` and ``chip_smoke.py`` is parsed
-with ``ast``; an import of ``jax``, ``flax``, ``optax``, ``flow_timesnet_tpu``
-or ``pandas`` (which the card's machine lacks) anywhere in them (top level or
-inside a function) fails the test.
+with ``ast``; an import of ``jax``, ``flax``, ``optax``, ``flow_timesnet_tpu``,
+or of ``pandas``, ``yaml`` or ``msgpack`` (which the card's machine lacks),
+anywhere in them (top level or inside a function) fails the test.
 """
 
 import ast
@@ -12,7 +12,7 @@ from pathlib import Path
 import pytest
 
 REPO = Path(__file__).resolve().parents[1]
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "flow_timesnet_tpu", "pandas")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "flow_timesnet_tpu", "pandas", "yaml", "msgpack")
 SOURCES = sorted((REPO / "flow_timesnet_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
 
 
@@ -46,7 +46,10 @@ def test_no_jax_import(path):
 
 @pytest.mark.parametrize("name,bad", [("jax.numpy", True), ("flax.linen", True),
                                       ("flow_timesnet_tpu.ops.fold", True), ("optax", True),
-                                      ("pandas", True),
+                                      ("pandas", True), ("yaml", True), ("msgpack", True),
+                                      ("msgpack.fallback", True),
+                                      ("flow_timesnet_tpu_torch.utils.msgpack_codec", False),
+                                      ("flow_timesnet_tpu_torch.utils.yaml_subset", False),
                                       ("flow_timesnet_tpu_torch.ops.fold", False),
                                       ("torch", False), ("numpy", False)])
 def test_forbidden_names(name, bad):
