@@ -155,11 +155,32 @@ Phases, each of which fails the run (non-zero exit, no result line):
    width and depth on the resident pipeline, a freeze by epoch 3, every
    artifact written, each epoch's seconds and windows/s, the graphs' warm-up
    and capture time, the host time around the epochs, every bf16 kernel run
-   on the card at each size (no float32 one); then the checkpoint, scaler and
-   config loaded back into a ``Forecaster`` that serves the CSV's last window,
-   finite and >= 0;
+   on the card at each size (no float32 one); then ``Forecaster.from_artifacts``
+   on the artifact directory serves the CSV's last window, finite and >= 0;
 16. train-once-long: the same for configs/long_context.yaml on its
-   benchmark's ``train.csv`` (48 series x 2,400 hours), one epoch.
+   benchmark's ``train.csv`` (48 series x 2,400 hours), one epoch;
+17. predict: ``python -m flow_timesnet_tpu_torch.cli predict`` (``cli.main``)
+   on configs/demand_benchmark.yaml and phase 15's artifacts, before their
+   temporary directory goes, overridden for paths only, on the benchmark's
+   five TEST files and ``sample_submission.csv`` (written with numpy, the
+   generator's bytes): the sample's header and 35 rows in its order, finite
+   and >= 0, the bf16 forward run at each size (the kernels' own counts),
+   the wall seconds, the seconds to read and pivot and to render and write,
+   and each TEST file's forward in ms (the first with its warm-up and
+   capture, then replayed); ``model.compute_dtype=float32`` on the card =
+   on the CPU within 1e-4, the bf16 run = the bf16 CPU run within
+   ``BF16_CPU_TOL``; 64-row chunks on the frozen spec phase 15 froze on
+   (float32) = the whole batch within 1e-5, one graph captured and replayed
+   for all 15 chunks; ``predict.quantiles`` three more files, ordered; a
+   two-member ensemble of the artifacts and a copy = the single model;
+18. evaluate: ``cli.main(["evaluate", ...])`` on the same artifacts (the
+   last 56 days of the training CSV, the resident pass, with
+   ``evaluation.quantiles``): NLL, sMAPE, wsMAPE finite, coverage in [0, 1]
+   rising with q, the bf16 forward run at each size; the artifacts with a
+   float32 ``config_used.yaml``, card = CPU within 1e-4 relative;
+19. predict-long: phase 17's checks (no ensemble) on phase 16's artifacts:
+   two TEST files x 48 series x 512 hours, 24 ahead, 16-row chunks on the
+   last probe's spec (one epoch never freezes).
 
 The recipes' blocks (the models, schedules and engine settings of phases
 4-14) are read from configs/demand_benchmark.yaml and
@@ -185,7 +206,10 @@ card in the replayed paths of phases 9-11 (``launches_serve_graph`` over
 ``long_context``: the long-context times of phase 3 by geometry and the launches of
 phases 12-14 (the float32 rows from the long float32 parity steps), and
 ``launches_train_once`` / ``launches_train_once_long``: each kernel's runs on
-the card in phases 15 and 16 (bf16 recipes: the float32 rows count 0).
+the card in phases 15 and 16 (bf16 recipes: the float32 rows count 0), and
+``launches_predict``, ``launches_evaluate`` and ``launches_predict_long``:
+each kernel's runs on the card in the recipe-as-shipped runs of phases
+17-19 (the same).
 ``[clock]`` lines give the time since the start at the end of each phase.
 
 The last lines are the ``kernels`` JSON line, the card line of ``nvidia-smi``
@@ -249,6 +273,7 @@ LONG_HOST_STEPS = 20  # resident losses held against the host pipeline's eager s
 LONG_PARITY_B = 16  # rows of the float32 card-vs-CPU long step
 LONG_ITERS = 20  # calls a long-context kernel timing takes
 TRAIN_ONCE_EPOCHS, TRAIN_ONCE_LONG_EPOCHS = 3, 1  # train_once's epochs on each recipe
+PREDICT_CHUNK, PREDICT_CHUNK_LONG = 64, 16  # rows a chunk of the chunked predict: 3 a file
 
 
 def eager(obj):
@@ -1716,27 +1741,64 @@ def _write_long_csv(np, path, header, stamps, ids, values, observed, encoding: s
     return len(lines) - 1
 
 
+def _write_sample(path, key_column: str, row_keys, ids, encoding: str) -> None:
+    """The generators' ``sample_submission.csv``: the row keys, then a column
+    of integer zeros a series, in the generator's id order."""
+
+    lines = [",".join([key_column, *ids])]
+    zeros = ",0" * len(ids)
+    lines.extend(f"{key}{zeros}" for key in row_keys)
+    with open(path, "w", encoding=encoding, newline="") as f:
+        f.write("\n".join(lines) + "\n")
+
+
+def _write_benchmark(np, path, header, stamps, ids, values, observed, encoding: str,
+                     t_train: int, test_files: int, history: int, horizon: int) -> int:
+    """A benchmark's files as its generator lays them out beside ``path``
+    (its ``train.csv``): the first ``t_train`` steps there, ``test/TEST_xx.csv``
+    (``history`` steps each, ``horizon`` apart, after the training span) and
+    ``sample_submission.csv`` (row keys ``TEST_xx+D<step>``). Returns the
+    training CSV's row count."""
+
+    rows = _write_long_csv(np, path, header, stamps[:t_train], ids, values[:t_train],
+                           observed[:t_train], encoding)
+    out = Path(path).parent
+    keys = []
+    for i in range(test_files):
+        lo = t_train + i * horizon
+        _write_long_csv(np, out / "test" / f"TEST_{i:02d}.csv", header, stamps[lo:lo + history],
+                        ids, values[lo:lo + history], observed[lo:lo + history], encoding)
+        keys.extend(f"TEST_{i:02d}+D{d}" for d in range(1, horizon + 1))
+    _write_sample(out / "sample_submission.csv", header[0], keys, ids, encoding)
+    return rows
+
+
 def write_demand_csv(np, path, seed: int = 7, n_stores: int = 8, n_menus: int = 24,
                      t_train: int = 560) -> int:
-    """``train.csv`` of ``tools/make_demand_benchmark.py OUTDIR`` (its first
-    ``t_train`` days, UTF-8 with a byte-order mark), byte for byte."""
+    """The files of ``tools/make_demand_benchmark.py OUTDIR`` beside ``path``
+    (OUTDIR's ``train.csv``), UTF-8 with a byte-order mark, byte for byte:
+    ``train.csv`` (the first ``t_train`` days), five 28-day TEST files 7 days
+    apart and ``sample_submission.csv``."""
 
     days, ids, demand, observed = simulate_demand(np, seed, n_stores, n_menus, t_train)
-    return _write_long_csv(np, path, DEMAND_COLUMNS, [str(d) for d in days[:t_train]], ids,
-                           demand[:t_train], observed[:t_train], "utf-8-sig")
+    return _write_benchmark(np, path, DEMAND_COLUMNS, [str(d) for d in days], ids, demand,
+                            observed, "utf-8-sig", t_train, DEMAND_TEST_FILES,
+                            DEMAND_TEST_HISTORY, DEMAND_HORIZON)
 
 
 def write_long_context_csv(np, path, seed: int = 5, n_series: int = 48,
                            t_train: int = 2400) -> int:
-    """``train.csv`` of ``tools/make_long_context_benchmark.py OUTDIR`` (its
-    first ``t_train`` hours), byte for byte."""
+    """The files of ``tools/make_long_context_benchmark.py OUTDIR`` beside
+    ``path`` (OUTDIR's ``train.csv``), byte for byte: ``train.csv`` (the first
+    ``t_train`` hours), two 512-hour TEST files 24 hours apart and
+    ``sample_submission.csv``."""
 
     total = t_train + LONG_TEST_FILES * LONG_HORIZON + LONG_TEST_HISTORY
     _, stamps, demand, observed = simulate_long(np, seed, n_series, total)
-    text = [str(s).replace("T", " ") + ":00:00" for s in stamps[:t_train]]
+    text = [str(s).replace("T", " ") + ":00:00" for s in stamps]
     ids = [f"S{j:03d}" for j in range(n_series)]
-    return _write_long_csv(np, path, ("date", "id", "target"), text, ids, demand[:t_train],
-                           observed[:t_train], "utf-8")
+    return _write_benchmark(np, path, ("date", "id", "target"), text, ids, demand, observed,
+                            "utf-8", t_train, LONG_TEST_FILES, LONG_TEST_HISTORY, LONG_HORIZON)
 
 
 def long_per(cfg) -> int:
@@ -2229,7 +2291,7 @@ T0 = time.perf_counter()
 # -- train_once from a config and a CSV ---------------------------------------
 
 def train_once_phase(torch, np, cuda_fold, label: str, recipe: str, write_csv, epochs: int,
-                     sizes, must_freeze: bool) -> dict:
+                     sizes, must_freeze: bool, serve=None):
     """``[train-once]`` / ``[train-once-long]``: the recipe's benchmark CSV
     written with numpy into a temporary directory, then the port's
     ``train_once`` on the recipe as the port's config layer reads it, with
@@ -2238,19 +2300,20 @@ def train_once_phase(torch, np, cuda_fold, label: str, recipe: str, write_csv, e
     on the frozen-period path by the last epoch). Each epoch's seconds and
     windows/s, the graphs' warm-up and capture time, the host time around
     the epochs and each hand kernel's runs on the card (every bf16 kernel
-    must have run at each size, no float32 one). Then the checkpoint, the
-    scaler pickle and ``config_used.yaml`` are loaded back into a
-    ``Forecaster``, which forecasts the last window of the CSV: finite and
-    >= 0. Returns the card's kernel runs."""
+    must have run at each size, no float32 one). Then ``Forecaster.from_artifacts``
+    loads the artifact directory and forecasts the last window of the CSV:
+    finite and >= 0. ``serve(tmp, spec)``, where given, then runs on the
+    temporary directory (``data/`` and ``artifacts/``) and the spec the run
+    froze on (else the last telemetry spec of its probe). Returns the card's
+    kernel runs and what ``serve`` returned."""
 
     import tempfile
 
-    from flow_timesnet_tpu_torch import convert, forecaster, graphs
-    from flow_timesnet_tpu_torch.build import timesnet_config_from_dict
+    from flow_timesnet_tpu_torch import forecaster, graphs
     from flow_timesnet_tpu_torch.config import PipelineConfig, load_yaml
     from flow_timesnet_tpu_torch.data.pivot import read_long_pivot
+    from flow_timesnet_tpu_torch.engine import Engine
     from flow_timesnet_tpu_torch.train import train_once
-    from flow_timesnet_tpu_torch.utils import artifacts
 
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         data = Path(tmp) / "data"
@@ -2273,14 +2336,30 @@ def train_once_phase(torch, np, cuda_fold, label: str, recipe: str, write_csv, e
             captures.append(time.perf_counter() - t)
             return out
 
+        # the specs the run saw: its probe's at each epoch, and those it froze on
+        probed, frozen = [], []
+        real_probe, real_init = Engine.frozen_spec_from_telemetry, Engine.__init__
+
+        def probe(telemetry, n_layers):
+            spec = real_probe(telemetry, n_layers)
+            probed.append(spec)
+            return spec
+
+        def init(self, model_cfg, *args, **kwargs):
+            if model_cfg.frozen_periods is not None:
+                frozen.append(model_cfg.frozen_periods)
+            real_init(self, model_cfg, *args, **kwargs)
+
         clear_counts(cuda_fold)
         graphs.capture = timed_capture
+        Engine.frozen_spec_from_telemetry, Engine.__init__ = staticmethod(probe), init
         try:
             t0 = time.perf_counter()
             best_nll, paths = train_once(cfg)
             seconds = time.perf_counter() - t0
         finally:
             graphs.capture = real_capture
+            Engine.frozen_spec_from_telemetry, Engine.__init__ = staticmethod(real_probe), real_init
         ran = run_counts(cuda_fold)
         m = paths["metrics"]
         check(m["input_pipeline"] == "device", f"{label}: the {m['input_pipeline']} pipeline ran")
@@ -2313,27 +2392,311 @@ def train_once_phase(torch, np, cuda_fold, label: str, recipe: str, write_csv, e
         print(f"[{label}] artifacts: {', '.join(sorted(p.name for p in art.values()))}")
 
         used = load_yaml(str(art["config"]))
-        meta = artifacts.load_pickle(str(art["scaler"]))
-        tree, aux = artifacts.load_checkpoint(str(art["model"]))
-        tf = meta["time_features"]
-        model_cfg = timesnet_config_from_dict(
-            used, static_dim=meta["static_features"].shape[1], time_feature_dim=tf["feature_dim"],
-            id_vocab=len(meta["ids"]))
-        fc = forecaster.Forecaster(
-            convert.params_from_jax(tree, model_cfg), model_cfg, meta["ids"], meta["scaler"],
-            meta["method"], meta["static_features"],
-            np.asarray(aux["min_sigma_vector"]).reshape(-1), tf["config"], tf["freq"])
+        fc = forecaster.Forecaster.from_artifacts(str(art["config"].parent))
+        check(fc.device.type == "cuda", f"{label}: from_artifacts on {fc.device}")
         d = used["data"]
         wide = read_long_pivot(d["train_csv"], d["date_col"], d["id_col"], d["target_col"],
                                encoding=d["encoding"])
-        check(wide.columns == list(meta["ids"]), f"{label}: ids of the CSV and the scaler")
-        L = model_cfg.input_len
+        check(wide.columns == fc.ids, f"{label}: ids of the CSV and the scaler")
+        L = fc.input_len
         out = fc.forecast(wide.values[-L:], dates=wide.index[-L:])
-        check(out.shape == (model_cfg.pred_len, len(meta["ids"])) and bool(np.isfinite(out).all())
+        check(out.shape == (fc.pred_len, len(fc.ids)) and bool(np.isfinite(out).all())
               and bool((out >= 0).all()), f"{label}: forecast {out.shape}, finite and >= 0")
-        print(f"[{label}] the artifacts served {len(meta['ids'])} series x {L} steps "
-              f"(freq {tf['freq']}, spec {'frozen' if used['train'].get('frozen_periods_spec') else 'none'} "
-              f"stored): forecast [{float(out.min()):.3f}, {float(out.max()):.3f}]")
+        stored = used["train"].get("frozen_periods_spec")
+        print(f"[{label}] Forecaster.from_artifacts served {len(fc.ids)} series x {L} steps "
+              f"(freq {fc.freq}, spec {'frozen' if stored else 'none'} stored): forecast "
+              f"[{float(out.min()):.3f}, {float(out.max()):.3f}]")
+        check(bool(frozen or probed), f"{label}: the run probed no period selection")
+        spec = frozen[-1] if frozen else probed[-1]
+        print(f"[{label}] spec for the serving phases: {[list(map(list, l)) for l in spec]} "
+              f"({'the one the run froze on' if frozen else 'the last probe: the run never froze'})")
+        served = serve(Path(tmp), spec) if serve is not None else None
+    return ran, served
+
+
+# -- predict and evaluate from the artifacts ----------------------------------
+
+# bf16 card vs bf16 CPU submissions, relative and in counts. Both round the
+# fold conv's float32 inputs to bf16 (8 significant bits) at the same points,
+# but accumulate in float32 in other orders, so an element within a float32
+# ulp of a bf16 boundary rounds one way on each: a 2^-8 (3.9e-3) relative
+# step there, which the later layers carry. 2e-2 allows a few such steps on
+# the path to one forecast; the run prints the bf16-against-float32 gap
+# beside it, the whole of bf16's rounding.
+BF16_CPU_TOL = 2e-2
+FLOAT32_TOL = 1e-4  # float32 card vs CPU submissions and metrics, relative
+
+
+class Instrumented:
+    """Times the serving path's layers while it is active: reading and
+    pivoting the TEST files (``predict._prepare_test_batches``) or the
+    evaluation CSV (``evaluate.read_long_pivot``), each forward
+    (``Engine.forward``, the card synchronised around it), each resident
+    evaluation pass and each submission's render and write; counts the
+    graphs captured."""
+
+    def __init__(self, torch):
+        from flow_timesnet_tpu_torch import engine, evaluate, graphs, predict
+
+        self.torch = torch
+        self.seconds = {"read": 0.0, "render_write": 0.0, "evaluate_resident": 0.0}
+        self.forward_ms, self.captures = [], 0
+        self._patches = [(predict, "_prepare_test_batches", "read"),
+                         (evaluate, "read_long_pivot", "read"),
+                         (predict, "render_and_write", "render_write"),
+                         (engine.Engine, "evaluate_resident", "evaluate_resident"),
+                         (engine.Engine, "forward", None), (graphs, "capture", None)]
+        self._saved = []
+
+    def _timed(self, fn, key):
+        def wrapper(*args, **kwargs):
+            self.torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = fn(*args, **kwargs)
+            self.torch.cuda.synchronize()
+            if key is None:
+                self.forward_ms.append(1e3 * (time.perf_counter() - t))
+            else:
+                self.seconds[key] += time.perf_counter() - t
+            return out
+        return wrapper
+
+    def __enter__(self):
+        for owner, name, key in self._patches:
+            fn = getattr(owner, name)
+            self._saved.append((owner, name, fn))
+            if name == "capture":
+                def counted(*args, _fn=fn, **kwargs):
+                    self.captures += 1
+                    return _fn(*args, **kwargs)
+                setattr(owner, name, counted)
+            else:
+                setattr(owner, name, self._timed(fn, key))
+        return self
+
+    def __exit__(self, *exc):
+        for owner, name, fn in reversed(self._saved):
+            setattr(owner, name, fn)
+        return False
+
+
+def serving_cli(torch, command: str, recipe: str, tmp: Path, *overrides):
+    """``cli.main([command, ...])`` on the recipe with overrides for the
+    paths of ``tmp`` (its benchmark's files and artifacts) and ``overrides``:
+    (wall seconds, the :class:`Instrumented` record)."""
+
+    from flow_timesnet_tpu_torch import cli
+
+    data = tmp / "data"
+    argv = [command, "--config", str(REPO / "configs" / recipe), "--override",
+            f"data.train_csv={data / 'train.csv'}", f"data.test_dir={data / 'test'}",
+            f"data.sample_submission={data / 'sample_submission.csv'}",
+            f"artifacts.dir={tmp / 'artifacts'}", *overrides]
+    with Instrumented(torch) as rec:
+        t = time.perf_counter()
+        cli.main(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+    return wall, rec
+
+
+def max_rel(np, got, want) -> str:
+    diff = np.abs(got - want)
+    return (f"max abs diff {float(diff.max()):.3e}, max relative "
+            f"{float((diff / np.maximum(np.abs(want), 1e-6)).max()):.3e}")
+
+
+def predict_phase(torch, np, cuda_fold, label: str, recipe: str, tmp: Path, spec, *,
+                  files: int, series: int, horizon: int, chunk: int, sizes,
+                  ensemble: bool) -> dict:
+    """``[predict]`` / ``[predict-long]``: ``predict`` through the CLI on the
+    artifacts of the train-once phase, at full width and depth.
+
+    - The recipe as shipped (bf16, the dynamic selector, the whole batch a
+      file): the sample's header, ``files`` x ``horizon`` rows (the
+      sample's keys in its order, or the forecast dates), finite and >= 0;
+      every bf16 forward kernel ran on the card at each size, nothing else.
+    - ``model.compute_dtype=float32`` on the card equals it on the CPU
+      within 1e-4 relative; the bf16 card run equals the bf16 CPU run
+      within ``BF16_CPU_TOL`` (see there).
+    - ``predict.chunk_rows=chunk`` on ``spec`` (``predict.freeze_periods=on``,
+      float32) equals the whole batch on it within 1e-5, one graph captured
+      and replayed for every chunk, as the kernels' own run counts show.
+    - ``predict.quantiles=[0.1, 0.5, 0.9]``: three more files, ordered in
+      every cell.
+    - With ``ensemble``: two members (the artifacts and a copy) equal the
+      single model.
+
+    Returns the card's kernel runs of the shipped recipe's run."""
+
+    import shutil
+
+    from flow_timesnet_tpu_torch.utils.quantiles import quantile_out_path
+    from flow_timesnet_tpu_torch.utils.submission import read_submission
+
+    out = tmp / label
+
+    def predict(tag, *overrides):
+        path = out / f"{tag}.csv"
+        wall, rec = serving_cli(torch, "predict", recipe, tmp, f"submission.out_path={path}",
+                                *overrides)
+        return read_submission(str(path), "utf-8-sig"), wall, rec, str(path)
+
+    data = tmp / "data"
+    sample = read_submission(str(data / "sample_submission.csv"),
+                             "utf-8-sig" if recipe == "demand_benchmark.yaml" else "utf-8")
+    t_phase = time.perf_counter()
+    clear_counts(cuda_fold)  # the shipped recipe's run, from here ...
+    sub, wall, rec, path = predict("submission")
+    ran, launched = run_counts(cuda_fold), launch_counts(cuda_fold)  # ... to here
+    values = sub.values
+    check([sub.key_column, *sub.columns] == [sample.key_column, *sample.columns],
+          f"{label}: header {[sub.key_column, *sub.columns][:3]}...")
+    check(len(sub.keys) == files * horizon, f"{label}: {len(sub.keys)} rows")
+    if sub.keys[0].startswith("TEST_"):
+        check(sub.keys == sample.keys, f"{label}: the rows are not the sample's, in its order")
+    else:  # date_menu: each file's horizon, hour by hour
+        stamps = np.asarray(sub.keys, dtype="datetime64[s]").reshape(files, horizon)
+        check(bool((np.diff(stamps, axis=1) == np.timedelta64(1, "h")).all()),
+              f"{label}: forecast dates {sub.keys[:3]}")
+    check(values.shape == (files * horizon, series) and bool(np.isfinite(values).all())
+          and bool((values >= 0).all()), f"{label}: submission {values.shape}, finite and >= 0")
+    for kh, kw in sizes:
+        size = f"{kh}x{kw}"
+        check(ran["tap_conv_fwd_mma"].get(size, 0) > 0
+              and ran["tap_conv_fwd"] == ran["tap_conv_fwd_mma"],
+              f"{label}: forward {size} ran {ran['tap_conv_fwd']}, tensor-core "
+              f"{ran['tap_conv_fwd_mma']}")
+    check(not ran["tap_conv_dh"] and not ran["tap_conv_dw"], f"{label}: the card ran {ran}")
+    fwd = rec.forward_ms
+    print(f"[{label}] {files} TEST files x {series} series x {horizon} ahead (the recipe as "
+          f"shipped, bf16, whole batch): wall {wall:.3f} s; read and pivot "
+          f"{rec.seconds['read']:.3f} s; forward ms per TEST file: {fwd[0]:.3f} (warm-up and "
+          f"capture) then {', '.join(f'{v:.3f}' for v in fwd[1:])} (replayed); render and "
+          f"write {rec.seconds['render_write']:.3f} s; {rec.captures} graph(s) captured; "
+          f"submission range [{float(values.min()):.3f}, {float(values.max()):.3f}]")
+    print(f"[{label}] the card ran {ran}; the wrappers launched {launched}")
+
+    # float32 card vs CPU, bf16 card vs CPU
+    f32 = predict("float32", "model.compute_dtype=float32")[0].values
+    f32_cpu, wall_cpu, _, _ = predict("float32_cpu", "model.compute_dtype=float32",
+                                      "train.device=cpu")
+    print(f"[{label}] float32 card vs CPU: {max_rel(np, f32, f32_cpu.values)} (CPU wall "
+          f"{wall_cpu:.3f} s)")
+    check(np.allclose(f32, f32_cpu.values, rtol=FLOAT32_TOL, atol=FLOAT32_TOL),
+          f"{label}: float32 card vs CPU")
+    bf16_cpu = predict("bf16_cpu", "train.device=cpu")[0].values
+    print(f"[{label}] bf16 card vs CPU: {max_rel(np, values, bf16_cpu)}; float32 vs bf16 on the "
+          f"card: {max_rel(np, values, f32)}")
+    check(np.allclose(values, bf16_cpu, rtol=BF16_CPU_TOL, atol=BF16_CPU_TOL),
+          f"{label}: bf16 card vs CPU beyond {BF16_CPU_TOL}")
+
+    # chunked on the frozen spec: one graph, replayed for every chunk
+    frozen = ["model.compute_dtype=float32", "predict.freeze_periods=on",
+              f"train.frozen_periods_spec={json.dumps([[list(s) for s in l] for l in spec])}"]
+    clear_counts(cuda_fold)
+    chunked, wall_c, rec_c, _ = predict("frozen_chunked", *frozen, f"predict.chunk_rows={chunk}")
+    ran_c, launched_c = run_counts(cuda_fold), launch_counts(cuda_fold)
+    whole = predict("frozen_whole", *frozen, "predict.chunk_rows=off")[0].values
+    n_calls = files * -(-series // chunk)
+    print(f"[{label}] {chunk}-row chunks on the frozen spec (float32): {max_rel(np, chunked.values, whole)} "
+          f"against the whole batch; {rec_c.captures} graph(s) captured, {len(rec_c.forward_ms)} "
+          f"forwards (ms {', '.join(f'{v:.3f}' for v in rec_c.forward_ms)}), wall {wall_c:.3f} s; "
+          f"the card ran {ran_c}, the wrappers launched {launched_c}")
+    check(np.allclose(chunked.values, whole, rtol=1e-5, atol=1e-5),
+          f"{label}: chunked frozen vs whole-batch frozen beyond 1e-5")
+    check(rec_c.captures == 1 and len(rec_c.forward_ms) == n_calls,
+          f"{label}: {rec_c.captures} captures, {len(rec_c.forward_ms)} forwards")
+    from flow_timesnet_tpu_torch import graphs
+    for kh, kw in sizes:  # wrappers: warm-up and capture; card: warm-up and every replay
+        size = f"{kh}x{kw}"
+        by_wrappers, by_card = launched_c["tap_conv_fwd"].get(size, 0), ran_c["tap_conv_fwd"].get(size, 0)
+        per_pass = by_wrappers // (graphs.WARMUP_CALLS + 1)
+        check(per_pass > 0 and by_wrappers == (graphs.WARMUP_CALLS + 1) * per_pass
+              and by_card == (graphs.WARMUP_CALLS + n_calls) * per_pass,
+              f"{label}: chunked forward {size}: wrappers {by_wrappers}, card {by_card}, "
+              f"{n_calls} calls")
+
+    # quantile files
+    levels = (0.1, 0.5, 0.9)
+    _, wall_q, _, q_path = predict("quantiles", f"predict.quantiles={list(levels)}")
+    q = np.stack([read_submission(quantile_out_path(q_path, lv), "utf-8-sig").values
+                  for lv in levels])
+    check(bool((np.diff(q, axis=0) >= 0).all()) and bool(np.isfinite(q).all()),
+          f"{label}: quantiles out of order")
+    print(f"[{label}] quantiles {list(levels)}: three more files, ordered in every cell; q10 / "
+          f"q50 / q90 means {', '.join(f'{float(v.mean()):.3f}' for v in q)} (mean forecast "
+          f"{float(values.mean()):.3f}); wall {wall_q:.3f} s")
+
+    if ensemble:
+        member = tmp / "artifacts_copy"
+        shutil.copytree(tmp / "artifacts", member)
+        ens, wall_e, _, _ = predict("ensemble", f"predict.ensemble_dirs=[{member}]")
+        print(f"[{label}] two-member ensemble (the artifacts and a copy): "
+              f"{max_rel(np, ens.values, values)} against the single model; wall {wall_e:.3f} s")
+        check(ens.keys == sub.keys and np.allclose(ens.values, values, rtol=1e-6, atol=1e-6),
+              f"{label}: ensemble of copies differs from the single model")
+    print(f"[{label}] phase {time.perf_counter() - t_phase:.1f} s")
+    return ran
+
+
+def evaluate_phase(torch, np, cuda_fold, label: str, recipe: str, tmp: Path) -> dict:
+    """``[evaluate]``: ``evaluate`` through the CLI on the artifacts of the
+    train-once phase: the recipe as shipped (bf16, the resident pass on the
+    card) with ``evaluation.quantiles=[0.1, 0.5, 0.9]``: NLL, sMAPE and
+    wsMAPE finite, coverage in [0, 1] and rising with q, every bf16 forward
+    kernel run at each size and nothing else; then the artifacts copied with
+    ``model.compute_dtype: float32`` in their ``config_used.yaml``, on the
+    card and the CPU: each metric within 1e-4 relative. Returns the card's
+    kernel runs of the shipped recipe's run."""
+
+    import shutil
+
+    from flow_timesnet_tpu_torch.config import load_yaml, save_yaml
+
+    def evaluate(tag, *overrides):
+        path = tmp / label / f"{tag}.json"
+        wall, rec = serving_cli(torch, "evaluate", recipe, tmp, f"evaluation.out_path={path}",
+                                *overrides)
+        return json.loads(path.read_text("utf-8")), wall, rec
+
+    t_phase = time.perf_counter()
+    levels = [0.1, 0.5, 0.9]
+    clear_counts(cuda_fold)  # the shipped recipe's run, from here ...
+    res, wall, rec = evaluate("metrics", f"evaluation.quantiles={levels}")
+    ran = run_counts(cuda_fold)  # ... to here
+    check(all(np.isfinite(res[k]) for k in ("nll", "smape", "wsmape")), f"{label}: {res}")
+    coverage = [res["quantiles"][str(q)]["coverage"] for q in levels]
+    check(all(0.0 <= c <= 1.0 for c in coverage) and coverage == sorted(coverage),
+          f"{label}: coverage {coverage}")
+    for kh, kw in KERNEL_SIZES:
+        size = f"{kh}x{kw}"
+        check(ran["tap_conv_fwd_mma"].get(size, 0) > 0
+              and ran["tap_conv_fwd"] == ran["tap_conv_fwd_mma"],
+              f"{label}: forward {size} ran {ran['tap_conv_fwd']}")
+    check(not ran["tap_conv_dh"] and not ran["tap_conv_dw"], f"{label}: the card ran {ran}")
+    print(f"[{label}] {res['windows']} windows over the last {res['holdout_days']} days (bf16): "
+          f"nll {res['nll']:.6f}, sMAPE {res['smape']:.6f}, wsMAPE {res['wsmape']:.6f}; "
+          f"coverage {coverage}, pinball "
+          f"{[res['quantiles'][str(q)]['pinball'] for q in levels]} ({res['quantile_method']}); "
+          f"wall {wall:.3f} s: read and pivot {rec.seconds['read']:.3f} s, resident pass "
+          f"{rec.seconds['evaluate_resident']:.3f} s, the quantiles' {len(rec.forward_ms)} "
+          f"forwards {sum(rec.forward_ms) / 1e3:.3f} s; {rec.captures} graph(s) captured; the "
+          f"card ran {ran}")
+
+    art32 = tmp / "artifacts_float32"
+    shutil.copytree(tmp / "artifacts", art32)
+    used = load_yaml(str(art32 / "config_used.yaml"))
+    used["model"]["compute_dtype"] = "float32"
+    save_yaml(used, str(art32 / "config_used.yaml"))
+    card, _, _ = evaluate("float32", f"artifacts.dir={art32}")
+    cpu, wall_cpu, _ = evaluate("float32_cpu", f"artifacts.dir={art32}", "train.device=cpu")
+    rel = {k: abs(card[k] - cpu[k]) / abs(cpu[k]) for k in ("nll", "smape", "wsmape")}
+    print(f"[{label}] float32 card vs CPU: " + ", ".join(
+        f"{k} {card[k]:.7f} vs {cpu[k]:.7f} (relative {rel[k]:.2e})" for k in rel)
+        + f" (CPU wall {wall_cpu:.3f} s)")
+    check(all(v <= FLOAT32_TOL for v in rel.values()), f"{label}: float32 card vs CPU {rel}")
+    print(f"[{label}] phase {time.perf_counter() - t_phase:.1f} s")
     return ran
 
 
@@ -2703,14 +3066,37 @@ def main() -> int:
                                         trained_long["lr"])
     stamp("train-long-resident")
 
-    # 15-16. train_once from a config and a CSV: the flagship and the long recipe
-    train_once_runs = {
-        "train_once": train_once_phase(torch, np, cuda_fold, "train-once", "demand_benchmark.yaml",
-                                       write_demand_csv, TRAIN_ONCE_EPOCHS, KERNEL_SIZES, True)}
+    # 15-16. train_once from a config and a CSV: the flagship and the long
+    # recipe; 17-19. predict and evaluate from each run's artifacts
+    def predict_flagship(tmp, spec):
+        runs = {"predict": predict_phase(
+            torch, np, cuda_fold, "predict", "demand_benchmark.yaml", tmp, spec,
+            files=DEMAND_TEST_FILES, series=B, horizon=DEMAND_HORIZON, chunk=PREDICT_CHUNK,
+            sizes=KERNEL_SIZES, ensemble=True)}
+        stamp("predict")
+        runs["evaluate"] = evaluate_phase(torch, np, cuda_fold, "evaluate",
+                                          "demand_benchmark.yaml", tmp)
+        stamp("evaluate")
+        return runs
+
+    def predict_long(tmp, spec):
+        runs = {"predict_long": predict_phase(
+            torch, np, cuda_fold, "predict-long", "long_context.yaml", tmp, spec,
+            files=LONG_TEST_FILES, series=LONG_SERIES, horizon=LONG_HORIZON,
+            chunk=PREDICT_CHUNK_LONG, sizes=LONG_SIZES, ensemble=False)}
+        stamp("predict-long")
+        return runs
+
+    train_once_runs, serving_runs = {}, {}
+    train_once_runs["train_once"], served = train_once_phase(
+        torch, np, cuda_fold, "train-once", "demand_benchmark.yaml", write_demand_csv,
+        TRAIN_ONCE_EPOCHS, KERNEL_SIZES, True, predict_flagship)
+    serving_runs.update(served)
     stamp("train-once")
-    train_once_runs["train_once_long"] = train_once_phase(
+    train_once_runs["train_once_long"], served = train_once_phase(
         torch, np, cuda_fold, "train-once-long", "long_context.yaml", write_long_context_csv,
-        TRAIN_ONCE_LONG_EPOCHS, LONG_SIZES, False)
+        TRAIN_ONCE_LONG_EPOCHS, LONG_SIZES, False, predict_long)
+    serving_runs.update(served)
     stamp("train-once-long")
 
     # the exact-extent numbers, the frozen paths' and the graphs' launches of each kernel
@@ -2737,7 +3123,8 @@ def main() -> int:
                 "launches_resident_long": route_count(resident_long["counts"], kind, route, key),
                 "launches_from": "bf16 eager requests, steps and a steady resident epoch; "
                                  "float32: the long float32 parity steps"}
-        for run, got in train_once_runs.items():  # bf16 recipes: the float32 rows ran nothing
+        # bf16 recipes: the float32 rows ran nothing
+        for run, got in {**train_once_runs, **serving_runs}.items():
             row[f"launches_{run}"] = route_count(got, kind, route, key)
         row["exact_extent"] = {
             f"p{p}": {**dense[name][f"p{p}"], "lp": L + (-L) % p} for p in DENSE_PERIODS}

@@ -1,12 +1,14 @@
 """Command-line interface (counterpart of ``flow_timesnet_tpu/cli.py``):
 
-    python -m flow_timesnet_tpu_torch.cli train --config configs/demand_benchmark.yaml
+    python -m flow_timesnet_tpu_torch.cli train    --config configs/demand_benchmark.yaml
+    python -m flow_timesnet_tpu_torch.cli evaluate --config configs/demand_benchmark.yaml
+    python -m flow_timesnet_tpu_torch.cli predict  --config configs/demand_benchmark.yaml
 
 Every subcommand takes a ``--config`` YAML plus dotted ``--override
-key=value`` pairs. ``train`` runs ``train.py::train_once`` on the card
-(``--override train.device=cpu`` runs it on the CPU); ``predict``,
-``evaluate`` and ``tune`` are not ported yet and say which ROADMAP item
-ports them.
+key=value`` pairs. ``train`` runs ``train.py::train_once``, ``predict``
+``predict.py::predict_once`` and ``evaluate`` ``evaluate.py::evaluate_once``,
+each on the card (``--override train.device=cpu`` runs it on the CPU);
+``tune`` is not ported yet and says which ROADMAP item ports it.
 """
 
 from __future__ import annotations
@@ -17,8 +19,6 @@ from typing import List, Optional
 from .config import PipelineConfig
 
 _NOT_PORTED = {
-    "predict": "ROADMAP.md section 1 item 7 (predict.py)",
-    "evaluate": "ROADMAP.md section 1 item 7 (evaluate.py)",
     "tune": "ROADMAP.md section 1 item 8 (tune.py)",
 }
 
@@ -29,6 +29,18 @@ def cmd_train(args: argparse.Namespace) -> None:
     cfg = PipelineConfig.from_files(args.config, overrides=args.override)
     best_nll, _ = train_once(cfg)
     print(f"Final best NLL: {best_nll:.6f}", flush=True)
+
+
+def cmd_predict(args: argparse.Namespace) -> None:
+    from .predict import predict_once
+
+    predict_once(PipelineConfig.from_files(args.config, overrides=args.override))
+
+
+def cmd_evaluate(args: argparse.Namespace) -> None:
+    from .evaluate import evaluate_once
+
+    evaluate_once(PipelineConfig.from_files(args.config, overrides=args.override))
 
 
 def _not_ported(args: argparse.Namespace) -> None:
@@ -57,15 +69,14 @@ def build_parser() -> argparse.ArgumentParser:
             ),
         )
 
-    p_train = sub.add_parser("train", help="Train and emit artifacts")
-    add_common(p_train)
-    p_train.set_defaults(func=cmd_train)
-    for name, what in (("predict", "Run inference from stored artifacts"),
-                       ("evaluate", "Score stored artifacts on a holdout CSV"),
-                       ("tune", "Hyper-parameter search around train_once")):
-        p = sub.add_parser(name, help=f"{what} (not ported yet)")
+    for name, what, func in (
+            ("train", "Train and emit artifacts", cmd_train),
+            ("predict", "Run inference from stored artifacts", cmd_predict),
+            ("evaluate", "Score stored artifacts on a holdout CSV", cmd_evaluate),
+            ("tune", "Hyper-parameter search around train_once (not ported yet)", _not_ported)):
+        p = sub.add_parser(name, help=what)
         add_common(p)
-        p.set_defaults(func=_not_ported)
+        p.set_defaults(func=func)
     return parser
 
 

@@ -59,6 +59,18 @@ class WideFrame:
 
         return WideFrame(self.index, list(self.columns), values, self.freq)
 
+    def reindex_columns(self, columns: List[str]) -> "WideFrame":
+        """The frame on ``columns``, in their order: a column it lacks is
+        zeros, one ``columns`` lacks is dropped."""
+
+        values = np.zeros((len(self), len(columns)), dtype=np.float64)
+        column_of = {c: j for j, c in enumerate(self.columns)}
+        pairs = [(j, column_of[c]) for j, c in enumerate(columns) if c in column_of]
+        if pairs:
+            dst, src = (list(t) for t in zip(*pairs))
+            values[:, dst] = self.values[:, src]
+        return WideFrame(self.index, list(columns), values, self.freq)
+
     def isna(self) -> np.ndarray:
         return np.isnan(self.values)
 
@@ -116,6 +128,10 @@ def normalize_id(name: str) -> str:
 
     collapsed = " ".join(str(name).split())
     return collapsed.strip().replace(" ", "_")
+
+
+# the name the submission writers use
+normalize_series_name = normalize_id
 
 
 def build_id_col(values: np.ndarray) -> np.ndarray:

@@ -1,5 +1,6 @@
 """Artifact IO (counterpart of ``flow_timesnet_tpu/utils/artifacts.py``):
-checkpoints, the training state, the scaler pickle and the schema JSON.
+checkpoints, the training state, the scaler pickle, the schema JSON and the
+submission's row keys.
 
 ``save_checkpoint`` / ``load_checkpoint`` write and read the JAX package's
 file byte for byte: flax's msgpack of ``{"version", "params", "aux"}``,
@@ -17,6 +18,7 @@ from __future__ import annotations
 
 import os
 import pickle
+import re
 from typing import Any, Dict, Mapping, Optional, Tuple
 
 import numpy as np
@@ -253,3 +255,15 @@ def validate_normalization_config(
             + "; ".join(mismatches)
         )
 
+
+# -- submission row keys ------------------------------------------------------
+
+
+def parse_row_key(row_key: str) -> Tuple[str, int]:
+    """Parse ``<part>+D<n>`` / ``<part>+Day n`` / ``<part>+n일`` row keys."""
+
+    pattern = r"^(.*)\+(?:D(?:ay)?\s*)?(\d+)\D*$"
+    match = re.match(pattern, row_key.strip(), flags=re.IGNORECASE)
+    if not match:
+        raise ValueError(f"Unsupported row key format: {row_key}")
+    return match.group(1).strip(), int(match.group(2))

@@ -1,5 +1,6 @@
-"""Streaming forecast-accuracy sums on the device (counterpart of the
-accumulators of ``flow_timesnet_tpu/utils/metrics.py``).
+"""Forecast-accuracy metrics (counterpart of
+``flow_timesnet_tpu/utils/metrics.py``): the host metrics in numpy, and the
+streaming sums on the device.
 
 Each batch contributes ``(sum, count)`` tensors that stay on the device; the
 caller adds them up over a pass and reads them once at its end.
@@ -11,6 +12,67 @@ from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+
+
+def smape_mean(y_true: np.ndarray, y_pred: np.ndarray, eps: float = 1e-8) -> float:
+    """Mean symmetric MAPE over points where ``|y_true| > eps``."""
+
+    if y_true.shape != y_pred.shape:
+        raise ValueError("y_true and y_pred must have the same shape")
+    mask = np.abs(y_true) > eps
+    if not np.any(mask):
+        return 0.0
+    denom = np.abs(y_true) + np.abs(y_pred)
+    vals = 2.0 * np.abs(y_pred - y_true)[mask] / denom[mask]
+    return float(np.mean(vals))
+
+
+def _store_columns(ids: List[str]) -> Dict[str, List[int]]:
+    """Column positions by store: the id's text before its first ``_``."""
+
+    by_store: Dict[str, List[int]] = {}
+    for j, sid in enumerate(ids):
+        by_store.setdefault(sid.split("_", 1)[0], []).append(j)
+    return by_store
+
+
+def wsmape_grouped(
+    y_true: np.ndarray,
+    y_pred: np.ndarray,
+    ids: List[str],
+    weights: Optional[Dict[str, float]] = None,
+    eps: float = 1e-8,
+) -> float:
+    """Store-weighted sMAPE of [T, N] arrays; store key = ``id.split('_', 1)[0]``.
+
+    Per item, only timepoints with a non-zero actual contribute; items with no
+    valid points score 0. Store scores are the mean over their items; the
+    final score is the (normalised) weighted sum over stores.
+    """
+
+    if y_true.shape != y_pred.shape or y_true.ndim != 2:
+        raise ValueError("y_true and y_pred must be [T, N] arrays of the same shape")
+    by_store = _store_columns(ids)
+    if weights is None:
+        weights = {store: 1.0 for store in by_store}
+    total_w = sum(weights.values()) or 1.0
+
+    def item_smape(a: np.ndarray, p: np.ndarray) -> float:
+        keep = np.abs(a) > eps
+        a, p = a[keep], p[keep]
+        if a.size == 0:
+            return 0.0
+        denom = np.abs(a) + np.abs(p)
+        keep2 = denom > eps
+        if not np.any(keep2):
+            return 0.0
+        return float(np.mean(2.0 * np.abs(a[keep2] - p[keep2]) / denom[keep2]))
+
+    score = 0.0
+    for store, cols in by_store.items():
+        item_scores = [item_smape(y_true[:, j], y_pred[:, j]) for j in cols]
+        score += weights.get(store, 0.0) / total_w * float(np.mean(item_scores))
+    return float(score)
 
 
 def smape_batch_sums(
@@ -66,9 +128,7 @@ def wsmape_from_series_sums(
 
     sums, counts = np.asarray(sums), np.asarray(counts)
     per_item = np.where(counts > 0, sums / np.maximum(counts, 1.0), 0.0)
-    by_store: Dict[str, List[int]] = {}
-    for j, sid in enumerate(ids):
-        by_store.setdefault(sid.split("_", 1)[0], []).append(j)
+    by_store = _store_columns(ids)
     if weights is None:
         weights = {store: 1.0 for store in by_store}
     total_w = sum(weights.values()) or 1.0

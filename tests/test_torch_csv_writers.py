@@ -1,5 +1,6 @@
 """``chip_smoke.py``'s numpy CSV writers against the in-repo generators:
-the card trains on the recipes' own data only if the files are the same,
+the card trains and predicts on the recipes' own data only if the files
+(``train.csv``, the TEST files and ``sample_submission.csv``) are the same,
 byte for byte. Reduced sizes: the demand benchmark at 2 x 3 and 3 x 2
 stores x menus over 90 days (and one store block past 26, where names gain
 a digit), the long-context benchmark at 3 series x 200 hours. ``long_data``
@@ -22,24 +23,38 @@ import make_demand_benchmark  # noqa: E402
 import make_long_context_benchmark  # noqa: E402
 
 
+def assert_same_files(tmp_path, test_files):
+    """``smoke/`` holds the generator's CSVs (``gen/``), byte for byte."""
+
+    names = ["train.csv", "sample_submission.csv",
+             *(f"test/TEST_{i:02d}.csv" for i in range(test_files))]
+    for name in names:
+        assert (tmp_path / "smoke" / name).read_bytes() == (tmp_path / "gen" / name).read_bytes(), \
+            name
+    smoke = {p.relative_to(tmp_path / "smoke") for p in (tmp_path / "smoke").rglob("*.csv")}
+    assert sorted(str(p) for p in smoke) == sorted(names)
+
+
 @pytest.mark.parametrize("stores,menus,days,seed", [(2, 3, 90, 7), (3, 2, 90, 11), (28, 1, 40, 3)])
 def test_demand_csv_is_the_generators(tmp_path, stores, menus, days, seed):
     make_demand_benchmark.write_benchmark(str(tmp_path / "gen"), seed, n_stores=stores,
                                           n_menus=menus, t_train=days)
-    rows = chip_smoke.write_demand_csv(np, tmp_path / "smoke.csv", seed, stores, menus, days)
+    rows = chip_smoke.write_demand_csv(np, tmp_path / "smoke" / "train.csv", seed, stores, menus,
+                                       days)
     want = (tmp_path / "gen" / "train.csv").read_bytes()
     assert want.startswith(b"\xef\xbb\xbf")
-    assert (tmp_path / "smoke.csv").read_bytes() == want
     assert rows == want.count(b"\n") - 1
+    assert_same_files(tmp_path, 5)
 
 
 @pytest.mark.parametrize("series,hours,seed", [(3, 200, 5), (9, 120, 1)])
 def test_long_context_csv_is_the_generators(tmp_path, series, hours, seed):
     make_long_context_benchmark.write_benchmark(str(tmp_path / "gen"), seed, series, hours)
-    rows = chip_smoke.write_long_context_csv(np, tmp_path / "smoke.csv", seed, series, hours)
+    rows = chip_smoke.write_long_context_csv(np, tmp_path / "smoke" / "train.csv", seed, series,
+                                             hours)
     want = (tmp_path / "gen" / "train.csv").read_bytes()
-    assert (tmp_path / "smoke.csv").read_bytes() == want
     assert rows == want.count(b"\n") - 1
+    assert_same_files(tmp_path, 2)
 
 
 def test_the_long_phases_data_is_the_generators_simulation():

@@ -1166,3 +1166,69 @@ def test_train_once_replays_graphs_across_engine_swaps(cuda, tmp_path, monkeypat
     assert g["paths"]["metrics"]["best_epoch"] == e["paths"]["metrics"]["best_epoch"]
     assert (tmp_path / "graphed_True" / "timesnet.msgpack").read_bytes() == (
         tmp_path / "graphed_False" / "timesnet.msgpack").read_bytes()
+
+
+@pytest.mark.cuda
+def test_chunked_predict_replays_one_graph(cuda, tmp_path, monkeypatch):
+    """``predict_once`` on the card from ``train_once``'s artifacts, the
+    series cut into 4-row chunks on a frozen spec (10 series: 4 + 4 + 2
+    padded rows a TEST file, 15 chunks in all): one forward graph captured,
+    replayed for every chunk (the kernels' own run counts: the warm-up calls
+    and 15 replays; the wrappers: the warm-up and the capture), and the
+    submission equal, byte for byte, to the one dispatched op by op
+    (``Engine.cuda_graphs = False``)."""
+
+    import os
+    import sys
+
+    sys.path.insert(0, os.path.dirname(__file__))
+    from test_torch_train_once_control import control_config, write_csv
+
+    import chip_smoke
+    from flow_timesnet_tpu_torch import graphs, predict
+    from flow_timesnet_tpu_torch.engine import Engine
+    from flow_timesnet_tpu_torch.train import train_once
+
+    data = tmp_path / "data"
+    os.makedirs(data)
+    chip_smoke.write_demand_csv(np, str(data / "train.csv"), 7, 2, 5, 150)
+    cfg = control_config(data / "train.csv", tmp_path / "artifacts", 2)
+    cfg["train"]["device"] = "cuda"
+    # d_model 64: the inception's 16 channels, the least the tensor-core kernels take
+    cfg["model"].update(d_model=64, d_ff=128, compute_dtype="bfloat16")
+    train_once(cfg)
+    spec = [[[7, 4, True], [14, 2, True]]] * 2
+    cfg["data"].update(test_dir=str(data / "test"),
+                       sample_submission=str(data / "sample_submission.csv"))
+    cfg["train"]["frozen_periods_spec"] = spec
+    cfg["predict"] = {"chunk_rows": 4, "freeze_periods": "on"}
+    out = {}
+    for graphed in (True, False):
+        with monkeypatch.context() as m:
+            captures = []
+            capture = graphs.capture
+            m.setattr(graphs, "capture", lambda *a, **k: captures.append(1) or capture(*a, **k))
+            if not graphed:
+                init = Engine.__init__
+
+                def eager_init(self, *args, **kwargs):
+                    init(self, *args, **kwargs)
+                    self.cuda_graphs = False
+
+                m.setattr(Engine, "__init__", eager_init)
+            cfg["submission"] = {"out_path": str(tmp_path / f"graphed_{graphed}.csv"),
+                                 "format": "row_key"}
+            _clear_fold_counts()
+            cuda_fold.clear_kernel_runs()
+            path = predict.predict_once(cfg)
+            ran = sum(cuda_fold.kernel_runs()["fwd_mma"].values())
+            wrapped = sum(cuda_fold.launches_mma.values())
+            out[graphed] = dict(csv=open(path, "rb").read(), captures=len(captures), ran=ran,
+                                wrapped=wrapped)
+    g, e = out[True], out[False]
+    per_pass = 2 * 2 * 2  # 2 layers x 2 inception blocks x 2 unique periods, one kernel size
+    assert g["captures"] == 1 and e["captures"] == 0
+    assert g["wrapped"] == (graphs.WARMUP_CALLS + 1) * per_pass
+    assert g["ran"] == (graphs.WARMUP_CALLS + 15) * per_pass
+    assert e["ran"] == e["wrapped"] == 15 * per_pass
+    assert g["csv"] == e["csv"] and g["csv"].count(b"\n") == 1 + 5 * 7

@@ -124,9 +124,20 @@ def test_cli_trains_and_names_what_is_not_ported(tmp_path, capsys):
     assert "Final best NLL" in capsys.readouterr().out
     used = yaml.safe_load((tmp_path / "artifacts" / "config_used.yaml").read_text("utf-8"))
     assert used["train"]["epochs"] == 1 and used["train"]["device"] == "cpu"
-    for command, item in (("predict", "item 7"), ("evaluate", "item 7"), ("tune", "item 8")):
-        with pytest.raises(NotImplementedError, match=f"ROADMAP.md section 1 {item}"):
-            cli.main([command, "--config", str(path)])
+    # predict and evaluate read those artifacts; tune is not ported
+    paths = [f"data.test_dir={tmp_path / 'data' / 'test'}",
+             f"data.sample_submission={tmp_path / 'data' / 'sample_submission.csv'}",
+             f"submission.out_path={tmp_path / 'sub.csv'}", "submission.format=row_key"]
+    for command in ("predict", "evaluate"):
+        if not torch.cuda.is_available():
+            with pytest.raises(RuntimeError, match="torch.cuda.is_available"):
+                cli.main([command, "--config", str(path), "--override", *paths])
+        cli.main([command, "--config", str(path), "--override", "train.device=cpu", *paths])
+    assert "Evaluation: nll=" in capsys.readouterr().out
+    sub = (tmp_path / "sub.csv").read_text("utf-8-sig").splitlines()
+    assert len(sub) == 1 + 5 * 7 and sub[1].startswith("TEST_00+D1,")
+    with pytest.raises(NotImplementedError, match="ROADMAP.md section 1 item 8"):
+        cli.main(["tune", "--config", str(path)])
     seed, devices = dependency.bootstrap(5)
     assert seed == 5 and len(devices) == torch.cuda.device_count()
 
