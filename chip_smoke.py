@@ -28,10 +28,13 @@ Phases, each of which fails the run (non-zero exit, no result line):
    every route of the three kernels on the dynamic fold (K=4 at periods
    511, 168, 24 and 7, Lp 1023, p_cap 511) and the exact extents of p=25
    and p=171 (Lp 525 and 513), each plan equal to its mirror (the bf16
-   dW's in 64-row items with one band of h each), each kernel equal to its
-   plain version (1e-4; dW rtol 1e-4 and 1e-4 of its largest value) with
-   the same bits twice, then timed over 20 calls beside its bound and cuDNN
-   over the exact grids;
+   dW's band 1, ``tap_conv_dw_wgmma_kernel``: 128-row items at Lp 1023,
+   64-row ones at the exact extents), each kernel equal to its plain
+   version (1e-4; dW rtol 1e-4 and 1e-4 of its largest value) with the
+   same bits twice, then timed over 20 calls beside its bound and cuDNN
+   over the exact grids, the bf16 dW also beside the time of its previous
+   design (the band kernel it replaced; printed) and with the scratch
+   bytes it allocated;
 4. serve: a ``Forecaster`` at the full width of the flagship model
    (``configs/demand_benchmark.yaml``: d_model 128, d_ff 512, two layers,
    2,536,356 parameters, bf16 conv islands) with seeded random weights
@@ -251,6 +254,11 @@ LAUNCHES_PER_PASS = 12  # 2 layers x 2 inception blocks x 3 branches, per forwar
 # HBM3 at 700 W (PERF.md's kernel table, "Before"), printed beside this run's
 BEFORE_F32_US = {"fwd": (46.61, 78.29, 125.42), "dh": (64.80, 140.00, 235.46),
                  "dw": (171.02, 194.47, 336.00)}
+# device us of the previous design of the bf16 dW at the long-context shapes
+# (the band kernel it replaced, B=64, 32 channels) on an H100 80GB HBM3 at 700 W
+# (PERF.md's long-context table, "Before"), printed beside this run's
+BEFORE_LONG_DW_US = {"3x3": {"dynamic": 90.78, "p25": 17.81, "p171": 17.82},
+                     "5x5": {"dynamic": 201.67, "p25": 33.89, "p171": 33.64}}
 REPLACES = "flow_timesnet_tpu/ops/pallas_fold.py:174"
 REPLACES_DH = "flow_timesnet_tpu/ops/pallas_fold.py:174 (sign=-1, 133-138)"
 SOURCE_MMA = "flow_timesnet_tpu_torch/csrc/tap_conv_mma.cu"
@@ -1835,16 +1843,31 @@ def long_geometries(torch, fold, dev):
     return out
 
 
+def scratch_bytes(torch, fn) -> int:
+    """Bytes ``fn`` asks the card's caching allocator for beyond the tensor
+    it returns: the peak of the requested bytes over one call, less what
+    was allocated before it and the result."""
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_stats()["requested_bytes.all.current"]
+    out = fn()
+    peak = torch.cuda.memory_stats()["requested_bytes.all.peak"]
+    return peak - base - out.numel() * out.element_size()
+
+
 def long_kernels(torch, F, fold, cuda_fold, gen, dev) -> dict:
     """``[kernel]`` at the long recipe's shapes: every route of the three
     kernels (B=64, 32 channels, 3x3 and 5x5) on the dynamic geometry and the
-    two exact extents. Each plan must equal its mirror (the bf16 dW stages
-    64-row items, ``band`` 1); each kernel its plain version within 1e-4 over
-    every row (dW: rtol 1e-4 and 1e-4 of its largest value) with the same
-    bits twice. Then each is timed as ``[time]`` times the flagship's (device
-    and call time over 20 calls), beside its bound and cuDNN over the exact
-    grids. Returns ``{name: {"dynamic" | "p25" | "p171": times,
-    "max_abs_err": e}}``."""
+    two exact extents. Each plan must equal its mirror (the bf16 dW takes
+    ``band`` 1, ``tap_conv_dw_wgmma_kernel``); each kernel its plain version
+    within 1e-4 over every row (dW: rtol 1e-4 and 1e-4 of its largest
+    value) with the same bits twice. Then each is timed as ``[time]`` times
+    the flagship's (device and call time over 20 calls), beside its bound
+    and cuDNN over the exact grids; the bf16 dW also beside its previous
+    design's time (``BEFORE_LONG_DW_US``, printed only), with the scratch
+    bytes the wrapper allocated (:func:`scratch_bytes`). Returns
+    ``{name: {"dynamic" | "p25" | "p171": times, "max_abs_err": e}}``."""
 
     out = {}
     for kh, kw in LONG_SIZES:
@@ -1907,6 +1930,20 @@ def long_kernels(torch, F, fold, cuda_fold, gen, dev) -> dict:
                                                            "periods": list(periods)}
                     print(f"[time] long context {kind}_{route} {key} {label} Lp={geom.Lp} "
                           f"B={LONG_B}: {described(t)}")
+                if route == "mma":  # the bf16 dW beside its previous design, and its scratch
+                    entry = out[f"dw_mma_{key}"][label]
+                    entry["scratch_bytes"] = scratch_bytes(
+                        torch, lambda: cuda_fold.tap_conv_dw_cuda(h, geom, ct, kh, kw))
+                    plan_bytes = 4 * cuda_fold.dw_mma_plan(*shape).scratch_elems(kh, kw, C, C)
+                    check(entry["scratch_bytes"] == plan_bytes,
+                          f"long context dw_mma {key} {label}: {entry['scratch_bytes']} bytes "
+                          f"of scratch allocated, the plan's {plan_bytes}")
+                    print(f"[time] long context dw_mma {key} {label} Lp={geom.Lp}: kernel "
+                          f"{entry['ms'] * 1e3:.2f} us against the previous design's (before) "
+                          f"{BEFORE_LONG_DW_US[key][label]:.2f} us, cuDNN "
+                          f"{entry['library_ms'] * 1e3:.2f} us, bound "
+                          f"{entry['bound_ms'] * 1e3:.3f} us ({entry['bound_by']}), scratch "
+                          f"{entry['scratch_bytes'] / 1e6:.2f} MB")
     return out
 
 
@@ -2744,7 +2781,7 @@ def main() -> int:
         for line in path.with_suffix(".log").read_text().splitlines():
             if "Compiling entry function" in line:
                 kernel = kernel_label(line)
-            elif "registers" in line or "spill" in line:
+            elif any(w in line for w in ("registers", "spill", "wgmma", "warning")):
                 print(f"[build]   {kernel}: {line.strip()}")
 
     # 3. each kernel against its plain version --------------------------------

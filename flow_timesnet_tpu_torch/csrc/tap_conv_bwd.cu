@@ -34,9 +34,10 @@
 //
 // Each kernel has two routes, chosen by the caller by dtype
 // (ops/cuda_fold.py); neither gives way to the other. bf16 runs the tensor
-// cores (dh: tap_conv_mma.cu; dW: tap_conv_dw_mma_kernel below). float32
-// runs the two kernels below on the CUDA cores: their float32 FMAs keep the
-// products exact, and sums are float32. TF32 tensor cores would keep about
+// cores (dh: tap_conv_mma.cu; dW: tap_conv_dw_mma_kernel and, for long
+// sequences, tap_conv_dw_wgmma_kernel below). float32 runs the two kernels
+// below on the CUDA cores: their float32 FMAs keep the products exact, and
+// sums are float32. TF32 tensor cores would keep about
 // three digits of each product, and 3xTF32 drops the low x low term, so
 // neither is used. ops/cuda_fold.py::dh_f32_plan and dw_f32_plan mirror
 // their C plans constant for constant; a card test holds the pairs together.
@@ -132,6 +133,7 @@
 #include <cstdint>
 
 #include "f32_stage.cuh"
+#include "hopper_ptx.cuh"
 #include "run_count.cuh"
 
 namespace {
@@ -510,14 +512,14 @@ __device__ __forceinline__ void cp_async_wait_ring() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(kMmaStages - 2) : "memory");
 }
 
-// The launch plan of the bf16 dW: tap_conv_dw_mma_kernel (band 0) or
-// tap_conv_dw_mma_band_kernel (band 1); mirrored by ops/cuda_fold.py::dw_mma_plan.
+// The launch plan of band 0 of the bf16 dW, tap_conv_dw_mma_kernel;
+// mirrored by ops/cuda_fold.py::DwMmaPlan.
 struct DwMmaPlan {
-  int lp_pad;        // Lp rounded up to whole items
+  int lp_pad;        // Lp rounded up to whole 16-row k-steps
   int pad;           // (kh / 2) * p_max + kw / 2: zero rows on each side of a staged sequence
-  int rt;            // rows of ct an item multiplies: lp_pad (band 0) or 64, 32, 16 (band 1)
-  int band;          // 0: an item is a whole sequence between pad zero rows; 1: a row tile
-  int buf_rows;      // rows of h an item stages: lp_pad + 2 pad (band 0), rt + kw - 1 (band 1)
+  int rt;            // rows of ct an item multiplies: lp_pad (an item is a whole sequence)
+  int band;          // 0
+  int buf_rows;      // rows of h an item stages: lp_pad + 2 pad
   int tiles;         // 32 x 32 channel tiles of dW
   int chunks_per_k;  // chunks of each candidate's items
   int per_chunk;     // items of a chunk (the last one may hold fewer)
@@ -526,7 +528,45 @@ struct DwMmaPlan {
   int chunks;        // K * chunks_per_k: the scratch holds chunks * kh * kw * Cin * Cout floats
 };
 
-constexpr int kMmaBandRows[3] = {64, 32, 16};  // band 1: rows of an item, preferred first
+// The launch plan of band 1, tap_conv_dw_wgmma_kernel; mirrored by
+// ops/cuda_fold.py::DwBandPlan.
+struct DwBandPlan {
+  int lp_pad;       // Lp rounded up to whole items
+  int rt;           // rows of ct an item multiplies: 128, 64, 32 or 16
+  int band;         // 1
+  int buf_rows;     // rows of h a band holds: rt + kw - 1
+  int tiles;        // 32 x 32 channel tiles of dW
+  int groups;       // kernel-row groups, a block each
+  int kr;           // kernel rows of a group (the last one may hold fewer)
+  int mtiles;       // 64-row wgmma M tiles of a block: (tap, 16 input channels) slabs, 4 a tile
+  int consumers;    // consumer warpgroups of a block; one producer warpgroup beside them
+  int warps;        // warps of a block: 4 a warpgroup
+  int stages;       // items in a block's ring
+  int stage_bytes;  // a stage: ct's rt rows, kr bands of h, the tap table, a header; 1,024-aligned
+  int smem;         // dynamic shared memory of a block, bytes
+  int cluster;      // blocks of a cluster, which sum their partials in distributed shared memory
+  int blocks;       // blocks along the item axis, a whole number of clusters
+  int per_chunk;    // items of a block, at most
+  int chunks;       // blocks / cluster: the scratch holds chunks * kh * kw * Cin * Cout floats
+};
+
+// Band 1 (tap_conv_dw_wgmma_kernel). ops/cuda_fold.py mirrors these.
+constexpr int kBandRows[4] = {128, 64, 32, 16};  // rows of an item, tallest first
+constexpr int kWgTiles = 5;  // M tiles of a consumer warpgroup, at most: 80 float32 sums a thread
+constexpr int kMaxConsumers = 3;  // consumer warpgroups of a block
+constexpr int kMaxSlabs = 4 * kWgTiles * kMaxConsumers;  // (tap, 16 channels) slabs a block
+constexpr int kTapBits = 32;  // a row's valid taps of a group, one bit each, in one word
+constexpr int kMinStages = 4;  // items in the ring, at least
+constexpr int kMaxStages = 8;
+constexpr int kMinItems = 4;  // items a block takes on average, where an item height gives them
+constexpr int kCluster = 2;  // blocks of a cluster
+constexpr int kRowBytes = 64;  // a staged row: 32 bf16 channels, the 64-byte swizzle's span
+constexpr int kRedStride = 40;  // floats a row of the partial sums: conflict-free float2 stores
+constexpr int kAlignSlack = 1024;  // shared memory given up to start the ring on 1,024 bytes
+constexpr int kHeaderBytes = 16;  // a stage's header: first row, kernel rows, last-stage flag
+constexpr int kBandThreads = (kMaxConsumers + 1) * 128;  // a producer warpgroup, then consumers
+constexpr int kProducerRegs = 32;  // setmaxnreg: 128 x 32 + 384 x 160 = 65,536
+constexpr int kConsumerRegs = 160;
 
 // Pass 1 of dW in bf16, on the tensor cores. It replaces the XLA contraction
 // flow_timesnet_tpu/ops/fold.py:265 (_tap_weight_grad) in its bf16 form.
@@ -547,7 +587,8 @@ constexpr int kMmaBandRows[3] = {64, 32, 16};  // band 1: rows of an item, prefe
 //
 // This kernel stages whole sequences (the plan's band 0), where a ring of
 // them fits in shared memory (the flagship: Lp = 55); longer ones take
-// tap_conv_dw_mma_band_kernel below (band 1).
+// tap_conv_dw_wgmma_kernel below (band 1), which is built from Hopper's TMA,
+// mbarriers and wgmma.
 //
 // What the design does about what held the CUDA-core version back:
 // - Multiply-adds: one mma does 2,048 of them, on bf16 fragments that
@@ -730,153 +771,344 @@ tap_conv_dw_mma_kernel(const __nv_bfloat16* __restrict__ h, const __nv_bfloat16*
   }
 }
 
-// Band 1 of pass 1, where a ring of whole sequences does not fit in shared
-// memory (a ring of four at Lp = 1023 takes 1.0-1.4 MB): an item is a tile
-// of rt = 64 rows (else 32 or 16, the first that fits) of ct of one
-// sequence, and chunks hold items. The block owns one kernel row dc, so an
-// item's kw taps read the one band of rt + kw - 1 rows of h from row
-// t0 + dc*p - kw/2 on; it is staged by cp.async with zero fill wherever a
-// row leaves [0, Lp) (ct's rows past Lp too), so every fragment load reads
-// h, ct or a zero, never stale bits. Beside it the item's (row(t), col(t))
-// table, from which each lane builds its B-fragment masks at each k-step
-// (the whole-sequence kernel builds them once per block: they do not
-// depend on the item there). K-steps wholly past Lp are skipped. The
-// k-step, the ring and the partials are the whole-sequence kernel's.
-__global__ void __launch_bounds__(kMmaMaxWarps * 32)
-tap_conv_dw_mma_band_kernel(const __nv_bfloat16* __restrict__ h,
-                            const __nv_bfloat16* __restrict__ ct,
-                            const int* __restrict__ periods, const int* __restrict__ cycles,
-                            float* __restrict__ partial, int B, int Lp, int Cin, int Cout, int kh,
-                            int kw, int p_max, const DwMmaPlan q, int co_tiles,
-                            int* __restrict__ runs) {
+// Band 1 of the bf16 dW, where a ring of whole sequences does not fit in
+// shared memory (Lp 1023 at L = 512, and the exact extents 525 and 513 of
+// its daily and weekly periods). It replaces the XLA contraction
+// flow_timesnet_tpu/ops/fold.py:265 (_tap_weight_grad) in its bf16 form,
+// as the whole-sequence kernel above does: dW[dc,dj] = sum over k, b, t of
+// valid(dc, dj, t) h[k,b,t + dc*p + dj]^T ct[k,b,t], products exact in
+// float32, sums float32.
+//
+// What bounds it on an H100 SXM (data-sheet figures): bytes. At the long
+// recipe's dynamic call (K=4, B=64, Lp=1023, 32 channels) h and ct are 33.5
+// MB, 10.0 us at 3.35 TB/s; the taps the fold leaves valid are 2.3 / 5.9
+// GFLOP at 3x3 / 5x5, 2.3 / 6.0 us at 989 TFLOP/s (all taps: 4.8 / 13.4
+// GFLOP). The design is Hopper's: TMA fills a ring that a producer
+// warpgroup keeps ahead, and consumer warpgroups multiply with wgmma.
+// Against what held the previous band kernel (a repair, which reused the
+// whole-sequence k-step on 64-row items) back:
+//
+// 1. ct was staged once per kernel row (a block owned one kernel row). Here
+//    a block holds every tap of its kernel rows: for each item (rt rows of
+//    one sequence) it stages ct's rows once and, for each kernel row dc
+//    that reads the item, one band of h of rt + kw - 1 rows from row
+//    t0 + dc*p - kw/2 on. ct crosses into shared memory once; h once per
+//    kernel row, which a row tiling cannot avoid and which L2 serves.
+// 2. Small blocks walked their items behind a block barrier each. Here a
+//    persistent block, one an SM, has a producer warpgroup and up to three
+//    consumer warpgroups, which meet only on the ring's mbarriers: a
+//    consumer waits on a stage's full barrier and each of its warps
+//    arrives on the stage's empty one when its products have read it. No
+//    block barrier runs per item. Within an item a consumer takes the
+//    k-steps two a round: it loads and masks the next round's A fragments
+//    while this round's wgmmas run (two rounds of A registers,
+//    wgmma.wait_group 1). The producer gives its registers to the consumers
+//    (setmaxnreg: 32 a thread, the consumers 160), which hold up to 80
+//    float32 sums a thread.
+// 3. Address work on the compute threads. TMA computes every address and
+//    zero-fills the rows a box has outside [0, Lp) (rows of the band
+//    before 0 or past Lp, ct past Lp) in hardware. The producer walks the
+//    items and writes each staged one's header (first row, kernel rows)
+//    and table: one word a row, a bit for each tap of the group that is
+//    valid there, from one division a row, a row a producer thread. A
+//    consumer divides nothing; a lane's mask for a tap and a pair of rows
+//    is two shifts of a word.
+// 4. Masked taps were multiplied. Per item, the kernel rows that no row of
+//    the item reaches (at p = 511 and 5x5, dc = +2 everywhere and dc = -2
+//    everywhere but at row 1022) are neither loaded nor multiplied, an item
+//    that no kernel row reaches is not staged (the rows past each period's
+//    extent), and k-steps past Lp are skipped. Skips are uniform over a
+//    warpgroup.
+// 5. Split-K scratch and a second launch. A block's partial sums go to
+//    shared memory at its end, and the blocks of a thread-block cluster
+//    sum them through distributed shared memory in rank order, so the
+//    scratch holds one partial a cluster (blocks / kCluster, half of what
+//    one a block would take), which pass 2 (tap_conv_dw_reduce_kernel, as
+//    for band 0) sums in cluster order. No float atomics: the same bits
+//    every run.
+//
+// The products. An M tile of wgmma m64n32k16 is 64 rows of dW: four slabs
+// of 16 (tap, input channel) rows, the slabs of the taps in (dc, dj) order
+// and, at 32 input channels, two taps a tile. The A operand of a slab,
+// A[ci, t] = valid(tap, t) h[t + shift(tap), ci], comes from registers: its
+// warp loads it with ldmatrix.trans from the tap's band at the tap's row
+// offset, and the mask is an AND on the packed bf16 pairs, which also turns
+// whatever masked rows held (zeros, stale bits) into +0. Masking A, not ct,
+// lets one staged ct tile be the B operand of every tap: wgmma reads it
+// from shared memory through a descriptor (64-byte swizzle, MN-major).
+// Each consumer warpgroup holds up to kWgTiles M tiles, 16 float32 sums a
+// thread each: 3x3 is 5 tiles (the last half used), 5x5 13, over three
+// warpgroups. Rows are staged 64 bytes wide (32 channels) with TMA's
+// 64-byte swizzle, so the eight rows of an ldmatrix matrix fall in distinct
+// banks wherever a tap's offset starts them (hopper_ptx.cuh).
+//
+// Work. Items are the row tiles of every sequence, ordered tile by tile
+// with the sequences of every candidate fastest, and block x takes items
+// x, x + blocks, ...: each block sees every candidate and row tile alike.
+// Channel tiles (32 x 32) and kernel-row groups (where a group's taps pass
+// kMaxSlabs slabs or kTapBits bits) are the grid's y.
+// MT: the M tiles a consumer warpgroup holds (ceil(mtiles / consumers)):
+// 16 MT float32 sums a thread. Up to 3, two rounds of A registers let a
+// round's loads overlap the previous round's products; at 4 and 5 the
+// registers hold one k-step's, and the other warpgroups' products fill the
+// gap (two sets there spill: twice the time at 5x5; loading one half of
+// the tiles while the other half's wgmmas run took 15 % longer).
+//
+// What sets its pace on the card (PERF.md): the wgmmas. At N = 32
+// (the output channels) an m64n32k16 takes the tensor cores about four
+// times its share of the peak rate, with A from registers or from shared
+// memory alike; the same tiles on mma.sync m16n8k16 took 1.2-1.8x as long.
+template <int MT>
+__global__ void __launch_bounds__(kBandThreads, 1)
+tap_conv_dw_wgmma_kernel(const __grid_constant__ CUtensorMap h_map,
+                         const __grid_constant__ CUtensorMap ct_map,
+                         const int* __restrict__ periods, const int* __restrict__ cycles,
+                         float* __restrict__ partial, int K, int B, int Lp, int Cin, int Cout,
+                         int kh, int kw, int p_max, const DwBandPlan q, int co_tiles,
+                         int* __restrict__ runs) {
   count_run(runs);
+  __shared__ uint64_t full_bar[kMaxStages], empty_bar[kMaxStages];
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int stride_in = Cin + kRowPad, stride_out = Cout + kRowPad;
-  const int h_elems = q.buf_rows * stride_in;  // the item's band of h
-  const int buf_elems = h_elems + q.rt * stride_out;  // then its rt rows of ct
-  auto* bufs = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // the ring: kMmaStages buffers
-  auto* rc_s = reinterpret_cast<int2*>(bufs + kMmaStages * buf_elems);  // [kMmaStages][rt]
-
-  const int rh = kh / 2, rw = kw / 2;
-  const int tiles = gridDim.x / kh;
-  const int dc = static_cast<int>(blockIdx.x) / tiles - rh;
-  const int tile = blockIdx.x % tiles;
-  const int ci0 = (tile / co_tiles) * kWarpTile, co0 = (tile % co_tiles) * kWarpTile;
-  const int chunk = blockIdx.y;  // k * chunks_per_k + chunk within k
-  const int k = chunk / q.chunks_per_k;
-  const int per_seq = q.lp_pad / q.rt;  // items of a sequence
-  const int i0 = (chunk % q.chunks_per_k) * q.per_chunk;
-  const int n_items = min(q.per_chunk, B * per_seq - i0);
-  const int p = min(max(periods[k], 1), p_max);  // the geometry's clamp
-  const int cyc = cycles[k];
+  // the ring starts on 1,024 bytes: the swizzle is a function of the address
+  unsigned char* ring = smem_raw + ((1024u - (smem_addr(smem_raw) & 1023u)) & 1023u);
+  const int rt = q.rt, S = q.stages, stage_bytes = q.stage_bytes;
+  const int ct_bytes = rt * kRowBytes;
+  const int band_bytes = (q.buf_rows + 15) / 16 * 16 * kRowBytes;  // 1,024-aligned bands
+  const int table_off = ct_bytes + q.kr * band_bytes;  // then rt words, then the header
+  const int header_off = table_off + 4 * rt;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int vin = Cin / 8, vout = Cout / 8;  // 16-byte vectors of a global row
-
-  auto stage = [&](int i) {  // item i of the chunk into its buffer, asynchronously
-    const int item = i0 + i, buf = i % kMmaStages;
-    const int t0 = (item % per_seq) * q.rt, g0 = t0 + dc * p - rw;
-    const size_t seq = static_cast<size_t>(k) * B + item / per_seq;
-    const __nv_bfloat16* hg = h + seq * Lp * Cin;
-    const __nv_bfloat16* cg = ct + seq * Lp * Cout;
-    __nv_bfloat16* hs = bufs + buf * buf_elems;
-    __nv_bfloat16* cs = hs + h_elems;
-    const int nh = q.buf_rows * vin, n = nh + q.rt * vout;
-    for (int j = threadIdx.x; j < n; j += blockDim.x) {
-      if (j < nh) {  // h rows g0 .. g0 + buf_rows - 1
-        const int r = j / vin, g = g0 + r;
-        const bool in = g >= 0 && g < Lp;
-        cp_async16_zfill(hs + r * stride_in + (j % vin) * 8,
-                         hg + static_cast<size_t>(in ? g : 0) * Cin + (j % vin) * 8, in);
-      } else {  // ct rows t0 .. t0 + rt - 1
-        const int e = j - nh, r = e / vout, t = t0 + r;
-        const bool in = t < Lp;
-        cp_async16_zfill(cs + r * stride_out + (e % vout) * 8,
-                         cg + static_cast<size_t>(in ? t : 0) * Cout + (e % vout) * 8, in);
-      }
+  const int consumers = 128 * q.consumers;  // threads of the consumer warpgroups 1 ..
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < S; ++s) {
+      mbar_init(&full_bar[s], 128);  // the producer's threads, each after its row of the table
+      mbar_init(&empty_bar[s], consumers / 32);  // every consumer warp
     }
-    for (int r = threadIdx.x; r < q.rt; r += blockDim.x) {
-      const int t = t0 + r;  // a row past Lp takes a row far below 0: no tap is valid there
-      rc_s[buf * q.rt + r] = t < Lp ? make_int2(t / p, t % p) : make_int2(-(1 << 30), 0);
-    }
-  };
-  // one commit group per item, empty past the chunk's end; the tables are
-  // plain stores, visible after the barrier that opens their item
-  for (int i = 0; i < kMmaStages - 1; ++i) {
-    if (i < n_items) stage(i);
-    cp_async_commit();
+    mbar_init_fence();
+    tma_prefetch_map(&h_map);
+    tma_prefetch_map(&ct_map);
   }
+  __syncthreads();  // the barriers, once
 
-  const bool m_on1 = ci0 + 16 < Cin;
-  bool n_on[4];
-#pragma unroll
-  for (int nt = 0; nt < 4; ++nt) n_on[nt] = co0 + 8 * nt < Cout;
-  float acc[2][4][4];
-#pragma unroll
-  for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-    for (int nt = 0; nt < 4; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[mt][nt][e] = 0.f;
-  // the whole-sequence kernel's ldmatrix addresses; output row t of an item
-  // reads row t + warp of its band (tap dj = warp - rw)
-  const int a_row = (lane & 7) + ((lane >> 4) << 3), a_col = ci0 + ((lane >> 3) & 1) * 8;
-  const int b_row = (lane & 7) + (((lane >> 3) & 1) << 3), b_col = co0 + (lane >> 4) * 8;
+  const int group = blockIdx.y % q.groups, tile = blockIdx.y / q.groups;
+  const int ci0 = (tile / co_tiles) * 32, co0 = (tile % co_tiles) * 32;
+  const int cib = min(2, (Cin - ci0) / 16);  // 16-channel slabs of the channel tile
+  const int rh = kh / 2, rw = kw / 2;
+  const int kr = min(q.kr, kh - group * q.kr);  // kernel rows of this group
+  const int dc0 = group * q.kr - rh;  // the dc of its first
+  const int nslabs = kr * kw * cib, mtiles = (nslabs + 3) / 4;
 
-  for (int i = 0; i < n_items; ++i) {
-    cp_async_wait_ring();
-    __syncthreads();  // item i is staged everywhere; item i - 1's buffer is free
-    if (i + kMmaStages - 1 < n_items) stage(i + kMmaStages - 1);
-    cp_async_commit();
-    const __nv_bfloat16* hs = bufs + (i % kMmaStages) * buf_elems;
-    const __nv_bfloat16* cs = hs + h_elems;
-    const int2* rc = rc_s + (i % kMmaStages) * q.rt;
-    const int t_item = ((i0 + i) % per_seq) * q.rt;
-    const int ks_end = min(q.rt / kMmaRows, (Lp - t_item + kMmaRows - 1) / kMmaRows);
-    for (int ks = 0; ks < ks_end; ++ks) {
-      const int t0 = ks * kMmaRows;
-      // lane l's pairs of rows t0 + 2 (l % 4) + {0, 1} and + {8, 9}
-      uint32_t m[2] = {0u, 0u};
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int2 e = rc[t0 + 2 * (lane % 4) + (j & 1) + 8 * (j >> 1)];
-        const int r = e.x + dc, c = e.y + warp - rw;
-        if (r >= 0 && r < cyc && c >= 0 && c < p) m[j >> 1] |= (j & 1) ? 0xffff0000u : 0xffffu;
+  if (warp < 4) {  // the producer warpgroup: walks the items, a table row a thread
+    setmaxnreg_dec<kProducerRegs>();
+    const int KB = K * B, items = KB * (q.lp_pad / rt), step = gridDim.x;
+    const int dseq = step % KB, dt0 = step / KB * rt;
+    // item i: row tile i / (K B) of sequence i % (K B), walked without a division
+    int seq = blockIdx.x % KB, t0 = blockIdx.x / KB * rt;
+    int j = 0;  // items staged
+    for (int i = blockIdx.x; i < items; i += step) {
+      const int k = seq / B;
+      const int p = min(max(__ldg(periods + k), 1), p_max);  // the geometry's clamp
+      const int cyc = __ldg(cycles + k);
+      // the group's kernel rows [klo, khi] that some row of the item reaches
+      const int r_lo = t0 / p, r_hi = (min(t0 + rt, Lp) - 1) / p;
+      const int klo = max(0, -r_hi - dc0), khi = min(kr - 1, cyc - 1 - r_lo - dc0);
+      const int item_seq = seq, item_t0 = t0;
+      seq += dseq;
+      t0 += dt0;
+      if (seq >= KB) {
+        seq -= KB;
+        t0 += rt;
       }
-      uint32_t bf[4][2] = {};
-#pragma unroll
-      for (int qq = 0; qq < 2; ++qq) {
-        if (!n_on[2 * qq]) continue;
-        uint32_t r[4];
-        ldmatrix_x4_trans(r, cs + (t0 + b_row) * stride_out + b_col + 16 * qq);
-        bf[2 * qq][0] = r[0] & m[0];
-        bf[2 * qq][1] = r[1] & m[1];
-        bf[2 * qq + 1][0] = r[2] & m[0];
-        bf[2 * qq + 1][1] = r[3] & m[1];
+      if (klo > khi) continue;  // no tap reads this tile: not staged
+      const int s = j % S;
+      mbar_wait(&empty_bar[s], ((j / S) & 1) ^ 1);
+      unsigned char* st = ring + s * stage_bytes;
+      for (int r = threadIdx.x; r < rt; r += 128) {
+        const int t = item_t0 + r;
+        uint32_t word = 0;
+        if (t < Lp) {  // kernel rows with 0 <= row + dc < cyc, taps with 0 <= col + dj < p
+          const int row = t / p, col = t - row * p;
+          const int lo = max(klo, -row - dc0), hi = min(khi, cyc - 1 - row - dc0);
+          const int wlo = max(0, rw - col), whi = min(kw - 1, p - 1 - col + rw);
+          if (wlo <= whi) {
+            const uint32_t cols = ((2u << whi) - 1u) & ~((1u << wlo) - 1u);
+            for (int kri = lo; kri <= hi; ++kri) word |= cols << (kri * kw);
+          }
+        }
+        reinterpret_cast<uint32_t*>(st + table_off)[r] = word;
       }
-      uint32_t a[2][4] = {};
-      const __nv_bfloat16* arow = hs + (warp + t0 + a_row) * stride_in + a_col;
-      ldmatrix_x4_trans(a[0], arow);
-      if (m_on1) ldmatrix_x4_trans(a[1], arow + 16);
-#pragma unroll
-      for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-        for (int nt = 0; nt < 4; ++nt)
-          if ((mt == 0 || m_on1) && n_on[nt]) mma_bf16(acc[mt][nt], a[mt], bf[nt][0], bf[nt][1]);
+      if (threadIdx.x == 0) {
+        *reinterpret_cast<int4*>(st + header_off) = make_int4(item_t0, klo, khi, 0);
+        mbar_arrive_expect_tx(&full_bar[s], (rt + (khi - klo + 1) * q.buf_rows) * kRowBytes);
+        tma_load_3d(st, &ct_map, &full_bar[s], co0, item_t0, item_seq);
+        for (int kri = klo; kri <= khi; ++kri) {
+          tma_load_3d(st + ct_bytes + kri * band_bytes, &h_map, &full_bar[s], ci0,
+                      item_t0 + (dc0 + kri) * p - rw, item_seq);
+        }
+      } else {
+        mbar_arrive(&full_bar[s]);
+      }
+      ++j;
     }
-  }
+    // the last stage: a header that ends the consumers' walk
+    const int s = j % S;
+    mbar_wait(&empty_bar[s], ((j / S) & 1) ^ 1);
+    if (threadIdx.x == 0) {
+      *reinterpret_cast<int4*>(ring + s * stage_bytes + header_off) = make_int4(0, 0, -1, 1);
+    }
+    mbar_arrive(&full_bar[s]);
+    cluster_sync();  // the consumers' partial sums, then their sum over the cluster
+    cluster_sync();
+  } else {  // a consumer warpgroup
+    setmaxnreg_inc<kConsumerRegs>();
+    const int g = warp / 4 - 1, w4 = warp % 4, qq = lane % 4;
+    // slab 4 mt + w4 of M tile mt is (tap, 16 channels): tap = slab / cib,
+    // kernel row tap / kw, tap dj = tap % kw - kw / 2. ldmatrix.trans rows
+    // of the k-step and 8-channel chunk of the lane, as in the whole-sequence kernel
+    const int a_row = (lane & 7) + ((lane >> 4) << 3), a_chunk = (lane >> 3) & 1;
+    float acc[MT][16];
+    bool tile_on[MT];  // this warpgroup holds M tile g + consumers * m
+    int tap_bit[MT];  // this warp's slab of it: its tap's bit in a row's word (-1: none)
+    int kri_lo[MT], kri_hi[MT];  // the kernel rows the tile's four slabs read
+    uint32_t a_off[MT];  // the lane's ldmatrix address in a stage at k-step 0
+#pragma unroll
+    for (int m = 0; m < MT; ++m) {
+#pragma unroll
+      for (int e = 0; e < 16; ++e) acc[m][e] = 0.f;
+      const int mt = g + q.consumers * m, s = 4 * mt + w4;
+      tile_on[m] = mt < mtiles;
+      kri_lo[m] = tile_on[m] ? 4 * mt / cib / kw : 0;
+      kri_hi[m] = tile_on[m] ? min(4 * mt + 3, nslabs - 1) / cib / kw : 0;
+      tap_bit[m] = tile_on[m] && s < nslabs ? s / cib : -1;
+      const int tap = max(tap_bit[m], 0), row = tap % kw + a_row;
+      a_off[m] = ct_bytes + (tap / kw) * band_bytes + swizzle64(row, 2 * (s % cib) + a_chunk);
+    }
+    for (int j = 0;; ++j) {
+      const int s = j % S;
+      mbar_wait(&full_bar[s], (j / S) & 1);
+      const unsigned char* st = ring + s * stage_bytes;
+      const int4 hd = *reinterpret_cast<const int4*>(st + header_off);
+      if (hd.w) break;  // the producer's last header
+      const uint32_t st_s = smem_addr(st);
+      const uint2* tab = reinterpret_cast<const uint2*>(st + table_off);
+      bool live[MT];
+#pragma unroll
+      for (int m = 0; m < MT; ++m) {
+        live[m] = tile_on[m] && kri_lo[m] <= hd.z && kri_hi[m] >= hd.y;
+      }
+      // A of k-step ks: the slabs' fragments, masked by the rows' words;
+      // the lane's rows 16 ks + 2 q + {0, 1} (registers 0, 1) and + {8, 9} (2, 3)
+      auto load_a = [&](uint32_t (&a)[MT][4], int ks) {
+        const uint2 w0 = tab[8 * ks + qq], w1 = tab[8 * ks + 4 + qq];
+#pragma unroll
+        for (int m = 0; m < MT; ++m) {
+          if (!live[m]) continue;
+          if (tap_bit[m] < 0) {  // the half-used last tile: its missing slabs multiply zeros
+            a[m][0] = a[m][1] = a[m][2] = a[m][3] = 0u;
+            continue;
+          }
+          ldmatrix_x4_trans_at(a[m], st_s + a_off[m] + 1024u * ks);
+          const int b = tap_bit[m];
+          const uint32_t m0 = (0xFFFFu & (0u - ((w0.x >> b) & 1u))) |
+                              (0xFFFF0000u & (0u - ((w0.y >> b) & 1u)));
+          const uint32_t m1 = (0xFFFFu & (0u - ((w1.x >> b) & 1u))) |
+                              (0xFFFF0000u & (0u - ((w1.y >> b) & 1u)));
+          a[m][0] &= m0;
+          a[m][1] &= m0;
+          a[m][2] &= m1;
+          a[m][3] &= m1;
+        }
+      };
+      // ct at k-step 0: 8-row groups 512 bytes apart, + 1,024 bytes a k-step
+      const uint64_t desc = wgmma_desc_sw64(st_s, 8 * kRowBytes);
+      // the wgmmas of k-step ks and, where `two`, of ks + 1: one commit group
+      auto mma_round = [&](uint32_t (&x)[MT][4], uint32_t (&y)[MT][4], int ks, bool two) {
+        wgmma_fence();
+#pragma unroll
+        for (int m = 0; m < MT; ++m) {
+          if (live[m]) wgmma_m64n32k16(acc[m], x[m], desc + 64u * ks);
+        }
+        if (two) {
+#pragma unroll
+          for (int m = 0; m < MT; ++m) {
+            if (live[m]) wgmma_m64n32k16(acc[m], y[m], desc + 64u * (ks + 1));
+          }
+        }
+        wgmma_commit();
+      };
+      const int ks_end = min(rt / 16, (Lp - hd.x + 15) / 16);
+      uint32_t a0[MT][4], a1[MT][4];
+#pragma unroll
+      for (int m = 0; m < MT; ++m) fence_acc(acc[m]);
+      if constexpr (MT <= 3) {
+        // two k-steps a round: their fragments load together, and a round's
+        // wgmmas run while the next round loads
+        uint32_t a2[MT][4], a3[MT][4];
+        load_a(a0, 0);
+        if (1 < ks_end) load_a(a1, 1);
+        for (int ks = 0; ks < ks_end; ks += 4) {
+          mma_round(a0, a1, ks, ks + 1 < ks_end);
+          if (ks + 2 >= ks_end) break;
+          wgmma_wait<1>();  // the round before, which read a2 and a3, is done
+          load_a(a2, ks + 2);
+          if (ks + 3 < ks_end) load_a(a3, ks + 3);
+          mma_round(a2, a3, ks + 2, ks + 3 < ks_end);
+          if (ks + 4 >= ks_end) break;
+          wgmma_wait<1>();  // round ks, which read a0 and a1, is done
+          load_a(a0, ks + 4);
+          if (ks + 5 < ks_end) load_a(a1, ks + 5);
+        }
+      } else {  // one set of fragments: the other warpgroups' products fill the wait
+        for (int ks = 0; ks < ks_end; ++ks) {
+          load_a(a0, ks);
+          mma_round(a0, a1, ks, false);
+          wgmma_wait<0>();
+        }
+      }
+      wgmma_wait<0>();
+#pragma unroll
+      for (int m = 0; m < MT; ++m) fence_acc(acc[m]);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty_bar[s]);  // this warp's reads of the stage are done
+    }
 
-  // partial: [chunks, kh, kw, Cin, Cout], as the whole-sequence kernel writes it
-  float* out = partial + ((static_cast<size_t>(chunk) * kh + dc + rh) * kw + warp) * Cin * Cout;
+    group_barrier(0, consumers);  // every warpgroup is done with the ring: it takes the sums
+    float* red = reinterpret_cast<float*>(ring);  // [slab][16 channels][kRedStride]
+    const int gq = lane / 4;
 #pragma unroll
-  for (int mt = 0; mt < 2; ++mt) {
+    for (int m = 0; m < MT; ++m) {
+      if (tap_bit[m] < 0) continue;
+      float* o = red + ((4 * (g + q.consumers * m) + w4) * 16 + gq) * kRedStride + 2 * qq;
 #pragma unroll
-    for (int nt = 0; nt < 4; ++nt) {
-      if (!((mt == 0 || m_on1) && n_on[nt])) continue;
-      const int ci = ci0 + 16 * mt + (lane >> 2), co = co0 + 8 * nt + 2 * (lane & 3);
-      *reinterpret_cast<float2*>(out + ci * Cout + co) = make_float2(acc[mt][nt][0], acc[mt][nt][1]);
-      *reinterpret_cast<float2*>(out + (ci + 8) * Cout + co) =
-          make_float2(acc[mt][nt][2], acc[mt][nt][3]);
+      for (int n = 0; n < 4; ++n) {
+        *reinterpret_cast<float2*>(o + 8 * n) = make_float2(acc[m][4 * n], acc[m][4 * n + 1]);
+        *reinterpret_cast<float2*>(o + 8 * kRedStride + 8 * n) =
+            make_float2(acc[m][4 * n + 2], acc[m][4 * n + 3]);
+      }
     }
+    cluster_sync();  // every block of the cluster holds its partial sums
+    // block `rank` sums its share of them over the cluster's blocks, in rank order
+    const uint32_t cs = q.cluster, rank = cluster_rank();
+    const int n4 = nslabs * 16 * 8;  // float4s: slab, channel, 8 of 32 output channels
+    const size_t chunk = blockIdx.x / cs;
+    for (int e = rank * n4 / cs + threadIdx.x - 128; e < static_cast<int>((rank + 1) * n4 / cs);
+         e += consumers) {
+      const int s = e >> 7, ch = (e >> 3) & 15, co = co0 + 4 * (e & 7);
+      if (co >= Cout) continue;
+      const uint32_t off = smem_addr(red + (s * 16 + ch) * kRedStride + 4 * (e & 7));
+      float4 sum = ld_cluster_f4(cluster_map(off, 0));
+      for (uint32_t r = 1; r < cs; ++r) {
+        const float4 v = ld_cluster_f4(cluster_map(off, r));
+        sum.x += v.x;
+        sum.y += v.y;
+        sum.z += v.z;
+        sum.w += v.w;
+      }
+      const int tap = s / cib, ci = ci0 + 16 * (s % cib) + ch;
+      const int dci = group * q.kr + tap / kw;
+      *reinterpret_cast<float4*>(
+          partial + (((chunk * kh + dci) * kw + tap % kw) * Cin + ci) * Cout + co) = sum;
+    }
+    cluster_sync();  // no block leaves while another reads its shared memory
   }
 }
 
@@ -996,16 +1228,66 @@ int launch_dh_nt(const float* ct, const float* w, const int* periods, const int*
   return static_cast<int>(cudaGetLastError());
 }
 
-// 0, or cudaErrorInvalidValue for a shape the kernel cannot take: Cin not a
+// Band 1's plan (tap_conv_dw_wgmma_kernel), after band 0's checks. The
+// kernel rows of a block: all of them where their slabs fit
+// kMaxSlabs and their taps kTapBits, else even groups of them, a block
+// each. Blocks: one wave of one block an SM over the channel tiles and
+// groups, whole clusters, no more than the items. Items: the tallest of
+// kBandRows whose ring of at least kMinStages stages fits and whose count
+// gives every block kMinItems, else the shortest that fits. False where a
+// grid cannot hold the blocks or the items.
+bool dw_band_plan(int K, int B, int Lp, int Cin, int Cout, int kh, int kw, DwBandPlan* q) {
+  const int cib = std::min(2, Cin / 16);  // 16-channel slabs of a 32-channel tile
+  const long long tiles = (Cin + 31LL) / 32 * ((Cout + 31LL) / 32);
+  q->band = 1;
+  q->kr = std::min({kh, kMaxSlabs / (kw * cib), kTapBits / kw});
+  q->groups = (kh + q->kr - 1) / q->kr;
+  q->kr = (kh + q->groups - 1) / q->groups;
+  q->mtiles = (q->kr * kw * cib + 3) / 4;
+  q->consumers = std::min(kMaxConsumers, q->mtiles);
+  q->warps = 4 * q->consumers + 4;
+  q->cluster = kCluster;
+  const long long ys = tiles * q->groups;
+  if (ys > 65535) return false;
+  q->tiles = static_cast<int>(tiles);
+  const long long bx = std::max<long long>(kCluster, kSms / ys / kCluster * kCluster);
+  const long long avail = kMaxSmemBytes - kAlignSlack - 16LL * kMaxStages;
+  const long long red = 1LL * q->kr * kw * cib * 16 * kRedStride * 4;  // the partial sums
+  bool fits = false;
+  for (int rt : kBandRows) {
+    const long long rows = (rt + kw - 1 + 15) / 16 * 16;  // a band, 1,024-aligned
+    const long long stage =
+        (1LL * (rt + q->kr * rows) * kRowBytes + 4LL * rt + kHeaderBytes + 1023) / 1024 * 1024;
+    const long long stages = std::min<long long>(kMaxStages, avail / stage);
+    if (stages < kMinStages || red > avail) continue;
+    fits = true;
+    q->rt = rt;
+    q->stages = static_cast<int>(stages);
+    q->stage_bytes = static_cast<int>(stage);
+    q->smem = static_cast<int>(kAlignSlack + std::max(stages * stage, red));
+    if (1LL * K * B * ((Lp + rt - 1) / rt) >= kMinItems * bx) break;
+  }
+  if (!fits) return false;
+  q->lp_pad = (Lp + q->rt - 1) / q->rt * q->rt;
+  q->buf_rows = q->rt + kw - 1;
+  const long long items = 1LL * K * B * (q->lp_pad / q->rt);
+  if (items > 0x7fffffffLL) return false;
+  q->blocks = static_cast<int>(std::min(bx, (items + kCluster - 1) / kCluster * kCluster));
+  q->per_chunk = static_cast<int>((items + q->blocks - 1) / q->blocks);
+  q->chunks = q->blocks / kCluster;
+  return true;
+}
+
+// 0, or cudaErrorInvalidValue for a shape the kernels cannot take: Cin not a
 // multiple of 16 (an mma's k-depth of A's transpose), Cout not a multiple of
 // 8 (an mma's width), more than 16 taps in a kernel row, p_max outside
-// [1, Lp], a block that would need more shared memory than one SM has at
-// every staging, or more chunks than a grid holds. Band 0 (a whole sequence
-// an item) where its ring fits, else band 1 at the first item height that
-// fits; chunks never straddle two candidates and hold as many items as
-// about kMmaTargetWarps warps in all leave to each.
-int dw_mma_plan(int K, int B, int Lp, int Cin, int Cout, int kh, int kw, int p_max,
-                DwMmaPlan* plan) {
+// [1, Lp], or more chunks or blocks than a grid holds. Band 0 (a whole
+// sequence an item) where its ring fits, its chunks never straddling two
+// candidates and holding as many items as about kMmaTargetWarps warps in
+// all leave to each (*band = 0, into plan); else band 1 (*band = 1, into
+// band_plan by dw_band_plan).
+int dw_mma_plan(int K, int B, int Lp, int Cin, int Cout, int kh, int kw, int p_max, int* band,
+                DwMmaPlan* plan, DwBandPlan* band_plan) {
   if (bad_shape(K, B, Lp, Cin, Cout, kh, kw) || Cin % 16 != 0 || Cout % 8 != 0 ||
       kw > kMmaMaxWarps || p_max < 1 || p_max > Lp) {
     return static_cast<int>(cudaErrorInvalidValue);
@@ -1014,41 +1296,122 @@ int dw_mma_plan(int K, int B, int Lp, int Cin, int Cout, int kh, int kw, int p_m
   const long long lp16 = (Lp + kMmaRows - 1) / kMmaRows * kMmaRows;
   const long long pad = 1LL * (kh / 2) * p_max + kw / 2;
   const long long si = Cin + kRowPad, so = Cout + kRowPad;
-  // band 0: the ring of whole sequences, the masks and the row/col table
-  long long smem = 2LL * kMmaStages * ((lp16 + 2 * pad) * si + lp16 * so) +
-                   8LL * kw * (lp16 / kMmaRows) * 32 + 2LL * 4 * lp16;
-  if (smem <= kMaxSmemBytes) {
-    q.lp_pad = q.rt = static_cast<int>(lp16);
-    q.buf_rows = static_cast<int>(lp16 + 2 * pad);
-  } else {  // band 1: the ring of row tiles and their (row, col) tables
-    for (int rt : kMmaBandRows) {
-      smem = 2LL * kMmaStages * ((rt + kw - 1) * si + 1LL * rt * so) + 8LL * kMmaStages * rt;
-      if (smem > kMaxSmemBytes) continue;
-      q.band = 1;
-      q.rt = rt;
-      q.lp_pad = (Lp + rt - 1) / rt * rt;
-      q.buf_rows = rt + kw - 1;
-      break;
-    }
-    if (q.band == 0) return static_cast<int>(cudaErrorInvalidValue);
-  }
   q.pad = static_cast<int>(pad);
+  // band 0: the ring of whole sequences, the masks and the row/col table
+  const long long smem = 2LL * kMmaStages * ((lp16 + 2 * pad) * si + lp16 * so) +
+                         8LL * kw * (lp16 / kMmaRows) * 32 + 2LL * 4 * lp16;
+  if (smem > kMaxSmemBytes) {
+    DwBandPlan b{};
+    if (!dw_band_plan(K, B, Lp, Cin, Cout, kh, kw, &b)) {
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
+    *band = 1;
+    *band_plan = b;
+    return 0;
+  }
+  q.lp_pad = q.rt = static_cast<int>(lp16);
+  q.buf_rows = static_cast<int>(lp16 + 2 * pad);
   q.smem = static_cast<int>(smem);
   q.tiles = ((Cin + kWarpTile - 1) / kWarpTile) * ((Cout + kWarpTile - 1) / kWarpTile);
   q.warps = kw;
-  const long long items = 1LL * B * (q.lp_pad / q.rt);
+  const long long items = B;
   const long long want = std::max(1, kMmaTargetWarps / (kh * q.tiles * kw));  // chunks in all
   const long long per_k = std::min(items, (want + K - 1) / K);
   const long long per = (items + per_k - 1) / per_k, cpk = (items + per - 1) / per;
   const long long chunks = 1LL * K * cpk;
-  if (chunks > 65535 || 1LL * kh * q.tiles > 0x7fffffffLL || items > 0x7fffffffLL) {
+  if (chunks > 65535 || 1LL * kh * q.tiles > 0x7fffffffLL) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   q.per_chunk = static_cast<int>(per);
   q.chunks_per_k = static_cast<int>(cpk);
   q.chunks = static_cast<int>(chunks);
+  *band = 0;
   *plan = q;
   return 0;
+}
+
+// cuTensorMapEncodeTiled, looked up through the runtime, so that the
+// library needs no -lcuda; null where the installed CUDA lacks it
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found = cudaDriverEntryPointSymbolNotFound;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                                             cudaEnableDefault, &found);
+#else
+    const cudaError_t err =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiled>(p)
+               : nullptr;
+  }();
+  return fn;
+}
+
+// The map of a [seqs, Lp, C] bf16 tensor whose box is 32 channels of `rows`
+// rows of one sequence, written into shared memory with the 64-byte
+// swizzle; what a box has outside the tensor arrives as zeros.
+bool encode_rows(EncodeTiled encode, CUtensorMap* map, const void* base, int seqs, int Lp, int C,
+                 int rows) {
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(C), static_cast<cuuint64_t>(Lp),
+                              static_cast<cuuint64_t>(seqs)};
+  const cuuint64_t strides[2] = {2ull * C, 2ull * C * Lp};  // bytes, of dims 1 and 2
+  const cuuint32_t box[3] = {32, static_cast<cuuint32_t>(rows), 1};
+  const cuuint32_t unit[3] = {1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base), dims, strides,
+                box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_64B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// Pass 1 of band 1: the tensor maps of h and ct, encoded at every launch
+// (a CUDA graph keeps the maps, and the pointers in them, that its capture
+// saw), and the launch with the plan's clusters.
+int launch_dw_band(const __nv_bfloat16* h, const __nv_bfloat16* ct, const int* periods,
+                   const int* cycles, float* partial, int K, int B, int Lp, int Cin, int Cout,
+                   int kh, int kw, int p_max, const DwBandPlan& q, int* runs,
+                   cudaStream_t stream) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return static_cast<int>(cudaErrorNotSupported);
+  CUtensorMap h_map, ct_map;
+  if (!encode_rows(encode, &h_map, h, K * B, Lp, Cin, q.buf_rows) ||
+      !encode_rows(encode, &ct_map, ct, K * B, Lp, Cout, q.rt)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  auto* kernel = tap_conv_dw_wgmma_kernel<kWgTiles>;
+  switch ((q.mtiles + q.consumers - 1) / q.consumers) {
+    case 1: kernel = tap_conv_dw_wgmma_kernel<1>; break;
+    case 2: kernel = tap_conv_dw_wgmma_kernel<2>; break;
+    case 3: kernel = tap_conv_dw_wgmma_kernel<3>; break;
+    case 4: kernel = tap_conv_dw_wgmma_kernel<4>; break;
+    default: break;
+  }
+  const cudaError_t err = reserve_smem(kernel, q.smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  int co_tiles = (Cout + 31) / 32;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = q.cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg{};
+  cfg.gridDim = dim3(q.blocks, q.tiles * q.groups);
+  cfg.blockDim = dim3(q.warps * 32);
+  cfg.dynamicSmemBytes = q.smem;
+  cfg.stream = stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  void* args[] = {&h_map, &ct_map, &periods, &cycles, &partial, &K,  &B,        &Lp,
+                  &Cin,   &Cout,   &kh,      &kw,     &p_max,   const_cast<DwBandPlan*>(&q),
+                  &co_tiles, &runs};
+  return static_cast<int>(cudaLaunchKernelExC(&cfg, reinterpret_cast<const void*>(kernel), args));
 }
 
 }  // namespace
@@ -1138,18 +1501,26 @@ extern "C" int tap_conv_dw(const void* h, const void* ct, const void* periods,
   return launch_dw_reduce(part, static_cast<float*>(dw), kh * kw * Cin * Cout, q.chunks, s);
 }
 
-// The plan of the bf16 route at this shape, into out[11] in the order of
-// DwMmaPlan: lp_pad, pad, rt, band, buf_rows, tiles, chunks_per_k,
-// per_chunk, warps, smem, chunks. Returns 0, or cudaErrorInvalidValue for a
-// shape it cannot take.
+// The plan of the bf16 route at this shape: *band (0 or 1), and out[11] in
+// the order of DwMmaPlan (band 0) or out[17] in that of DwBandPlan (band 1).
+// Returns 0, or cudaErrorInvalidValue for a shape it cannot take.
 extern "C" int tap_conv_dw_mma_plan(int K, int B, int Lp, int Cin, int Cout, int kh, int kw,
-                                    int p_max, int* out) {
+                                    int p_max, int* band, int* out) {
   DwMmaPlan q;
-  const int err = dw_mma_plan(K, B, Lp, Cin, Cout, kh, kw, p_max, &q);
+  DwBandPlan b;
+  const int err = dw_mma_plan(K, B, Lp, Cin, Cout, kh, kw, p_max, band, &q, &b);
   if (err != 0) return err;
-  const int fields[11] = {q.lp_pad, q.pad, q.rt, q.band, q.buf_rows, q.tiles,
-                          q.chunks_per_k, q.per_chunk, q.warps, q.smem, q.chunks};
-  std::copy(fields, fields + 11, out);
+  if (*band) {
+    const int fields[17] = {b.lp_pad,  b.rt,        b.band,      b.buf_rows, b.tiles, b.groups,
+                            b.kr,      b.mtiles,    b.consumers, b.warps,    b.stages,
+                            b.stage_bytes, b.smem,  b.cluster,   b.blocks,   b.per_chunk,
+                            b.chunks};
+    std::copy(fields, fields + 17, out);
+  } else {
+    const int fields[11] = {q.lp_pad, q.pad,      q.rt,    q.band, q.buf_rows, q.tiles,
+                            q.chunks_per_k, q.per_chunk, q.warps, q.smem, q.chunks};
+    std::copy(fields, fields + 11, out);
+  }
   return 0;
 }
 
@@ -1164,32 +1535,32 @@ extern "C" int tap_conv_dw_mma(const void* h, const void* ct, const void* period
                                int Cin, int Cout, int kh, int kw, int p_max, void* runs,
                                void* stream) {
   DwMmaPlan q;
-  int err = dw_mma_plan(K, B, Lp, Cin, Cout, kh, kw, p_max, &q);
+  DwBandPlan b;
+  int band = 0;
+  int err = dw_mma_plan(K, B, Lp, Cin, Cout, kh, kw, p_max, &band, &q, &b);
   if (err != 0) return err;
   if ((reinterpret_cast<uintptr_t>(h) | reinterpret_cast<uintptr_t>(ct)) % 16 != 0) {
-    return static_cast<int>(cudaErrorInvalidValue);  // cp.async copies 16 bytes at a time
+    return static_cast<int>(cudaErrorInvalidValue);  // 16-byte copies; TMA's global address
   }
-  err = static_cast<int>(q.band ? reserve_smem(tap_conv_dw_mma_band_kernel, q.smem)
-                                 : reserve_smem(tap_conv_dw_mma_kernel, q.smem));
-  if (err != 0) return err;
   auto s = static_cast<cudaStream_t>(stream);
   auto* part = static_cast<float*>(partial);
   const auto* hp = static_cast<const __nv_bfloat16*>(h);
   const auto* cp = static_cast<const __nv_bfloat16*>(ct);
   const auto* per = static_cast<const int*>(periods);
   const auto* cyc = static_cast<const int*>(cycles);
-  const dim3 grid(kh * q.tiles, q.chunks);
-  const int co_tiles = (Cout + kWarpTile - 1) / kWarpTile;
-  if (q.band) {
-    tap_conv_dw_mma_band_kernel<<<grid, q.warps * 32, q.smem, s>>>(
-        hp, cp, per, cyc, part, B, Lp, Cin, Cout, kh, kw, p_max, q, co_tiles,
-        static_cast<int*>(runs));
+  const int n_elems = kh * kw * Cin * Cout;
+  if (band) {
+    err = launch_dw_band(hp, cp, per, cyc, part, K, B, Lp, Cin, Cout, kh, kw, p_max, b,
+                         static_cast<int*>(runs), s);
   } else {
-    tap_conv_dw_mma_kernel<<<grid, q.warps * 32, q.smem, s>>>(
+    err = static_cast<int>(reserve_smem(tap_conv_dw_mma_kernel, q.smem));
+    if (err != 0) return err;
+    const int co_tiles = (Cout + kWarpTile - 1) / kWarpTile;
+    tap_conv_dw_mma_kernel<<<dim3(kh * q.tiles, q.chunks), q.warps * 32, q.smem, s>>>(
         hp, cp, per, cyc, part, B, Lp, Cin, Cout, kh, kw, p_max, q.lp_pad, q.pad, co_tiles,
         q.chunks_per_k, q.per_chunk, static_cast<int*>(runs));
+    err = static_cast<int>(cudaGetLastError());
   }
-  err = static_cast<int>(cudaGetLastError());
   if (err != 0) return err;
-  return launch_dw_reduce(part, static_cast<float*>(dw), kh * kw * Cin * Cout, q.chunks, s);
+  return launch_dw_reduce(part, static_cast<float*>(dw), n_elems, band ? b.chunks : q.chunks, s);
 }

@@ -32,7 +32,7 @@ from __future__ import annotations
 import ctypes
 import functools
 from collections import Counter
-from typing import Dict, NamedTuple, Optional, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple, Union
 
 import torch
 
@@ -118,27 +118,40 @@ def clear_kernel_runs(device=None) -> None:
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _INVALID_VALUE = 1  # cudaErrorInvalidValue: what a kernel returns for a shape it cannot take
 
-# The plan of the bf16 dW kernel, constant for constant as in
+# The plan of the bf16 dW kernels, constant for constant as in
 # csrc/tap_conv_bwd.cu (dw_mma_plan); a card test holds the two together.
 MMA_ROWS = 16  # rows of a sequence per mma k-step
 MMA_WARP_TILE = 32  # a warp's dW tile: 32 ci x 32 co
 MMA_ROW_PAD = 8  # bf16 elements added to each staged row
 MMA_MAX_WARPS = 16  # one warp per tap of a kernel row
 MMA_STAGES = 4  # staged items in a block's ring of buffers
-MMA_BAND_ROWS = (64, 32, 16)  # band 1: rows of an item, preferred first
 MMA_TARGET_WARPS = 8 * 132  # pass 1: about 8 warps per SM of an H100 in all
 MAX_SMEM_BYTES = 232448  # the most shared memory one block may use
+# band 1, tap_conv_dw_wgmma_kernel
+BAND_ROWS = (128, 64, 32, 16)  # rows of an item, tallest first
+BAND_WG_TILES = 5  # 64-row M tiles of a consumer warpgroup: 80 float32 sums a thread
+BAND_MAX_CONSUMERS = 3  # consumer warpgroups of a block
+BAND_MAX_SLABS = 4 * BAND_WG_TILES * BAND_MAX_CONSUMERS  # (tap, 16 channels) slabs a block
+BAND_TAP_BITS = 32  # a row's valid taps of a group, one bit each, in one word
+BAND_MIN_STAGES, BAND_MAX_STAGES = 4, 8  # items in a block's ring
+BAND_MIN_ITEMS = 4  # items a block takes on average, where an item height gives them
+BAND_CLUSTER = 2  # blocks of a cluster, which sum their partials in distributed shared memory
+BAND_ROW_BYTES = 64  # a staged row: 32 bf16 channels, the 64-byte swizzle's span
+BAND_RED_STRIDE = 40  # floats a row of 32 in the partial-sum buffer
+BAND_ALIGN_SLACK = 1024  # shared memory given up to start the ring on 1,024 bytes
+BAND_HEADER_BYTES = 16  # a stage's header: first row, kernel rows, last-stage flag
 
 
 class DwMmaPlan(NamedTuple):
-    """How ``tap_conv_dw_mma`` cuts one call, in the order its C plan reports.
-    An item is ``rt`` rows of ct of one sequence."""
+    """How ``tap_conv_dw_mma`` cuts one call on band 0
+    (``tap_conv_dw_mma_kernel``), in the order its C plan reports. An item
+    is a whole sequence of ct."""
 
-    lp_pad: int  # Lp rounded up to whole items
+    lp_pad: int  # Lp rounded up to whole 16-row k-steps
     pad: int  # (kh // 2) * p_max + kw // 2: zero rows on each side of a staged sequence
-    rt: int  # rows of ct an item multiplies: lp_pad (band 0) or 64, 32, 16 (band 1)
-    band: int  # 0: an item is a whole sequence between pad zero rows; 1: a row tile
-    buf_rows: int  # rows of h an item stages: lp_pad + 2 * pad (band 0), rt + kw - 1 (band 1)
+    rt: int  # rows of ct an item multiplies: lp_pad
+    band: int  # 0
+    buf_rows: int  # rows of h an item stages: lp_pad + 2 * pad
     tiles: int  # 32 x 32 channel tiles of dW
     chunks_per_k: int  # chunks of each candidate's items
     per_chunk: int  # items of a chunk (the last one may hold fewer)
@@ -152,24 +165,105 @@ class DwMmaPlan(NamedTuple):
         return self.chunks * kh * kw * cin * cout
 
 
+class DwBandPlan(NamedTuple):
+    """How ``tap_conv_dw_mma`` cuts one call on band 1
+    (``tap_conv_dw_wgmma_kernel``), in the order its C plan reports. An
+    item is ``rt`` rows of ct of one sequence."""
+
+    lp_pad: int  # Lp rounded up to whole items
+    rt: int  # rows of ct an item multiplies: 128, 64, 32 or 16
+    band: int  # 1
+    buf_rows: int  # rows of h a band holds: rt + kw - 1
+    tiles: int  # 32 x 32 channel tiles of dW
+    groups: int  # kernel-row groups, a block each
+    kr: int  # kernel rows of a group (the last one may hold fewer)
+    mtiles: int  # 64-row wgmma M tiles of a block: 4 (tap, 16 channels) slabs each
+    consumers: int  # consumer warpgroups of a block; one producer warpgroup beside them
+    warps: int  # warps of a block: 4 a warpgroup
+    stages: int  # items in a block's ring
+    stage_bytes: int  # a stage: ct's rt rows, kr bands of h, the tap table, a header; 1,024-aligned
+    smem: int  # dynamic shared memory of a block, bytes
+    cluster: int  # blocks of a cluster
+    blocks: int  # blocks along the item axis, a whole number of clusters
+    per_chunk: int  # items of a block, at most
+    chunks: int  # blocks // cluster: one partial a cluster
+
+    def scratch_elems(self, kh: int, kw: int, cin: int, cout: int) -> int:
+        """float32 partials pass 1 writes: one [kh, kw, Cin, Cout] per cluster."""
+
+        return self.chunks * kh * kw * cin * cout
+
+
+def _band_plan(K: int, B: int, Lp: int, cin: int, cout: int, kh: int,
+               kw: int) -> Optional[DwBandPlan]:
+    """Band 1's plan (``dw_band_plan`` in C), or None where a grid cannot
+    hold its blocks or items. A block holds every tap of ``kr`` kernel rows
+    (all of them where their slabs fit ``BAND_MAX_SLABS`` and their taps
+    ``BAND_TAP_BITS``); the blocks along the item axis fill one wave of one
+    block an SM in whole clusters; an item is the tallest of ``BAND_ROWS``
+    whose ring of ``BAND_MIN_STAGES`` fits and gives every block
+    ``BAND_MIN_ITEMS`` items, else the shortest that fits."""
+
+    cib = min(2, cin // 16)
+    tiles = -(-cin // 32) * -(-cout // 32)
+    kr = min(kh, BAND_MAX_SLABS // (kw * cib), BAND_TAP_BITS // kw)
+    groups = -(-kh // kr)
+    kr = -(-kh // groups)
+    mtiles = -(-(kr * kw * cib) // 4)
+    consumers = min(BAND_MAX_CONSUMERS, mtiles)
+    if tiles * groups > 65535:
+        return None
+    bx = max(BAND_CLUSTER, SMS // (tiles * groups) // BAND_CLUSTER * BAND_CLUSTER)
+    avail = MAX_SMEM_BYTES - BAND_ALIGN_SLACK - 16 * BAND_MAX_STAGES
+    red = kr * kw * cib * 16 * BAND_RED_STRIDE * 4  # the partial sums
+    fit = None
+    for rt in BAND_ROWS:
+        rows = -(-(rt + kw - 1) // 16) * 16  # a band, 1,024-aligned
+        stage = (rt + kr * rows) * BAND_ROW_BYTES + 4 * rt + BAND_HEADER_BYTES
+        stage = -(-stage // 1024) * 1024
+        stages = min(BAND_MAX_STAGES, avail // stage)
+        if stages < BAND_MIN_STAGES or red > avail:
+            continue
+        fit = (rt, stages, stage, BAND_ALIGN_SLACK + max(stages * stage, red))
+        if K * B * -(-Lp // rt) >= BAND_MIN_ITEMS * bx:
+            break
+    if fit is None:
+        return None
+    rt, stages, stage, smem = fit
+    lp_pad = -(-Lp // rt) * rt
+    items = K * B * (lp_pad // rt)
+    if items > 0x7FFFFFFF:
+        return None
+    blocks = min(bx, -(-items // BAND_CLUSTER) * BAND_CLUSTER)
+    return DwBandPlan(lp_pad, rt, 1, rt + kw - 1, tiles, groups, kr, mtiles, consumers,
+                      4 * consumers + 4, stages, stage, smem, BAND_CLUSTER, blocks,
+                      -(-items // blocks), blocks // BAND_CLUSTER)
+
+
 @functools.lru_cache(maxsize=64)  # a training step asks for the same few plans each time
 def dw_mma_plan(K: int, B: int, Lp: int, cin: int, cout: int, kh: int, kw: int,
-                p_max: int) -> DwMmaPlan:
-    """The launch plan of the bf16 dW kernel, or a ``RuntimeError`` through
-    :func:`_raise_on` for a shape it cannot take (the kernel refuses the same
-    shapes with ``cudaErrorInvalidValue``).
+                p_max: int) -> Union[DwMmaPlan, DwBandPlan]:
+    """The launch plan of the bf16 dW kernels, or a ``RuntimeError`` through
+    :func:`_raise_on` for a shape they cannot take (the kernel refuses the
+    same shapes with ``cudaErrorInvalidValue``).
 
-    A block (kernel row dc, channel tile, chunk) stages its items into a
-    ring of ``MMA_STAGES`` buffers, rows padded by ``MMA_ROW_PAD`` elements.
-    Band 0, where that ring fits in ``MAX_SMEM_BYTES``: an item is a whole
-    sequence of ct (``rt = lp_pad``, whole 16-row k-steps), its h staged
-    between ``pad = (kh // 2) * p_max + kw // 2`` zero rows on each side,
-    beside the block's B-fragment masks (8 bytes a lane, warp and k-step)
-    and its row/col table. Band 1, else: an item is ``rt`` rows of one
-    sequence, the first of ``MMA_BAND_ROWS`` that fits, and the block's one
-    kernel row reads one band of ``rt + kw - 1`` rows of h, beside the
-    item's (row, col) table. Chunks never straddle two candidates, and hold
-    as many items as about ``MMA_TARGET_WARPS`` warps in all leave to each.
+    Band 0 (a :class:`DwMmaPlan`), where its ring fits in
+    ``MAX_SMEM_BYTES``: ``tap_conv_dw_mma_kernel``. A block (kernel row dc, channel tile,
+    chunk) stages whole sequences of ct (``rt = lp_pad``, whole 16-row
+    k-steps) into a ring of ``MMA_STAGES`` buffers, rows padded by
+    ``MMA_ROW_PAD`` elements, its h between ``pad = (kh // 2) * p_max + kw
+    // 2`` zero rows on each side, beside the block's B-fragment masks (8
+    bytes a lane, warp and k-step) and its row/col table. Chunks never
+    straddle two candidates, and hold as many items as about
+    ``MMA_TARGET_WARPS`` warps in all leave to each.
+
+    Band 1 (a :class:`DwBandPlan`), else: ``tap_conv_dw_wgmma_kernel``
+    (:func:`_band_plan`). An
+    item is ``rt`` rows of one sequence; a persistent block (item chunk,
+    channel tile, kernel-row group) stages each item's ct once and one band
+    of ``rt + kw - 1`` rows of h for each kernel row that reads it, by TMA
+    into a ring of ``stages``, beside the item's tap table, and the blocks
+    of a cluster of ``cluster`` sum their partials, one partial a cluster.
     """
 
     shape = f"K={K}, B={B}, Lp={Lp}, Cin={cin}, Cout={cout}, {kh}x{kw}, p_max={p_max}"
@@ -189,28 +283,20 @@ def dw_mma_plan(K: int, B: int, Lp: int, cin: int, cout: int, kh: int, kw: int,
     si, so = cin + MMA_ROW_PAD, cout + MMA_ROW_PAD
     smem = (2 * MMA_STAGES * ((lp16 + 2 * pad) * si + lp16 * so)
             + 8 * kw * (lp16 // MMA_ROWS) * 32 + 2 * 4 * lp16)
-    if smem <= MAX_SMEM_BYTES:
-        band, rt, lp_pad, buf_rows = 0, lp16, lp16, lp16 + 2 * pad
-    else:
-        band = None
-        for rt in MMA_BAND_ROWS:
-            smem = 2 * MMA_STAGES * ((rt + kw - 1) * si + rt * so) + 8 * MMA_STAGES * rt
-            if smem <= MAX_SMEM_BYTES:
-                band, lp_pad, buf_rows = 1, -(-Lp // rt) * rt, rt + kw - 1
-                break
-        if band is None:
+    if smem > MAX_SMEM_BYTES:
+        plan = _band_plan(K, B, Lp, cin, cout, kh, kw)
+        if plan is None:
             _raise_on(_INVALID_VALUE, "tap_conv_dw_mma",
-                      f"{shape}: a block would need {smem} bytes of shared memory at "
-                      f"{MMA_BAND_ROWS[-1]} rows an item, above {MAX_SMEM_BYTES}")
+                      f"{shape}: more blocks or items than a grid holds")
+        return plan
     tiles = -(-cin // MMA_WARP_TILE) * -(-cout // MMA_WARP_TILE)
-    items = B * (lp_pad // rt)
     want = max(1, MMA_TARGET_WARPS // (kh * tiles * kw))  # chunks in all
-    per_k = min(items, -(-want // K))
-    per_chunk = -(-items // per_k)
-    chunks_per_k = -(-items // per_chunk)
-    if K * chunks_per_k > 65535 or items > 0x7FFFFFFF:
+    per_k = min(B, -(-want // K))
+    per_chunk = -(-B // per_k)
+    chunks_per_k = -(-B // per_chunk)
+    if K * chunks_per_k > 65535:
         _raise_on(_INVALID_VALUE, "tap_conv_dw_mma", f"{shape}: more than 65535 chunks")
-    return DwMmaPlan(lp_pad, pad, rt, band, buf_rows, tiles, chunks_per_k, per_chunk, kw, smem,
+    return DwMmaPlan(lp16, pad, lp16, 0, lp16 + 2 * pad, tiles, chunks_per_k, per_chunk, kw, smem,
                      K * chunks_per_k)
 
 
@@ -662,21 +748,24 @@ def _bwd_fns():
     lib.tap_conv_dw.restype = _I
     lib.tap_conv_dw.argtypes = [_P] * 6 + [_I] * 7 + [_P, _P]
     lib.tap_conv_dw_mma_plan.restype = _I
-    lib.tap_conv_dw_mma_plan.argtypes = [_I] * 8 + [_P]
+    lib.tap_conv_dw_mma_plan.argtypes = [_I] * 8 + [_P, _P]
     lib.tap_conv_dw_mma.restype = _I
     lib.tap_conv_dw_mma.argtypes = [_P] * 6 + [_I] * 8 + [_P, _P]
     return lib
 
 
 def dw_mma_plan_of_kernel(K: int, B: int, Lp: int, cin: int, cout: int, kh: int, kw: int,
-                          p_max: int) -> Optional[DwMmaPlan]:
+                          p_max: int) -> Union[DwMmaPlan, DwBandPlan, None]:
     """The plan ``csrc/tap_conv_bwd.cu`` itself makes, or None where it
     refuses the shape: what :func:`dw_mma_plan` mirrors (builds the library)."""
 
-    out = (ctypes.c_int * len(DwMmaPlan._fields))()
-    if _bwd_fns().tap_conv_dw_mma_plan(K, B, Lp, cin, cout, kh, kw, p_max, out) != 0:
+    band = ctypes.c_int()
+    out = (ctypes.c_int * max(len(DwMmaPlan._fields), len(DwBandPlan._fields)))()
+    if _bwd_fns().tap_conv_dw_mma_plan(K, B, Lp, cin, cout, kh, kw, p_max, ctypes.byref(band),
+                                       out) != 0:
         return None
-    return DwMmaPlan(*out)
+    kind = DwBandPlan if band.value else DwMmaPlan
+    return kind(*out[:len(kind._fields)])
 
 
 def fwd_f32_plan_of_kernel(K: int, B: int, Lp: int, cin: int, cout: int, kh: int, kw: int,
@@ -900,18 +989,21 @@ def tap_conv_dw_cuda(
     float32. Returns dW [kh, kw, Cin, Cout] float32. The dtype picks the
     route, and neither route gives way to the other:
 
-    - bf16: the tensor-core kernel ``tap_conv_dw_mma`` (bf16 products are
-      exact in float32, summed in float32). A shape it cannot take
-      (:func:`dw_mma_plan`, with ``p_max = geom.p_max``) raises
-      ``RuntimeError``.
+    - bf16: the tensor-core kernels behind ``tap_conv_dw_mma`` (bf16
+      products are exact in float32, summed in float32): the whole-sequence
+      ``mma.sync`` kernel where its ring fits, else, for long sequences,
+      ``tap_conv_dw_wgmma_kernel`` (TMA, mbarriers, wgmma, clusters). A
+      shape they cannot take (:func:`dw_mma_plan`, with ``p_max =
+      geom.p_max``) raises ``RuntimeError``.
     - float32: the CUDA-core kernel ``tap_conv_dw``, whose float32 FMAs keep
       the products exact (the tensor cores would round them to TF32). Its
       plan is :func:`dw_f32_plan`.
 
     Both sum per-chunk partials in a fixed order (no float atomics), so the
     result is the same from run to run; the wrapper allocates their scratch
-    buffer. ``launches_dw`` counts both routes, ``launches_dw_mma`` the
-    tensor-core one; the first pass counts its own runs (:func:`kernel_runs`).
+    buffer (band 1: one partial a cluster). ``launches_dw`` counts both
+    routes, ``launches_dw_mma`` the tensor-core one; the first pass counts
+    its own runs (:func:`kernel_runs`).
     """
 
     _check("tap_conv_dw_cuda", h, kh, kw)

@@ -172,29 +172,131 @@ def test_dw_mma_plan_mirrors_the_kernel(cuda, shape):
 @pytest.mark.parametrize("kh,kw", [(3, 3), (5, 5)])
 def test_dw_tensor_core_route_takes_the_long_context_shapes(cuda, kh, kw, K, B, p_max, periods):
     """The long-context recipe's bf16 dW (L=512: the dynamic fold, Lp=1023,
-    and the exact extents of p=25 and p=171, Lp=525 and 513), which stages
-    64-row items with one band of h each, against the plain version within
-    rtol 1e-4 and 1e-4 of the largest value, with the same bits twice."""
+    and the exact extents of p=25 and p=171, Lp=525 and 513) takes band 1,
+    tap_conv_dw_wgmma_kernel: one persistent block an SM in clusters of 2,
+    every tap in each block, 128-row items at Lp 1023 and 64-row ones at the
+    exact extents, the plan equal to the kernel's own; against the plain
+    version within rtol 1e-4 and 1e-4 of the largest value, with the same
+    bits twice, and one run of the kernel on the card a call."""
 
     L = 512
-    if K == 1:
-        geom = fold.make_dense_geometry(periods[0], L, cuda)
-    else:
-        geom = fold.make_geometry(torch.tensor(periods, dtype=torch.int32, device=cuda), L, p_max)
+    geom = _long_geometry(cuda, K, p_max, periods, L)
     plan = cuda_fold.dw_mma_plan(K, B, geom.Lp, 32, 32, kh, kw, geom.p_max)
-    assert plan.band == 1 and cuda_fold.dw_mma_plan_of_kernel(
-        K, B, geom.Lp, 32, 32, kh, kw, geom.p_max) == plan
+    assert cuda_fold.dw_mma_plan_of_kernel(K, B, geom.Lp, 32, 32, kh, kw, geom.p_max) == plan
+    assert (plan.band, plan.rt, plan.groups, plan.kr) == (1, 128 if K == 4 else 64, 1, kh)
+    assert (plan.consumers, plan.cluster, plan.blocks, plan.chunks) == (3, 2, 132, 66)
     g = torch.Generator(device=cuda).manual_seed(kh + K)
     h, ct = (torch.randn((K, B, geom.Lp, 32), generator=g, device=cuda).bfloat16()
              for _ in range(2))
     before = cuda_fold.launches_dw_mma[f"{kh}x{kw}"]
+    cuda_fold.clear_kernel_runs(cuda)
     dw = cuda_fold.tap_conv_dw_cuda(h, geom, ct, kh, kw)
     again = cuda_fold.tap_conv_dw_cuda(h, geom, ct, kh, kw)
     torch.cuda.synchronize()
     assert cuda_fold.launches_dw_mma[f"{kh}x{kw}"] == before + 2
+    assert cuda_fold.kernel_runs(cuda)["dw_mma"] == {f"{kh}x{kw}": 2}
     want = fold.tap_weight_grad(h, geom, ct, kh, kw)
     torch.testing.assert_close(dw, want, rtol=1e-4, atol=1e-4 * float(want.abs().max()))
     assert torch.equal(dw, again)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cin,cout,kh,kw,L,periods,rt,mt,groups", [
+    (16, 16, 3, 3, 512, [511, 24], 16, 1, 1),  # half channel tiles (16 channels)
+    (16, 16, 7, 7, 120, [119, 7], 16, 3, 2),
+    (48, 40, 5, 5, 240, [239, 12], 16, 5, 1),  # 2 x 2 channel tiles, half and partial
+    (144, 136, 3, 3, 200, [199, 5], 128, 2, 1),  # 5 x 5 channel tiles
+    (32, 32, 7, 7, 120, [119, 7], 16, 5, 2),  # kernel rows in groups of 4 and 3
+    (48, 40, 7, 7, 120, [119, 6], 32, 5, 2),
+    (32, 32, 1, 3, 512, [511, 24], 16, 1, 1),
+    (32, 32, 3, 1, 512, [511, 24], 16, 1, 1),
+    (32, 32, 3, 7, 200, [199, 9], 16, 4, 1),
+])
+def test_dw_band_kernel_takes_every_plan_shape(cuda, cin, cout, kh, kw, L, periods, rt, mt,
+                                               groups):
+    """Band 1 at the shapes its plan takes beyond the long recipe's: each
+    count of M tiles a consumer warpgroup holds (1 to 5), kernel rows split
+    into groups, several channel tiles on the grid's y, 16-channel slabs
+    alone in a tile, output channels past Cout skipped, 1 x kw and kh x 1
+    kernels, 16- to 128-row items. Against the plain version within rtol
+    1e-4 and 1e-4 of the largest value, with the same bits twice."""
+
+    B = 4
+    geom = fold.make_geometry(torch.tensor(periods, dtype=torch.int32, device=cuda), L,
+                              max(periods))
+    shape = (len(periods), B, geom.Lp, cin, cout, kh, kw, geom.p_max)
+    plan = cuda_fold.dw_mma_plan(*shape)
+    assert cuda_fold.dw_mma_plan_of_kernel(*shape) == plan
+    assert isinstance(plan, cuda_fold.DwBandPlan)
+    assert (plan.rt, -(-plan.mtiles // plan.consumers), plan.groups) == (rt, mt, groups)
+    rng = np.random.default_rng(kh * 16 + kw + cin)
+    h, ct = (torch.from_numpy(rng.standard_normal((len(periods), B, geom.Lp, c))
+                              .astype(np.float32)).to(cuda).bfloat16() for c in (cin, cout))
+    cuda_fold.clear_kernel_runs(cuda)
+    dw = cuda_fold.tap_conv_dw_cuda(h, geom, ct, kh, kw)
+    again = cuda_fold.tap_conv_dw_cuda(h, geom, ct, kh, kw)
+    torch.cuda.synchronize()
+    assert cuda_fold.kernel_runs(cuda)["dw_mma"] == {f"{kh}x{kw}": 2}
+    want = fold.tap_weight_grad(h, geom, ct, kh, kw)
+    torch.testing.assert_close(dw, want, rtol=1e-4, atol=1e-4 * float(want.abs().max()))
+    assert torch.equal(dw, again)
+
+
+def _long_geometry(cuda, K, p_max, periods, L=512):
+    if K == 1:
+        return fold.make_dense_geometry(periods[0], L, cuda)
+    return fold.make_geometry(torch.tensor(periods, dtype=torch.int32, device=cuda), L, p_max)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kh,kw", [(3, 3), (5, 5)])
+def test_dw_band_kernel_reads_the_buffers_of_each_call(cuda, kh, kw):
+    """Two calls in a row on different buffers (and a third on the first
+    again) each equal the plain version on their own inputs: the tensor maps
+    are encoded at every launch, none is kept from an earlier call."""
+
+    geom = _long_geometry(cuda, 4, 511, [511, 168, 24, 7])
+    g = torch.Generator(device=cuda).manual_seed(kh)
+    pairs = [tuple(torch.randn((4, 64, geom.Lp, 32), generator=g, device=cuda).bfloat16()
+                   for _ in range(2)) for _ in range(2)]
+    outs = [cuda_fold.tap_conv_dw_cuda(h, geom, ct, kh, kw) for h, ct in pairs + pairs[:1]]
+    torch.cuda.synchronize()
+    for out, (h, ct) in zip(outs, pairs + pairs[:1]):
+        want = fold.tap_weight_grad(h, geom, ct, kh, kw)
+        torch.testing.assert_close(out, want, rtol=1e-4, atol=1e-4 * float(want.abs().max()))
+    assert not torch.equal(outs[0], outs[1]) and torch.equal(outs[0], outs[2])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kh,kw", [(3, 3), (5, 5)])
+def test_dw_band_kernel_replays_from_a_cuda_graph(cuda, kh, kw):
+    """A call captured in a CUDA graph and replayed equals the eager call bit
+    for bit, then, after new values are copied into the captured buffers,
+    the eager call on those values; the kernel counts each replay's run."""
+
+    geom = _long_geometry(cuda, 4, 511, [511, 168, 24, 7])
+    g = torch.Generator(device=cuda).manual_seed(10 + kh)
+    h, ct, h2, ct2 = (torch.randn((4, 64, geom.Lp, 32), generator=g, device=cuda).bfloat16()
+                      for _ in range(4))
+    eager = [cuda_fold.tap_conv_dw_cuda(x, geom, y, kh, kw) for x, y in ((h, ct), (h2, ct2))]
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        cuda_fold.tap_conv_dw_cuda(h, geom, ct, kh, kw)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = cuda_fold.tap_conv_dw_cuda(h, geom, ct, kh, kw)
+    cuda_fold.clear_kernel_runs(cuda)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, eager[0])
+    h.copy_(h2)
+    ct.copy_(ct2)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, eager[1])
+    assert cuda_fold.kernel_runs(cuda)["dw_mma"] == {f"{kh}x{kw}": 2}
 
 
 @pytest.mark.cuda

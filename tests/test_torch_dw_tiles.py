@@ -1,25 +1,30 @@
-"""The bf16 tensor-core dW kernel's decomposition, modelled in numpy on the CPU.
+"""The bf16 tensor-core dW kernels' decompositions, modelled in numpy on the CPU.
 
-``csrc/tap_conv_bwd.cu::tap_conv_dw_mma_kernel`` runs only on the card. These
-tests model how it cuts the work, step by step, and hold the model against
-the port's plain ``ops/fold.py::tap_weight_grad`` and the JAX package's
-``ops/fold.py::_tap_weight_grad`` on the same numpy inputs:
+``csrc/tap_conv_bwd.cu::tap_conv_dw_mma_kernel`` (band 0, whole sequences)
+and ``tap_conv_dw_wgmma_kernel`` (band 1, long sequences) run only on the
+card. These tests model how each cuts the work, step by step, and hold the
+models against the port's plain ``ops/fold.py::tap_weight_grad`` and the JAX
+package's ``ops/fold.py::_tap_weight_grad`` on the same numpy inputs:
 
-- the launch plan of ``ops/cuda_fold.py::dw_mma_plan``, which the kernel's C
-  plan mirrors (chunk count, scratch size, pad rows, shared-memory bytes),
-  and its refusal of the shapes the kernel cannot take;
-- the ldmatrix.trans lane addresses against the mma.sync m16n8k16 fragment
-  layout (PTX ISA), and the fragment masks as an AND on packed bf16 pairs;
-- band 0: each sequence of h staged between zero rows, every shifted row
+- the launch plan of ``ops/cuda_fold.py::dw_mma_plan``, which the kernels' C
+  plan mirrors (chunk count, scratch size, pad rows, shared-memory bytes,
+  band 1's stages, groups, M tiles, warpgroups and clusters), and its
+  refusal of the shapes the kernels cannot take;
+- band 0: the ldmatrix.trans lane addresses against the mma.sync m16n8k16
+  fragment layout (PTX ISA), the fragment masks as an AND on packed bf16
+  pairs, each sequence of h staged between zero rows, every shifted row
   read in bounds, 16-row k-steps whose rows beyond Lp hold NaN (stale
-  shared memory) until the per-(tap, row) validity clears them;
-- band 1 (long sequences): items of ``rt`` rows of a sequence, the block's
-  kernel row staging one band of ``rt + kw - 1`` rows of h with zero rows
-  wherever the band leaves [0, Lp), ct's rows past Lp zero too, each lane's
-  masks built from the item's (row, col) table, k-steps wholly past Lp
-  skipped;
-- chunks that never straddle two candidates, and pass 2 summing the chunks
-  in chunk order.
+  shared memory) until the per-(tap, row) validity clears them, chunks that
+  never straddle two candidates, pass 2 in chunk order;
+- band 1: items of ``rt`` rows walked by persistent blocks; each item's ct
+  staged once and one band of ``rt + kw - 1`` rows of h for each kernel row
+  that some row of the item reaches, as TMA boxes with zeros outside the
+  tensor (kernel rows no row reaches left stale, NaN); the 64-byte swizzle
+  of the staged rows and the ldmatrix.trans addresses into it; the
+  producer's tap table and the lanes' A masks; wgmma M tiles of four (tap,
+  16 channels) slabs, skipped where no row of the item is valid for any of
+  their taps; the accumulators' map to the partial-sum buffer; each
+  cluster's blocks summed in rank order, then pass 2 over the clusters.
 
 The inputs are bf16 values held in float32, as the kernel sees them: every
 product is exact, so the model differs from the references only in the order
@@ -102,77 +107,37 @@ def block_validity(plan, Lp, cycles, p, dc, kw):
     return valid.astype(bool)
 
 
-def item_table(t0, rt, Lp, p):
-    """Band 1's (row(t), col(t)) table of an item's rows t0 .. t0 + rt - 1,
-    as the kernel stages it: a row past Lp takes a row far below 0."""
-
-    t = t0 + np.arange(rt)
-    return np.where(t < Lp, t // p, -(1 << 30)), np.where(t < Lp, t % p, 0)
-
-
-def band_lane_masks(rows, cols, cycles, p, dc, dj, ks, lane):
-    """The two AND masks of lane's B registers for tap (dc, dj) at k-step ks
-    of a band-1 item, from its (row, col) table."""
-
-    masks = [0, 0]
-    for reg, pair in enumerate(fragment_rows(ks, lane)):
-        for half, t in enumerate(pair):
-            r, c = rows[t] + dc, cols[t] + dj
-            if 0 <= r < cycles and 0 <= c < p:
-                masks[reg] |= 0xFFFF0000 if half else 0x0000FFFF
-    return masks
-
-
-def band_validity(rows, cols, cycles, p, dc, kw):
-    """Per (tap dj, row of the item) validity that the lanes' band-1 masks
-    hold, in one numpy expression: [kw, rt]."""
-
-    dj = np.arange(kw)[:, None] - kw // 2
-    r, c = rows[None] + dc, cols[None] + dj
-    return (r >= 0) & (r < cycles) & (c >= 0) & (c < p)
-
-
 def model_dw(h, ct, periods, cycles, kh, kw, p_max):
-    """dW as the kernel computes it: pass 1 per chunk, pass 2 in chunk order."""
+    """dW as the kernels compute it: band 0's pass 1 per chunk and pass 2 in
+    chunk order, or band 1's model (:func:`band_model_dw`)."""
 
     K, B, Lp, cin = h.shape
     cout = ct.shape[-1]
     plan = cuda_fold.dw_mma_plan(K, B, Lp, cin, cout, kh, kw, p_max)
+    if plan.band == 1:
+        return band_model_dw(h, ct, periods, cycles, kh, kw, p_max)
+    assert plan.rt == plan.lp_pad
     rh, rw = kh // 2, kw // 2
-    per_seq = plan.lp_pad // plan.rt
     partial = np.zeros((plan.chunks, kh, kw, cin, cout), np.float32)
-    validity = {}  # band 0 builds it per block; it depends on (p, cycles, dc) alone
+    validity = {}  # built per block; it depends on (p, cycles, dc) alone
     for chunk in range(plan.chunks):
         k, c = divmod(chunk, plan.chunks_per_k)  # one candidate per chunk
-        items = range(c * plan.per_chunk, min(B * per_seq, (c + 1) * plan.per_chunk))
+        items = range(c * plan.per_chunk, min(B, (c + 1) * plan.per_chunk))
         assert len(items) >= 1
         p, cyc = min(max(int(periods[k]), 1), p_max), int(cycles[k])
         for dc in range(-rh, rh + 1):
-            for item in items:
-                b, t0 = item // per_seq, (item % per_seq) * plan.rt
-                if plan.band == 0:
-                    assert plan.rt == plan.lp_pad and t0 == 0
-                    key = (p, cyc, dc)
-                    if key not in validity:
-                        validity[key] = block_validity(plan, Lp, cyc, p, dc, kw)
-                    valid = validity[key]
-                    staged = np.zeros((plan.buf_rows, cin), np.float32)
-                    staged[plan.pad:plan.pad + Lp] = h[k, b]
-                    ct_s = np.full((plan.rt, cout), np.nan, np.float32)  # stale beyond Lp
-                    ct_s[:Lp] = ct[k, b]
-                    ksteps = plan.rt // ROWS
-                else:
-                    # one band of h for this kernel row, zero outside [0, Lp)
-                    g = t0 + dc * p - rw + np.arange(plan.buf_rows)
-                    inside = (g >= 0) & (g < Lp)
-                    staged = np.where(inside[:, None], h[k, b, np.clip(g, 0, Lp - 1)], 0.0)
-                    t = t0 + np.arange(plan.rt)
-                    ct_s = np.where((t < Lp)[:, None], ct[k, b, np.clip(t, 0, Lp - 1)], 0.0)
-                    valid = band_validity(*item_table(t0, plan.rt, Lp, p), cyc, p, dc, kw)
-                    ksteps = min(plan.rt // ROWS, -(-(Lp - t0) // ROWS))
+            key = (p, cyc, dc)
+            if key not in validity:
+                validity[key] = block_validity(plan, Lp, cyc, p, dc, kw)
+            valid = validity[key]
+            for b in items:
+                staged = np.zeros((plan.buf_rows, cin), np.float32)
+                staged[plan.pad:plan.pad + Lp] = h[k, b]
+                ct_s = np.full((plan.rt, cout), np.nan, np.float32)  # stale beyond Lp
+                ct_s[:Lp] = ct[k, b]
                 for w in range(kw):
-                    shift = (plan.pad + dc * p + w - rw) if plan.band == 0 else w
-                    for ks in range(ksteps):
+                    shift = plan.pad + dc * p + w - rw
+                    for ks in range(plan.rt // ROWS):
                         rows = shift + ks * ROWS + np.arange(ROWS)
                         assert 0 <= rows.min() and rows.max() < staged.shape[0]
                         b_frag = np.where(valid[w, ks * ROWS:(ks + 1) * ROWS, None],
@@ -323,7 +288,7 @@ def test_plan_at_the_training_shape(kh, kw, chunks, per_chunk, pad, smem):
     ((2, 4, 55, 32, 32, 3, 4, 27), "kernel size odd"),
     ((2, 4, 55, 32, 32, 3, 3, 56), r"p_max must lie in \[1, Lp\]"),
     ((2, 4, 55, 32, 32, 3, 3, 0), r"p_max must lie in \[1, Lp\]"),
-    ((2, 4, 900, 1024, 1024, 7, 7, 899), "shared memory"),
+    ((2, 4, 900, 8192, 8192, 7, 7, 899), "more blocks or items than a grid holds"),
 ])
 def test_plan_refuses_what_the_kernel_cannot_take(shape, why):
     with pytest.raises(RuntimeError, match=f"cudaError_t 1 .*{why}"):
@@ -346,7 +311,7 @@ def test_cpu_tensors_take_the_plain_version():
     assert (sum(cuda_fold.launches_dw.values()), sum(cuda_fold.launches_dw_mma.values())) == before
 
 
-# --- band 1: the long-context shapes, where a whole sequence does not fit -------
+# --- band 1: the long-context shapes, tap_conv_dw_wgmma_kernel ----------------
 
 LONG_SHAPES = [  # (K, B, Lp, p_max), each at 3x3 and 5x5, with 32 channels
     (4, 64, 1023, 511),  # dynamic: L=512, p_cap = L - 1
@@ -356,83 +321,258 @@ LONG_SHAPES = [  # (K, B, Lp, p_max), each at 3x3 and 5x5, with 32 channels
 # shared memory a block needed when every item was a whole sequence
 WHOLE_SEQUENCE_SMEM = {(1023, 3): 1_040_384, (1023, 5): 1_400_832, (525, 3): 384_128,
                        (525, 5): 417_664, (513, 3): 477_568, (513, 5): 604_544}
+ROW_BYTES = cuda_fold.BAND_ROW_BYTES
+
+
+def swizzle64(r, c):
+    """Byte offset of 16-byte chunk c of 64-byte row r in a 1,024-byte-aligned
+    buffer that TMA wrote with the 64-byte swizzle (csrc/hopper_ptx.cuh)."""
+
+    return 64 * r + 16 * (c ^ ((r >> 1) & 3))
+
+
+def band_item(i, K, B, Lp, plan, periods, cycles, p_max, dc0, kr):
+    """Item i as both of the kernel's roles decode it: (sequence, first row,
+    p, cycles, klo, khi), [klo, khi] the group's kernel rows that some row
+    of the item reaches."""
+
+    seq, t0 = i % (K * B), (i // (K * B)) * plan.rt
+    k = seq // B
+    p, cyc = min(max(int(periods[k]), 1), p_max), int(cycles[k])
+    r_lo, r_hi = t0 // p, (min(t0 + plan.rt, Lp) - 1) // p
+    return seq, t0, p, cyc, max(0, -r_hi - dc0), min(kr - 1, cyc - 1 - r_lo - dc0)
+
+
+def tap_table(t0, rt, Lp, p, cyc, dc0, klo, khi, kr, kw):
+    """The producer's table of an item: one word a row, bit kri * kw + wj set
+    where tap (dc0 + kri, wj - kw // 2) is valid there."""
+
+    rw = kw // 2
+    t = t0 + np.arange(rt)
+    row, col = t // p, t % p
+    lo, hi = np.maximum(klo, -row - dc0), np.minimum(khi, cyc - 1 - row - dc0)
+    wlo, whi = np.maximum(0, rw - col), np.minimum(kw - 1, p - 1 - col + rw)
+    words = np.zeros(rt, np.uint64)
+    for kri in range(kr):
+        for wj in range(kw):
+            on = (t < Lp) & (lo <= kri) & (kri <= hi) & (wlo <= wj) & (wj <= whi)
+            words |= np.where(on, np.uint64(1) << np.uint64(kri * kw + wj), np.uint64(0))
+    assert (words < 2 ** cuda_fold.BAND_TAP_BITS).all()
+    return words
+
+
+def band_lane_masks(words, tap, ks, lane):
+    """A lane's two AND masks for the A registers of a slab of tap ``tap`` at
+    k-step ks, as the kernel builds them from the rows' words: registers 0, 1
+    hold rows 16 ks + 2 q + {0, 1}, registers 2, 3 rows + {8, 9}."""
+
+    q, out = lane % 4, []
+    for base in (16 * ks + 2 * q, 16 * ks + 8 + 2 * q):
+        lo, hi = (int(words[base]) >> tap) & 1, (int(words[base + 1]) >> tap) & 1
+        out.append((0xFFFF if lo else 0) | (0xFFFF0000 if hi else 0))
+    return out
+
+
+def tile_kernel_rows(mt, nslabs, cib, kw):
+    """The kernel rows that M tile mt's four slabs read (slab = 4 mt + warp)."""
+
+    return 4 * mt // cib // kw, min(4 * mt + 3, nslabs - 1) // cib // kw
+
+
+def band_model_dw(h, ct, periods, cycles, kh, kw, p_max, plan=None):
+    """dW as tap_conv_dw_wgmma_kernel computes it: blocks (item chunk x,
+    channel tile and kernel-row group y), each walking items x, x + blocks,
+    ... with the producer's staging (TMA boxes, zeros outside the tensor,
+    kernel rows no row reaches left stale: NaN) and tap table, the consumer
+    warpgroups' live M tiles over 16-row k-steps, A masked per (tap, row);
+    then each cluster's blocks summed in rank order, and pass 2 over the
+    clusters in order."""
+
+    K, B, Lp, cin = h.shape
+    cout = ct.shape[-1]
+    plan = plan or cuda_fold.dw_mma_plan(K, B, Lp, cin, cout, kh, kw, p_max)
+    assert plan.band == 1
+    rt, rh, rw, cs = plan.rt, kh // 2, kw // 2, plan.cluster
+    co_tiles = -(-cout // 32)
+    items = K * B * (plan.lp_pad // rt)
+    h_flat, ct_flat = h.reshape(K * B, Lp, cin), ct.reshape(K * B, Lp, cout)
+
+    def box(x, seq, r0, rows, c0):  # a TMA box of 32 channels: zeros outside the tensor
+        out = np.zeros((rows, 32), np.float32)
+        r = r0 + np.arange(rows)
+        inside = (r >= 0) & (r < Lp)
+        width = min(32, x.shape[-1] - c0)
+        out[inside, :width] = x[seq, r[inside], c0:c0 + width]
+        return out
+
+    partial = np.zeros((plan.chunks, kh, kw, cin, cout), np.float32)
+    for y in range(plan.tiles * plan.groups):
+        group, tile = y % plan.groups, y // plan.groups
+        ci0, co0 = (tile // co_tiles) * 32, (tile % co_tiles) * 32
+        cib = min(2, (cin - ci0) // 16)
+        kr = min(plan.kr, kh - group * plan.kr)
+        dc0 = group * plan.kr - rh
+        nslabs = kr * kw * cib
+        mtiles = -(-nslabs // 4)
+        assert mtiles <= plan.consumers * cuda_fold.BAND_WG_TILES and kr * kw <= 32
+        slab_tap = [(s // cib) for s in range(nslabs)]
+        red = np.zeros((plan.blocks, nslabs, 16, 32), np.float32)
+        for x in range(plan.blocks):
+            acc = np.zeros((mtiles * 4, 16, 32), np.float32)  # per slab: its 16 rows of an M tile
+            staged = 0
+            for i in range(x, items, plan.blocks):
+                seq, t0, p, cyc, klo, khi = band_item(i, K, B, Lp, plan, periods, cycles, p_max,
+                                                      dc0, kr)
+                words = tap_table(t0, rt, Lp, p, cyc, dc0, klo, khi, kr, kw)
+                if klo > khi:  # skipped whole: no tap is valid at any of its rows
+                    assert not words.any()
+                    continue
+                staged += 1
+                ct_s = box(ct_flat, seq, t0, rt, co0)
+                bands = np.full((kr, plan.buf_rows, 32), np.nan, np.float32)  # stale
+                for kri in range(klo, khi + 1):
+                    bands[kri] = box(h_flat, seq, t0 + (dc0 + kri) * p - rw, plan.buf_rows, ci0)
+                ks_end = min(rt // ROWS, -(-(Lp - t0) // ROWS))
+                assert not words[ks_end * ROWS:].any()  # rows past the last k-step: past Lp
+                n = ks_end * ROWS
+                for mt in range(mtiles):
+                    lo, hi = tile_kernel_rows(mt, nslabs, cib, kw)
+                    live = lo <= khi and hi >= klo
+                    for s in range(4 * mt, min(4 * mt + 4, nslabs)):
+                        tap = slab_tap[s]
+                        kri, wj, cb = tap // kw, tap % kw, s % cib
+                        valid = ((words[:n] >> np.uint64(tap)) & np.uint64(1)).astype(bool)
+                        if not live:  # a skipped tile holds no valid row
+                            assert not valid.any()
+                            continue
+                        a = bands[kri, wj:wj + n, 16 * cb:16 * cb + 16].T  # [ci, t]
+                        a = np.where(valid[None], a, np.float32(0))  # the AND: stale bits too
+                        acc[s] += a @ ct_s[:n]
+            assert staged <= plan.per_chunk
+            red[x] = acc[:nslabs]
+        for c in range(plan.chunks):  # each cluster's blocks, in rank order
+            total = red[c * cs].copy()
+            for r in range(1, cs):
+                total += red[c * cs + r]
+            for s in range(nslabs):
+                tap = slab_tap[s]
+                dci, wj, ci = group * plan.kr + tap // kw, tap % kw, ci0 + 16 * (s % cib)
+                width = min(32, cout - co0)
+                partial[c, dci, wj, ci:ci + 16, co0:co0 + width] = total[s, :, :width]
+    dw = np.zeros((kh, kw, cin, cout), np.float32)
+    for c in range(plan.chunks):  # pass 2
+        dw += partial[c]
+    return dw, plan
 
 
 @pytest.mark.parametrize("K,B,Lp,p_max", LONG_SHAPES)
 @pytest.mark.parametrize("k", [3, 5])
 def test_plan_takes_the_long_context_shapes(K, B, Lp, p_max, k):
     """The long-context recipe's calls, which a ring of whole sequences
-    cannot hold in one SM's shared memory, take 64-row items whose h is one
-    band of 64 + kw - 1 rows, within ``MAX_SMEM_BYTES``."""
+    cannot hold in one SM's shared memory: one persistent block an SM (66
+    clusters of 2), every tap of the kernel in each block (5 or 13 M tiles
+    over three consumer warpgroups), 128-row items at Lp 1023 and 64-row
+    ones at the exact extents, a ring of at least four stages within
+    ``MAX_SMEM_BYTES``, and one partial a cluster in the scratch."""
 
     lp16 = -(-Lp // ROWS) * ROWS
     pad = (k // 2) * p_max + k // 2
     whole = 2 * 4 * ((lp16 + 2 * pad) * 40 + lp16 * 40) + 8 * k * (lp16 // ROWS) * 32 + 8 * lp16
     assert whole == WHOLE_SEQUENCE_SMEM[(Lp, k)] > cuda_fold.MAX_SMEM_BYTES
     plan = cuda_fold.dw_mma_plan(K, B, Lp, 32, 32, k, k, p_max)
-    assert (plan.band, plan.rt, plan.buf_rows, plan.pad) == (1, 64, 64 + k - 1, pad)
-    assert plan.lp_pad == -(-Lp // 64) * 64 and plan.lp_pad - Lp < 64
-    # the ring of four items and their (row, col) tables
-    assert plan.smem == 2 * 4 * ((64 + k - 1) * 40 + 64 * 40) + 8 * 4 * 64
-    assert plan.smem <= cuda_fold.MAX_SMEM_BYTES
-    items = B * plan.lp_pad // 64
-    assert plan.chunks == K * plan.chunks_per_k
-    assert (plan.chunks_per_k - 1) * plan.per_chunk < items <= plan.chunks_per_k * plan.per_chunk
-
-
-@pytest.mark.parametrize("cin,k,rt", [(32, 7, 64), (128, 7, 64), (256, 7, 32), (512, 7, 16),
-                                      (512, 3, 16), (384, 5, 32)])
-def test_band_plan_takes_the_first_item_height_that_fits(cin, k, rt):
-    """Wide channels take 32- or 16-row items where 64 rows do not fit."""
-
-    plan = cuda_fold.dw_mma_plan(1, 2, 1023, cin, cin, k, k, 511)
+    rt = 128 if Lp == 1023 else 64
+    assert isinstance(plan, cuda_fold.DwBandPlan)
     assert (plan.band, plan.rt, plan.buf_rows) == (1, rt, rt + k - 1)
-    for taller in (r for r in cuda_fold.MMA_BAND_ROWS if r > rt):
-        assert 2 * 4 * ((taller + k - 1) + taller) * (cin + 8) + 32 * taller > \
-            cuda_fold.MAX_SMEM_BYTES
+    assert plan.lp_pad == -(-Lp // rt) * rt
+    assert (plan.groups, plan.kr, plan.tiles) == (1, k, 1)
+    assert (plan.mtiles, plan.consumers, plan.warps) == ({3: 5, 5: 13}[k], 3, 16)
+    assert (plan.cluster, plan.blocks, plan.chunks) == (2, 132, 66)
+    # a stage: ct's rows, one 1,024-aligned band of h a kernel row, the tap table, a header
+    band = -(-(rt + k - 1) // 16) * 16 * 64
+    assert plan.stage_bytes == -(-(rt * 64 + k * band + 4 * rt + 16) // 1024) * 1024
+    assert plan.stages == min(8, (cuda_fold.MAX_SMEM_BYTES - 1024 - 128) // plan.stage_bytes) >= 4
+    assert plan.smem == 1024 + plan.stages * plan.stage_bytes <= cuda_fold.MAX_SMEM_BYTES - 128
+    items = K * B * plan.lp_pad // rt
+    assert plan.per_chunk == -(-items // 132) and items >= 4 * 132
+    # the scratch: 2.4 MB at 3x3, 6.8 MB at 5x5
+    assert 4 * plan.scratch_elems(k, k, 32, 32) == 66 * k * k * 32 * 32 * 4
+
+
+@pytest.mark.parametrize("K,B,Lp,cin,cout,kh,kw,rt,groups,kr", [
+    (4, 64, 1023, 32, 32, 7, 7, 128, 2, 4),  # 7x7: 49 taps pass 32 bits: two groups of rows
+    (2, 17, 1023, 32, 32, 5, 5, 64, 1, 5),  # 17 x 16 x 2 = 544 items of 64 rows: 4 a block
+    (1, 17, 1023, 32, 32, 3, 3, 32, 1, 3),  # 272 items of 64 rows are too few: 32 rows
+    (4, 2, 1023, 32, 32, 3, 3, 16, 1, 3),  # few items at every height: the shortest
+    (1, 64, 1023, 512, 512, 3, 3, 128, 1, 3),  # 256 channel tiles: two blocks a tile
+    (1, 8, 600, 64, 64, 15, 15, 128, 8, 2),  # 15 x 15: 8 groups of 2 kernel rows
+])
+def test_band_plan_takes_the_first_item_height_that_fits(K, B, Lp, cin, cout, kh, kw, rt,
+                                                         groups, kr):
+    """The item height is the tallest whose ring fits and whose items give
+    every block 4 on average, else the shortest that fits; kernel rows split
+    into groups where a block's slabs pass 60 or its taps 32 bits."""
+
+    plan = cuda_fold.dw_mma_plan(K, B, Lp, cin, cout, kh, kw, Lp // 2)
+    assert plan.band == 1
+    assert (plan.rt, plan.groups, plan.kr) == (rt, groups, kr)
+    cib = min(2, cin // 16)
+    assert plan.kr * kw * cib <= cuda_fold.BAND_MAX_SLABS and plan.kr * kw <= 32
+    assert plan.mtiles == -(-(kr * kw * cib) // 4) <= plan.consumers * cuda_fold.BAND_WG_TILES
+    ys = plan.tiles * plan.groups
+    assert plan.blocks % 2 == 0 and plan.blocks * ys <= max(132, 2 * ys)
+    for taller in (r for r in cuda_fold.BAND_ROWS if r > plan.rt):
+        items = K * B * -(-Lp // taller)
+        rows = -(-(taller + kw - 1) // 16) * 16
+        stage = -(-((taller + kr * rows) * 64 + 4 * taller + 16) // 1024) * 1024
+        assert items < 4 * plan.blocks or (231296 // stage) < 4
 
 
 @pytest.mark.parametrize("Lp,dc,p,cycles", [(1023, -1, 511, 2), (1023, 1, 24, 22), (525, 2, 25, 21),
                                             (513, 0, 171, 3), (70, 1, 7, 10)])
 def test_band_lane_masks_hold_the_item_table_validity(Lp, dc, p, cycles):
-    """Each lane's band-1 masks, built from the item's (row, col) table at
-    every k-step, hold the (tap, row) validity of the fold, rows past Lp
-    invalid: every row of every k-step is some lane's, and they agree."""
+    """The producer's tap table of an item, read through each lane's masks
+    at every k-step, holds the (tap, row) validity of the fold, rows past Lp
+    invalid; a kernel row outside the item's live range has no valid row."""
 
-    kw, rt = 5, 64
+    kh, kw, rt = 5, 5, 64
+    kr, dc0 = kh, -(kh // 2)
     for t0 in (0, (Lp - 1) // rt * rt):  # the first item, and the last (rows past Lp)
-        rows, cols = item_table(t0, rt, Lp, p)
-        want = band_validity(rows, cols, cycles, p, dc, kw)
+        r_lo, r_hi = t0 // p, (min(t0 + rt, Lp) - 1) // p
+        klo, khi = max(0, -r_hi - dc0), min(kr - 1, cycles - 1 - r_lo - dc0)
+        words = tap_table(t0, rt, Lp, p, cycles, dc0, klo, khi, kr, kw)
         t = t0 + np.arange(rt)
-        fold_valid = ((t[None] < Lp) & (t[None] // p + dc >= 0) & (t[None] // p + dc < cycles)
-                      & (t[None] % p + np.arange(kw)[:, None] - kw // 2 >= 0)
-                      & (t[None] % p + np.arange(kw)[:, None] - kw // 2 < p))
-        np.testing.assert_array_equal(want, fold_valid)
-        seen = np.zeros((kw, rt), int)
-        for w in range(kw):
+        kri = dc - dc0
+        for wj in range(kw):
+            fold_valid = ((t < Lp) & (t // p + dc >= 0) & (t // p + dc < cycles)
+                          & (t % p + wj - kw // 2 >= 0) & (t % p + wj - kw // 2 < p))
+            if not klo <= kri <= khi:
+                assert not fold_valid.any()
+            tap = kri * kw + wj
             for ks in range(rt // ROWS):
                 for lane in range(32):
-                    masks = band_lane_masks(rows, cols, cycles, p, dc, w - kw // 2, ks, lane)
-                    for reg, pair in enumerate(fragment_rows(ks, lane)):
-                        for half, row in enumerate(pair):
+                    masks = band_lane_masks(words, tap, ks, lane)
+                    q2 = 2 * (lane % 4)
+                    for reg, base in enumerate((16 * ks + q2, 16 * ks + 8 + q2)):
+                        for half in range(2):
                             bits = (masks[reg] >> (16 * half)) & 0xFFFF
-                            assert bits == (0xFFFF if want[w, row] else 0)
-                            seen[w, row] += 1
-        assert (seen == 8).all()  # each row of a k-step: the 8 lanes of its pair, one per column
+                            assert bits == (0xFFFF if fold_valid[base + half] else 0)
 
 
 @pytest.mark.parametrize("kh,kw", [(3, 3), (5, 5)])
 def test_band_model_matches_plain_and_jax_at_long_context(kh, kw):
     """The dynamic long-context fold (L=512, Lp=1023, p_cap 511, K=4 at
-    periods such as the hourly data's) at B=1 in 64-row items: every row of
-    Lp, the last item's rows past Lp and the zero rows of bands that leave
-    [0, Lp) included."""
+    periods such as the hourly data's) at B=1, on the tiling of the B=64
+    call (128-row items, 132 blocks in clusters of 2): every row of Lp, the
+    last item's rows past Lp, bands that leave [0, Lp), skipped kernel rows
+    and items included."""
 
     L, periods = 512, [511, 168, 24, 7]
     h, ct = _inputs(kh, len(periods), 1, 2 * L - 1, 32, 32)
     geom, plain, want = _references(h, ct, periods, L, kh, kw)
-    got, plan = model_dw(h, ct, geom.periods.numpy(), geom.cycles.numpy(), kh, kw, L - 1)
-    assert plan.band == 1 and plan.lp_pad == 1024
+    plan = cuda_fold.dw_mma_plan(4, 64, 2 * L - 1, 32, 32, kh, kw, L - 1)
+    got, plan = band_model_dw(h, ct, geom.periods.numpy(), geom.cycles.numpy(), kh, kw, L - 1,
+                              plan)
+    assert plan.band == 1 and plan.lp_pad == 1024 and plan.rt == 128
     _assert_close(got, plain, "plain")
     _assert_close(got, want, "JAX")
 
@@ -441,27 +581,30 @@ def test_band_model_matches_plain_and_jax_at_long_context(kh, kw):
 @pytest.mark.parametrize("kh,kw", [(3, 3), (5, 5)])
 def test_band_model_matches_plain_at_the_exact_extent(kh, kw, p):
     """The frozen long-context path: K=1, Lp = total (525 at p=25, 513 at
-    p=171), p_max = p, at B=2."""
+    p=171), p_max = p, at B=9: 64-row items, 81 of them over 132 blocks."""
 
     L = 512
     geom = fold.make_dense_geometry(p, L)
-    h, ct = _inputs(p + kh, 1, 2, geom.Lp, 32, 32)
+    h, ct = _inputs(p + kh, 1, 9, geom.Lp, 32, 32)
     plain = fold.tap_weight_grad(torch.from_numpy(h), geom, torch.from_numpy(ct), kh, kw).numpy()
-    got, plan = model_dw(h, ct, geom.periods.numpy(), geom.cycles.numpy(), kh, kw, geom.p_max)
-    assert plan.band == 1 and geom.Lp == {25: 525, 171: 513}[p]
+    plan = cuda_fold.dw_mma_plan(1, 64, geom.Lp, 32, 32, kh, kw, geom.p_max)
+    got, plan = band_model_dw(h, ct, geom.periods.numpy(), geom.cycles.numpy(), kh, kw,
+                              geom.p_max, plan)
+    assert plan.band == 1 and plan.rt == 64 and geom.Lp == {25: 525, 171: 513}[p]
     _assert_close(got, plain, "plain")
 
 
-def test_band_model_takes_32_row_items():
-    """256 channels at 7x7 stage 32-row items (64 rows do not fit): the
-    model over 8 channel tiles against the plain version."""
+def test_band_model_takes_kernel_row_groups_and_wide_channels():
+    """7x7 over 48 input and 40 output channels: two kernel-row groups
+    (4 + 3 rows), a half-used input-channel tile (16 of 32) and a
+    partly-filled output tile (8 of 32), against the plain version."""
 
-    L, periods, kh, kw = 40, [39, 6], 7, 7
-    h, ct = _inputs(3, len(periods), 1, 2 * L - 1, 256, 256)
+    L, periods, kh, kw = 80, [79, 6], 7, 7
+    h, ct = _inputs(3, len(periods), 2, 2 * L - 1, 48, 40)
     geom = fold.make_geometry(torch.tensor(periods, dtype=torch.int32), L, L - 1)
     plain = fold.tap_weight_grad(torch.from_numpy(h), geom, torch.from_numpy(ct), kh, kw).numpy()
-    got, plan = model_dw(h, ct, geom.periods.numpy(), geom.cycles.numpy(), kh, kw, L - 1)
-    assert (plan.band, plan.rt, plan.tiles) == (1, 32, 64)
+    got, plan = band_model_dw(h, ct, geom.periods.numpy(), geom.cycles.numpy(), kh, kw, L - 1)
+    assert (plan.band, plan.groups, plan.kr, plan.tiles) == (1, 2, 4, 4)
     _assert_close(got, plain, "plain")
 
 
@@ -481,7 +624,135 @@ def test_band_model_matches_plain_over_periods_and_sizes(data):
     h, ct = _inputs(data.draw(st.integers(0, 2**31 - 1), label="seed"), len(periods), B,
                     2 * L - 1, cin, cout)
     geom, plain, want = _references(h, ct, periods, L, kh, kw)
-    got, plan = model_dw(h, ct, geom.periods.numpy(), geom.cycles.numpy(), kh, kw, L - 1)
+    got, plan = band_model_dw(h, ct, geom.periods.numpy(), geom.cycles.numpy(), kh, kw, L - 1)
     assert plan.band == 1
     _assert_close(got, plain, "plain")
     _assert_close(got, want, "JAX")
+
+
+@pytest.mark.parametrize("start", [0, 1, 2, 3, 5, 6, 7, 9, 13])
+def test_swizzle64_matrices_fall_in_distinct_banks(start):
+    """Eight consecutive 64-byte rows of one 16-byte chunk, an ldmatrix
+    matrix at any tap offset, lie in eight distinct 16-byte bank groups
+    under the 64-byte swizzle, and the swizzle is a permutation of each
+    row's chunks."""
+
+    for c in range(4):
+        groups = {(swizzle64(start + r, c) // 16) % 8 for r in range(8)}
+        assert len(groups) == 8
+    for r in range(start, start + 8):
+        assert sorted(swizzle64(r, c) - 64 * r for c in range(4)) == [0, 16, 32, 48]
+
+
+@pytest.mark.parametrize("wj,cb", [(0, 0), (1, 1), (3, 0), (4, 1), (6, 1)])
+def test_swizzled_fragment_addresses_load_the_masked_a_operand(wj, cb):
+    """A band staged as TMA writes it (64-byte swizzle) read back by
+    ldmatrix.trans at the kernel's lane addresses (its a_off at a k-step)
+    gives the slab's A[ci, t] = h[t + wj, 16 cb + ci] in the m16n8k16 A
+    layout that wgmma takes from registers; the lane masks then keep the
+    valid rows' bf16 bits and turn the rest, stale NaN included, to +0."""
+
+    rng = np.random.default_rng(wj * 7 + cb)
+    rows = 80
+    band = rng.standard_normal((rows, 32)).astype(np.float32)
+    band[5, :] = np.nan  # a stale row that the masks must clear
+    smem = np.full((rows * 4, 8), np.inf, np.float32)  # 16-byte chunks of shared memory
+    for r in range(rows):
+        for c in range(4):
+            smem[swizzle64(r, c) // 16] = band[r, 8 * c:8 * c + 8]
+    for ks in range(3):
+        addrs = []
+        for lane in range(32):
+            a_row, a_chunk = (lane & 7) + ((lane >> 4) << 3), (lane >> 3) & 1
+            off = swizzle64(wj + a_row, 2 * cb + a_chunk) + 1024 * ks
+            assert off % 16 == 0
+            addrs.append((off // 16, 0))
+        frag = ldmatrix(smem, addrs, trans=True)
+        want = band[16 * ks + wj:16 * ks + wj + 16, 16 * cb:16 * cb + 16].T
+        np.testing.assert_array_equal(a_matrix(frag), want)
+        valid = ~np.isnan(band[16 * ks + wj:16 * ks + wj + 16, 0])
+        words = np.where(valid, np.uint64(1) << np.uint64(9), np.uint64(0))
+        bits = torch.from_numpy(frag).bfloat16().view(torch.int16).numpy().astype(np.uint16)
+        for lane in range(32):
+            rows = np.concatenate([np.zeros(16 * ks, np.uint64), words])
+            masks = band_lane_masks(rows, 9, ks, lane)
+            for reg in range(4):
+                packed = int(bits[lane, reg, 0]) | (int(bits[lane, reg, 1]) << 16)
+                out = packed & masks[reg // 2]
+                for half in range(2):
+                    t = 2 * (lane % 4) + half + 8 * (reg // 2)
+                    want_bits = int(bits[lane, reg, half]) if valid[t] else 0
+                    assert (out >> (16 * half)) & 0xFFFF == want_bits
+
+
+def test_band_accumulators_cover_each_slab_once():
+    """The epilogue's map of a thread's wgmma m64n32k16 accumulators (warp
+    w's rows 16 w .. 16 w + 15, d[4 n + e] at row g + 8 (e // 2), column
+    8 n + 2 q + e % 2) to the partial-sum buffer covers each (channel,
+    output channel) of each of the warpgroup's slabs once, in rows of
+    ``BAND_RED_STRIDE`` floats where each half-warp's float2 stores take 16
+    distinct bank pairs."""
+
+    stride = cuda_fold.BAND_RED_STRIDE
+    seen = np.zeros((4, 16, 32), int)
+    for w in range(4):
+        for n in range(4):
+            for half in range(2):
+                pairs = []
+                for lane in range(32):
+                    g, q = lane // 4, lane % 4
+                    row = g + 8 * half
+                    seen[w, row, 8 * n + 2 * q:8 * n + 2 * q + 2] += 1
+                    word = (w * 16 + row) * stride + 8 * n + 2 * q
+                    assert word % 2 == 0
+                    pairs.append((word % 32) // 2)
+                assert len(set(pairs[:16])) == 16 and len(set(pairs[16:])) == 16
+    assert (seen == 1).all()
+
+
+@pytest.mark.parametrize("kh", [3, 5])
+def test_band_skips_items_and_kernel_rows_no_row_reaches(kh):
+    """At the dynamic long-context call (periods 511, 168, 24, 7; B=64): the
+    kernel rows no row of an item reaches are neither staged nor multiplied
+    (at p=511, cycles 2: dc = +2 never, dc = -2 only in the item holding row
+    1022; at 3x3 one of dc = +-1 in every item but the one holding row 511),
+    and the items past each period's reach are skipped whole."""
+
+    K, B, Lp, L = 4, 64, 1023, 512
+    periods = np.array([511, 168, 24, 7])
+    cycles = -(-L // periods)
+    plan = cuda_fold.dw_mma_plan(K, B, Lp, 32, 32, kh, kh, L - 1)
+    rh = kh // 2
+    live_rows = {k: [] for k in range(K)}
+    for i in range(K * B * plan.lp_pad // plan.rt):
+        seq, t0, p, cyc, klo, khi = band_item(i, K, B, Lp, plan, periods, cycles, L - 1, -rh, kh)
+        if seq % B == 0:
+            live_rows[seq // B].append((t0, klo, khi))
+    for t0, klo, khi in live_rows[0]:  # p=511: rows 0 and 1 of the fold, and row 1022 in row 2
+        assert khi < kh - 1 if kh == 5 else True  # dc = +2 reads row -1 or -2: never
+        if kh == 5:
+            assert (klo == 0) == (t0 + plan.rt > 1022)  # dc = -2: only row 1022 reaches it
+        if kh == 3 and not t0 <= 511 < t0 + plan.rt:
+            assert khi - klo == 1
+    for k in (2, 3):
+        p, cyc = int(periods[k]), int(cycles[k])
+        for t0, klo, khi in live_rows[k]:
+            assert (klo > khi) == (t0 // p > cyc - 1 + rh)
+    dead = sum(klo > khi for rows in live_rows.values() for _, klo, khi in rows)
+    assert dead == {3: 7, 5: 6}[kh]  # of the 4 x 8 row tiles of one sequence a candidate
+
+
+@pytest.mark.parametrize("shape", [
+    (2, 4, 900, 8192, 8192, 3, 3, 899),  # 65,536 channel tiles: more than a grid's y
+    (1, 4, 600, 4096, 8192, 15, 15, 599),  # 32,768 tiles x 8 kernel-row groups
+    (1, 4, 600, 2048, 2048, 15, 15, 599),  # 4,096 tiles x 8 groups is 32,768: taken
+])
+def test_band_plan_refuses_more_blocks_than_a_grid_holds(shape):
+    """Band 1 takes any channel count (32-channel tiles); it refuses only
+    more channel tiles x kernel-row groups than a grid's y holds."""
+
+    if shape[3] * shape[4] < 2 ** 23:
+        assert cuda_fold.dw_mma_plan(*shape).band == 1
+        return
+    with pytest.raises(RuntimeError, match="cudaError_t 1 .*more blocks or items than a grid"):
+        cuda_fold.dw_mma_plan(*shape)
