@@ -183,7 +183,27 @@ Phases, each of which fails the run (non-zero exit, no result line):
    float32 ``config_used.yaml``, card = CPU within 1e-4 relative;
 19. predict-long: phase 17's checks (no ensemble) on phase 16's artifacts:
    two TEST files x 48 series x 512 hours, 24 ahead, 16-row chunks on the
-   last probe's spec (one epoch never freezes).
+   last probe's spec (one epoch never freezes);
+20. augment: configs/default.yaml's ``data.augment`` (noise 0.005, shifts
+   of up to 2 days) on the flagship at full width. A staged batch of
+   phase 7's windows gathered on the card (256 rows, 17 padded) equals,
+   bit for bit, the clean windows at the shifted starts plus the noise,
+   both drawn again from a copy of its generator: every shift within
+   [-2, 2] and clipped to its fold's last start, the noise's mean within 4
+   standard errors of 0 and its standard deviation within 5 % of 0.005,
+   padded rows exactly zero, zero augmentation = none with the generator
+   untouched. Two replayed resident chunks of 20 augmented steps equal the
+   same chunks op by op, bit for bit; the replayed resident step's p50
+   with and without augmentation (6 chunks of 43 steps each way, in
+   turns); one ``train_once`` epoch of configs/demand_benchmark.yaml with
+   the augmentation on its benchmark CSV, its seconds beside phase 15's
+   first epoch;
+21. tune: ``cli.main(["tune", ...])`` on configs/demand_benchmark.yaml and
+   configs/search_space_flagship.yaml, 3 trials of one epoch on the
+   benchmark's CSV: each trial's parameters, val NLL, epoch seconds and
+   ``memory_allocated`` after the study released it (no growth after the
+   first trial), ``best_params.json`` and ``best_config.yaml`` loaded, the
+   best value finite, every bf16 kernel run at each size.
 
 The recipes' blocks (the models, schedules and engine settings of phases
 4-14) are read from configs/demand_benchmark.yaml and
@@ -212,7 +232,8 @@ phases 12-14 (the float32 rows from the long float32 parity steps), and
 the card in phases 15 and 16 (bf16 recipes: the float32 rows count 0), and
 ``launches_predict``, ``launches_evaluate`` and ``launches_predict_long``:
 each kernel's runs on the card in the recipe-as-shipped runs of phases
-17-19 (the same).
+17-19 (the same), and ``launches_augment`` / ``launches_tune``: its runs in
+phase 20's ``train_once`` epoch and in phase 21's study.
 ``[clock]`` lines give the time since the start at the end of each phase.
 
 The last lines are the ``kernels`` JSON line, the card line of ``nvidia-smi``
@@ -282,6 +303,10 @@ LONG_PARITY_B = 16  # rows of the float32 card-vs-CPU long step
 LONG_ITERS = 20  # calls a long-context kernel timing takes
 TRAIN_ONCE_EPOCHS, TRAIN_ONCE_LONG_EPOCHS = 3, 1  # train_once's epochs on each recipe
 PREDICT_CHUNK, PREDICT_CHUNK_LONG = 64, 16  # rows a chunk of the chunked predict: 3 a file
+AUGMENT_PAD = 17  # padded rows of the augmented batch
+AUGMENT_EQ_STEPS = 20  # resident steps a chunk, replayed against eager (two chunks)
+AUGMENT_CHUNK, AUGMENT_TIMED = 43, 6  # steps a timed resident chunk; chunks timed each way
+TUNE_TRIALS, TUNE_DAYS = 3, 560  # cli tune's trials; days of its benchmark CSV (uncut: 560)
 
 
 def eager(obj):
@@ -2342,7 +2367,7 @@ def train_once_phase(torch, np, cuda_fold, label: str, recipe: str, write_csv, e
     finite and >= 0. ``serve(tmp, spec)``, where given, then runs on the
     temporary directory (``data/`` and ``artifacts/``) and the spec the run
     froze on (else the last telemetry spec of its probe). Returns the card's
-    kernel runs and what ``serve`` returned."""
+    kernel runs, what ``serve`` returned and the run's metrics."""
 
     import tempfile
 
@@ -2448,7 +2473,266 @@ def train_once_phase(torch, np, cuda_fold, label: str, recipe: str, write_csv, e
         print(f"[{label}] spec for the serving phases: {[list(map(list, l)) for l in spec]} "
               f"({'the one the run froze on' if frozen else 'the last probe: the run never froze'})")
         served = serve(Path(tmp), spec) if serve is not None else None
-    return ran, served
+    return ran, served, m
+
+
+# -- window augmentation and hyper-parameter search ---------------------------
+
+def augment_phase(torch, np, windows, dw, engine_mod, cuda_fold, cfg, params, engine_kw, lr,
+                  train_once_epoch_s: float) -> dict:
+    """``[augment]``: configs/default.yaml's ``data.augment`` on the
+    flagship at full width. The 192-series training windows of phase 7 are
+    staged with it; one batch of 256 rows (the last ``AUGMENT_PAD`` padded)
+    is gathered on the card from a generator, and the same draws are made
+    again from a copy of it: each shift in ``[-time_shift, time_shift]``,
+    the start clipped to its fold's last start, the targets the clean
+    window's at that start and the inputs the clean window's plus the noise,
+    bit for bit; the noise's mean within 4 standard errors of 0 and its
+    standard deviation within 5 % of ``add_noise_std``; padded rows exactly
+    zero; zero augmentation equal to none, bit for bit, with the generator
+    untouched. Then two resident chunks of ``AUGMENT_EQ_STEPS`` steps
+    replayed from their graph against the same chunks dispatched op by op
+    (bit for bit), the replayed resident step's p50 with and without
+    augmentation (``AUGMENT_TIMED`` chunks of ``AUGMENT_CHUNK`` steps each
+    way, in turns), and one ``train_once`` epoch of the flagship recipe on
+    its benchmark CSV with the augmentation, its seconds beside
+    ``[train-once]``'s first epoch. Returns the card's kernel runs in that
+    epoch."""
+
+    import tempfile
+
+    from flow_timesnet_tpu_torch.config import PipelineConfig, load_yaml
+    from flow_timesnet_tpu_torch.train import train_once
+
+    augment = load_yaml(str(REPO / "configs" / "default.yaml"))["data"]["augment"]
+    std, shift = float(augment["add_noise_std"]), int(augment["time_shift"])
+    train, _, sigma = train_data(np, windows, cfg.input_len, cfg.pred_len)
+    src = train.sources
+    s0 = src[0]
+
+    def stage(aug):
+        return dw.stage_windows([s.X for s in src], [s.M for s in src], s0.L, s0.H, s0.stride,
+                                "direct", marks=[s.marks for s in src], static=s0.static,
+                                sigma_vector=sigma, augment=aug, device=DEVICE)
+
+    staged, clean = stage(augment), stage(None)
+    zero = stage({"add_noise_std": 0.0, "time_shift": 0})
+    idx, rv = dw.epoch_index_plan(staged.total, B_TRAIN, shuffle=True, drop_last=True,
+                                  rng=np.random.default_rng([0, 1]))
+    flat = torch.from_numpy(idx[0]).to(DEVICE)
+    valid = torch.ones(B_TRAIN, device=DEVICE)
+    valid[-AUGMENT_PAD:] = 0.0
+    gen = torch.Generator(device=DEVICE).manual_seed(5)
+    mirror = torch.Generator(device=DEVICE)
+    mirror.set_state(gen.get_state())
+    got = dw.gather_batch(staged, flat, valid, generator=gen)
+    # the same draws again: the shifts, then the noise
+    delta = torch.randint(-shift, shift + 1, flat.shape, generator=mirror, device=DEVICE,
+                          dtype=torch.int32)
+    noise = torch.randn((B_TRAIN, s0.L, 1), generator=mirror, device=DEVICE) * std
+    offsets = clean.offsets.cpu().numpy()
+    idx0 = idx[0].astype(np.int64)
+    fold_of = np.searchsorted(offsets, idx0, side="right") - 1
+    local = idx0 - offsets[fold_of]
+    base = local // clean.num_series * clean.stride
+    series = local % clean.num_series
+    last = clean.max_start.cpu().numpy()[fold_of]
+    d = delta.cpu().numpy()
+    starts = np.clip(base + d, 0, last)
+    check(int(d.min()) >= -shift and int(d.max()) <= shift
+          and bool((np.abs(starts - base) <= shift).all()) and bool((starts <= last).all()),
+          f"[augment] shifts {d.min()}..{d.max()}, starts beyond their folds")
+    f_t, s_t, st_t = (torch.from_numpy(a).to(DEVICE)[:, None] for a in (fold_of, series, starts))
+    t_in = st_t + torch.arange(s0.L, device=DEVICE)[None, :]
+    t_out = st_t + s0.L + torch.arange(s0.H, device=DEVICE)[None, :]
+    rv3 = valid[:, None, None]
+    clean_x = clean.X[f_t, t_in, s_t][..., None]
+    want_x = (clean_x + noise) * rv3
+    want_y = clean.X[f_t, t_out, s_t][..., None] * rv3
+    check(torch.equal(got["x"], want_x) and torch.equal(got["y"], want_y),
+          "[augment] the batch is not the clean windows at the shifted starts plus the noise")
+    real = valid > 0
+    est = (got["x"] - clean_x)[real].double().flatten()
+    n = est.numel()
+    mean, sd = float(est.mean()), float(est.std())
+    se = std / n ** 0.5
+    print(f"[augment] data.augment of configs/default.yaml: add_noise_std {std}, time_shift "
+          f"{shift}; a staged batch of {B_TRAIN} rows ({AUGMENT_PAD} padded) on the card: shifts "
+          f"{int(d.min())}..{int(d.max())}, {int((starts != base + d).sum())} clipped to their "
+          f"fold, every row the clean window at its shifted start plus the same draws made "
+          f"again (bit for bit); noise over {n} values: mean {mean:.3e} ({abs(mean) / se:.2f} "
+          f"standard errors), std {sd:.6f} ({100 * (sd / std - 1):+.2f} %)")
+    check(abs(mean) <= 4 * se and abs(sd / std - 1) <= 0.05,
+          f"[augment] noise mean {mean} (se {se}), std {sd} against {std}")
+    pad = ~real
+    check(all(v is None or not bool(v[pad].any()) for k, v in got.items() if k != "floor"),
+          "[augment] a padded row is not zero")
+    before = mirror.get_state()
+    got0 = dw.gather_batch(zero, flat, valid, generator=mirror)
+    want0 = dw.gather_batch(clean, flat, valid)
+    same = all((a is None and got0[k] is None) or torch.equal(a, got0[k])
+               for k, a in want0.items())
+    check(same and torch.equal(before, mirror.get_state()),
+          "[augment] zero augmentation differs from none or drew from the generator")
+    print("[augment] padded rows exactly zero; zero augmentation = none, bit for bit, the "
+          "generator untouched")
+
+    # a replayed resident chunk against the same chunk dispatched op by op
+    graphed = engine_mod.Engine(cfg, params, **engine_kw)
+    ref = eager(engine_mod.Engine(cfg, params, **engine_kw))
+    runs = []
+    for eng in (graphed, ref):
+        state, g = eng.init_state(), torch.Generator(device=DEVICE).manual_seed(11)
+        losses = [eng.train_epoch_resident(state, lr, g, staged,
+                                           idx[k * AUGMENT_EQ_STEPS:(k + 1) * AUGMENT_EQ_STEPS],
+                                           rv[k * AUGMENT_EQ_STEPS:(k + 1) * AUGMENT_EQ_STEPS])[1]
+                  for k in range(2)]
+        runs.append((torch.cat(losses), state, g.get_state()))
+    (lg, sg, gg), (le, se_, ge) = runs
+    bitwise = (torch.equal(lg, le) and torch.equal(gg, ge)
+               and all(torch.equal(a, b) for a, b in zip(sg.tensors(), se_.tensors())))
+    print(f"[augment] two replayed resident chunks of {AUGMENT_EQ_STEPS} steps against the same "
+          f"chunks op by op: losses, state and generator bit for bit {bitwise} (loss "
+          f"{float(lg[0]):.4f} -> {float(lg[-1]):.4f})")
+    check(bitwise and bool(torch.isfinite(lg).all()),
+          "[augment] the replayed resident chunks differ from eager")
+
+    # the replayed resident step with augmentation and without, in turns
+    per_step = {"augmented": [], "clean": []}
+    steps = slice(2 * AUGMENT_EQ_STEPS, 2 * AUGMENT_EQ_STEPS + AUGMENT_CHUNK)
+    for which in ("augmented", "clean"):  # their captures, before the timing
+        graphed.train_epoch_resident(sg, lr, gen, staged if which == "augmented" else clean,
+                                     idx[steps], rv[steps])
+    for k in range(AUGMENT_TIMED):
+        for which in (("clean", "augmented") if k % 2 else ("augmented", "clean")):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            graphed.train_epoch_resident(sg, lr, gen, staged if which == "augmented" else clean,
+                                         idx[steps], rv[steps])
+            torch.cuda.synchronize()
+            per_step[which].append(1e3 * (time.perf_counter() - t0) / AUGMENT_CHUNK)
+    p50 = {k: float(np.median(v)) for k, v in per_step.items()}
+    print(f"[augment] replayed resident step ms, {AUGMENT_TIMED} chunks of {AUGMENT_CHUNK} each "
+          f"way in turns: augmented {spread(np, per_step['augmented'])}; clean "
+          f"{spread(np, per_step['clean'])}; p50 difference "
+          f"{p50['augmented'] - p50['clean']:+.3f} ms")
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_augment_") as tmp:
+        data = Path(tmp) / "data"
+        write_demand_csv(np, data / "train.csv")
+        run_cfg = PipelineConfig.from_files(str(REPO / "configs" / "demand_benchmark.yaml"),
+                                            overrides=[
+            f"data.train_csv={data / 'train.csv'}", f"artifacts.dir={Path(tmp) / 'artifacts'}",
+            "train.epochs=1", f"data.augment.add_noise_std={std}",
+            f"data.augment.time_shift={shift}"])
+        clear_counts(cuda_fold)
+        t0 = time.perf_counter()
+        best_nll, paths = train_once(run_cfg)
+        seconds = time.perf_counter() - t0
+        ran = run_counts(cuda_fold)
+        used = load_yaml(paths["config"])
+    m = paths["metrics"]
+    check(m["input_pipeline"] == "device" and used["data"]["augment"] == augment
+          and bool(np.isfinite(m["epoch_loss"]).all()) and np.isfinite(best_nll),
+          f"[augment] train_once: {m['input_pipeline']}, {used['data'].get('augment')}, "
+          f"losses {m['epoch_loss']}")
+    check(all(ran[f"{kind}_mma"].get(f"{kh}x{kw}", 0) > 0 and ran[kind] == ran[f"{kind}_mma"]
+              for kind in KINDS for kh, kw in KERNEL_SIZES), f"[augment] the card ran {ran}")
+    print(f"[augment] train_once, one epoch of configs/demand_benchmark.yaml with this "
+          f"augmentation: epoch {m['epoch_seconds'][0]:.3f} s ({m['epoch_windows_per_s'][0]:.1f} "
+          f"windows/s) against [train-once]'s first epoch {train_once_epoch_s:.3f} s; "
+          f"train_once {seconds:.3f} s; loss {m['epoch_loss'][0]:.6f}, val NLL {best_nll:.6f}; "
+          f"the card ran {ran}")
+    return ran
+
+
+def tune_phase(torch, np, cuda_fold) -> dict:
+    """``[tune]``: ``cli.main(["tune", ...])`` on configs/demand_benchmark.yaml
+    with configs/search_space_flagship.yaml (lr, dropout, d_ff, EMA), 3
+    trials of one epoch on the benchmark's CSV (``TUNE_DAYS`` days; the
+    cut, where there is one, is printed). Per trial: its parameters, its
+    objective, its epoch's seconds and ``memory_allocated`` after the study
+    released it. ``best_params.json`` and ``best_config.yaml`` must load,
+    the best value must be finite and the card's memory must not grow after
+    the first trial. Returns the card's kernel runs in the study."""
+
+    import gc
+    import tempfile
+
+    from flow_timesnet_tpu_torch import cli
+    from flow_timesnet_tpu_torch import tune as tune_mod
+    from flow_timesnet_tpu_torch.config import PipelineConfig, load_yaml
+
+    space_path = REPO / "configs" / "search_space_flagship.yaml"
+    space = load_yaml(str(space_path))
+    trials = []
+    real_train, real_release = tune_mod.train_once, tune_mod._release_device
+
+    def recorded(cfg, epoch_hook=None):
+        rec = {"params": {}, "value": float("inf"), "epoch_seconds": []}
+        for path in space:
+            node = cfg.raw
+            for part in path.split("."):
+                node = node[part]
+            rec["params"][path] = node
+        trials.append(rec)
+        t0 = time.perf_counter()
+        try:
+            best, paths = real_train(cfg, epoch_hook=epoch_hook)
+            rec.update(value=float(best), epoch_seconds=paths["metrics"]["epoch_seconds"])
+            return best, paths
+        finally:
+            rec["seconds"] = time.perf_counter() - t0
+
+    def release():
+        real_release()
+        trials[-1]["allocated"] = torch.cuda.memory_allocated()
+
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    baseline = torch.cuda.memory_allocated()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_tune_") as tmp:
+        data, out = Path(tmp) / "data", Path(tmp) / "study"
+        rows = write_demand_csv(np, data / "train.csv", t_train=TUNE_DAYS)
+        cut = "uncut" if TUNE_DAYS == 560 else f"cut from 560 to {TUNE_DAYS} days"
+        clear_counts(cuda_fold)
+        tune_mod.train_once, tune_mod._release_device = recorded, release
+        t0 = time.perf_counter()
+        try:
+            cli.main(["tune", "--config", str(REPO / "configs" / "demand_benchmark.yaml"),
+                      "--search-space", str(space_path), "--n-trials", str(TUNE_TRIALS),
+                      "--override", f"data.train_csv={data / 'train.csv'}",
+                      f"artifacts.dir={out}", "train.epochs=1"])
+        finally:
+            tune_mod.train_once, tune_mod._release_device = real_train, real_release
+        seconds = time.perf_counter() - t0
+        ran = run_counts(cuda_fold)
+        with open(out / "best_params.json", encoding="utf-8") as f:
+            best = json.load(f)
+        best_cfg = PipelineConfig.from_files(str(out / "best_config.yaml"))
+    check(len(trials) == TUNE_TRIALS, f"[tune] {len(trials)} trials ran")
+    for i, t in enumerate(trials, start=1):
+        print(f"[tune] trial {i}: {t['params']}: val_nll {t['value']:.6f}, epoch "
+              f"{', '.join(f'{s:.3f}' for s in t['epoch_seconds'])} s, trial {t['seconds']:.3f} s, "
+              f"memory_allocated after it {t['allocated'] / 2**20:.1f} MiB")
+    values = [t["value"] for t in trials]
+    check(np.isfinite(best["best_value"]) and best["best_value"] == min(values)
+          and set(best["best_params"]) == set(space)
+          and best_cfg.raw["train"]["lr"] == best["best_params"]["train.lr"],
+          f"[tune] best_params.json {best}")
+    grew = [t["allocated"] - trials[0]["allocated"] for t in trials[1:]]
+    check(all(g <= 0 for g in grew),
+          f"[tune] device memory grew after the first trial by {grew} bytes")
+    check(all(ran[f"{kind}_mma"].get(f"{kh}x{kw}", 0) > 0 for kind in KINDS
+              for kh, kw in KERNEL_SIZES), f"[tune] the card ran {ran}")
+    print(f"[tune] cli tune, {TUNE_TRIALS} trials of one epoch on {rows} rows of the "
+          f"benchmark's CSV ({cut}): {seconds:.3f} s; best val_nll {best['best_value']:.6f} "
+          f"{best['best_params']}; best_params.json and best_config.yaml load; memory_allocated "
+          f"before the study {baseline / 2**20:.1f} MiB, after each trial "
+          f"{[round(t['allocated'] / 2**20, 1) for t in trials]} MiB (growth after the first "
+          f"{grew} bytes); the card ran {ran}")
+    return ran
 
 
 # -- predict and evaluate from the artifacts ----------------------------------
@@ -3125,16 +3409,24 @@ def main() -> int:
         return runs
 
     train_once_runs, serving_runs = {}, {}
-    train_once_runs["train_once"], served = train_once_phase(
+    train_once_runs["train_once"], served, flagship_run = train_once_phase(
         torch, np, cuda_fold, "train-once", "demand_benchmark.yaml", write_demand_csv,
         TRAIN_ONCE_EPOCHS, KERNEL_SIZES, True, predict_flagship)
     serving_runs.update(served)
     stamp("train-once")
-    train_once_runs["train_once_long"], served = train_once_phase(
+    train_once_runs["train_once_long"], served, _ = train_once_phase(
         torch, np, cuda_fold, "train-once-long", "long_context.yaml", write_long_context_csv,
         TRAIN_ONCE_LONG_EPOCHS, LONG_SIZES, False, predict_long)
     serving_runs.update(served)
     stamp("train-once-long")
+
+    # 20-21. window augmentation, then a hyper-parameter study
+    train_once_runs["augment"] = augment_phase(
+        torch, np, windows, device_windows, engine_mod, cuda_fold, cfg, params, flag_rec.engine,
+        trained["lr"], flagship_run["epoch_seconds"][0])
+    stamp("augment")
+    train_once_runs["tune"] = tune_phase(torch, np, cuda_fold)
+    stamp("tune")
 
     # the exact-extent numbers, the frozen paths' and the graphs' launches of each kernel
     for row in kernels:

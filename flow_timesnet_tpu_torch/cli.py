@@ -3,12 +3,14 @@
     python -m flow_timesnet_tpu_torch.cli train    --config configs/demand_benchmark.yaml
     python -m flow_timesnet_tpu_torch.cli evaluate --config configs/demand_benchmark.yaml
     python -m flow_timesnet_tpu_torch.cli predict  --config configs/demand_benchmark.yaml
+    python -m flow_timesnet_tpu_torch.cli tune     --config configs/demand_benchmark.yaml \
+        --search-space configs/search_space_flagship.yaml --n-trials 3
 
 Every subcommand takes a ``--config`` YAML plus dotted ``--override
 key=value`` pairs. ``train`` runs ``train.py::train_once``, ``predict``
-``predict.py::predict_once`` and ``evaluate`` ``evaluate.py::evaluate_once``,
-each on the card (``--override train.device=cpu`` runs it on the CPU);
-``tune`` is not ported yet and says which ROADMAP item ports it.
+``predict.py::predict_once``, ``evaluate`` ``evaluate.py::evaluate_once``
+and ``tune`` ``tune.py::tune``, each on the card (``--override
+train.device=cpu`` runs it on the CPU).
 """
 
 from __future__ import annotations
@@ -17,10 +19,6 @@ import argparse
 from typing import List, Optional
 
 from .config import PipelineConfig
-
-_NOT_PORTED = {
-    "tune": "ROADMAP.md section 1 item 8 (tune.py)",
-}
 
 
 def cmd_train(args: argparse.Namespace) -> None:
@@ -43,10 +41,11 @@ def cmd_evaluate(args: argparse.Namespace) -> None:
     evaluate_once(PipelineConfig.from_files(args.config, overrides=args.override))
 
 
-def _not_ported(args: argparse.Namespace) -> None:
-    raise NotImplementedError(
-        f"'{args.command}' is not ported to the PyTorch package yet: {_NOT_PORTED[args.command]}"
-    )
+def cmd_tune(args: argparse.Namespace) -> None:
+    from .tune import tune
+
+    tune(PipelineConfig.from_files(args.config, overrides=args.override), args.search_space,
+         n_trials=args.n_trials)
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -73,10 +72,13 @@ def build_parser() -> argparse.ArgumentParser:
             ("train", "Train and emit artifacts", cmd_train),
             ("predict", "Run inference from stored artifacts", cmd_predict),
             ("evaluate", "Score stored artifacts on a holdout CSV", cmd_evaluate),
-            ("tune", "Hyper-parameter search around train_once (not ported yet)", _not_ported)):
+            ("tune", "Hyper-parameter search around train_once", cmd_tune)):
         p = sub.add_parser(name, help=what)
         add_common(p)
         p.set_defaults(func=func)
+        if name == "tune":
+            p.add_argument("--search-space", type=str, default="configs/search_space.yaml")
+            p.add_argument("--n-trials", type=int, default=None)
     return parser
 
 

@@ -10,12 +10,17 @@ concatenated sources (``window = local // N``, ``series = local % N``,
 :func:`gather_batch` assembles a batch from such indices with device ops
 only (no value comes back to the host), which is what lets
 ``Engine.train_epoch_resident`` run it inside a captured CUDA graph.
-Augmentation (``add_noise_std``, ``time_shift``) is not ported yet and
-raises, as the host batcher's does.
+Augmentation (``add_noise_std``, ``time_shift``) draws from the torch
+generator it is given, the training step's, so a graph that registers that
+generator draws the next numbers at each replay; the distribution is the
+host batcher's, the stream is not (as the JAX package's ``jax.random``
+stream is not). :func:`strip_augment` gives the clean view that probes and
+evaluation gather from.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
 from typing import Any, Dict, List, Optional
 
@@ -48,11 +53,13 @@ class StagedWindows:
         return self.marks is not None
 
 
-def _no_augmentation(noise_std: float, time_shift: int) -> None:
-    if float(noise_std) or int(time_shift):
-        raise NotImplementedError(
-            "window augmentation (add_noise_std, time_shift) is not ported yet"
-        )
+def strip_augment(staged: StagedWindows) -> StagedWindows:
+    """The augmentation-free view of ``staged`` (the same device tensors):
+    what one-off probes and evaluation gather from, with no generator."""
+
+    if staged.noise_std or staged.time_shift:
+        return dataclasses.replace(staged, noise_std=0.0, time_shift=0)
+    return staged
 
 
 def stage_windows(
@@ -73,11 +80,12 @@ def stage_windows(
     """Stack per-fold [T, N] arrays and put them on ``device``.
 
     Folds shorter than one window are left out; ``None`` when none is left.
-    Marks are kept only when every kept fold has them.
+    Marks are kept only when every kept fold has them. ``augment`` holds
+    the host source's knobs (``add_noise_std``, ``time_shift``), which
+    :func:`gather_batch` applies.
     """
 
     augment = augment or {}
-    _no_augmentation(augment.get("add_noise_std", 0.0), augment.get("time_shift", 0))
     if mode == "direct":
         horizon = int(pred_len)
     else:
@@ -140,6 +148,8 @@ def stage_windows(
         stride=step,
         num_series=N,
         total=int(offsets[-1]),
+        noise_std=float(augment.get("add_noise_std", 0.0)),
+        time_shift=int(augment.get("time_shift", 0)),
     )
 
 
@@ -149,19 +159,26 @@ def gather_batch(
     row_valid: torch.Tensor,
     *,
     with_y_mark: bool = False,
+    generator: Optional[torch.Generator] = None,
 ) -> Dict[str, Any]:
     """One batch from flat sample indices [B] on the staged arrays' device,
     with device ops only.
 
     ``fold = searchsorted(offsets, idx, right) - 1``, ``window = local //
     N``, ``series = local % N``, ``start = window * stride``, as the JAX
-    package's. Rows with ``row_valid`` 0 are zeroed exactly as the host
-    pipeline's ``pad_batch_rows`` pads them (their series id becomes 0): the
-    period selector pools amplitude statistics over the batch, so what a
-    padded row holds reaches every row's selection.
+    package's. Augmentation draws from ``generator`` (on the staged arrays'
+    device), each draw only where its knob is non-zero: first each start's
+    shift, uniform in ``[-time_shift, time_shift]`` and clipped to its
+    fold's last start, then the inputs' noise; a knob without a generator
+    raises ``ValueError``. Rows with ``row_valid`` 0 are then zeroed exactly
+    as the host pipeline's ``pad_batch_rows`` pads them (their series id
+    becomes 0), noise and all: the period selector pools amplitude
+    statistics over the batch, so what a padded row holds reaches every
+    row's selection.
     """
 
-    _no_augmentation(staged.noise_std, staged.time_shift)
+    if (staged.noise_std or staged.time_shift) and generator is None:
+        raise ValueError("window augmentation (add_noise_std, time_shift) needs a generator")
     flat = flat_idx.to(torch.int32)
     offsets = staged.offsets
     src = torch.clamp(
@@ -172,9 +189,13 @@ def gather_batch(
     window = torch.div(local, N, rounding_mode="floor")
     series = torch.remainder(local, N).to(torch.int32)
     starts = window * staged.stride
+    dev = flat.device
+    if staged.time_shift > 0:
+        delta = torch.randint(-staged.time_shift, staged.time_shift + 1, starts.shape,
+                              generator=generator, device=dev, dtype=torch.int32)
+        starts = torch.minimum(torch.clamp(starts + delta, min=0), staged.max_start[src])
 
     L, H = staged.input_len, staged.horizon
-    dev = flat.device
     t_in = starts[:, None] + torch.arange(L, dtype=torch.int32, device=dev)[None, :]  # [B, L]
     t_out = (starts + L)[:, None] + torch.arange(H, dtype=torch.int32, device=dev)[None, :]
 
@@ -184,6 +205,9 @@ def gather_batch(
     x = staged.X[src_b, t_in, ser_b][..., None]
     y = staged.X[src_b, t_out, ser_b][..., None]
     mask = staged.M[src_b, t_out, ser_b][..., None]
+    if staged.noise_std > 0.0:
+        x = x + torch.randn(x.shape, generator=generator, device=dev,
+                            dtype=x.dtype) * staged.noise_std
 
     rv = row_valid.to(torch.float32)
     rv3 = rv[:, None, None]

@@ -6,10 +6,14 @@ Samples are (window, series) pairs: ``len = windows_per_series * N``,
 dim 1). A batch is one vectorised numpy gather. Calendar features come from
 ``datetime64`` dates through ``data/time_features.py``. The shuffle draws
 from ``np.random.default_rng`` exactly as the JAX package's batcher does, so
-both give the same batches for the same seed and epoch. :func:`build_batcher`
-assembles a batcher over per-fold arrays as the JAX trainer does.
-Augmentation (``add_noise_std``, ``time_shift``) and the native C++ gather
-are not ported yet.
+both give the same batches for the same seed and epoch. A shuffled batcher
+augments its windows from the same generator, after its shuffle, as the JAX
+package's does (``time_shift``: each start moved by a uniform integer in
+``[-time_shift, time_shift]`` and clipped to the array; ``add_noise_std``:
+Gaussian noise on the inputs), so augmented batches are the JAX package's
+bit for bit too. :func:`build_batcher` assembles a batcher over per-fold
+arrays as the JAX trainer does. The native C++ gather is not ported: numpy
+gathers the same values.
 """
 
 from __future__ import annotations
@@ -58,11 +62,6 @@ class SlidingWindowSource:
     ) -> None:
         if mode not in ("direct", "recursive"):
             raise ValueError("mode must be 'direct' or 'recursive'")
-        augment = augment or {}
-        if float(augment.get("add_noise_std", 0.0)) or int(augment.get("time_shift", 0)):
-            raise NotImplementedError(
-                "window augmentation (add_noise_std, time_shift) is not ported yet"
-            )
         self.X = np.asarray(wide_values, dtype=np.float32)
         if self.X.ndim != 2 or self.X.shape[1] <= 0:
             raise ValueError("wide_values must be a [T, N] array with N >= 1")
@@ -80,6 +79,9 @@ class SlidingWindowSource:
         else:
             self.H = int(recursive_pred_len if recursive_pred_len is not None else 1)
         self.mode = mode
+        augment = augment or {}
+        self.add_noise_std = float(augment.get("add_noise_std", 0.0))
+        self.time_shift = int(augment.get("time_shift", 0))
         max_start = self.T - self.L - self.H
         self.stride = max(1, int(stride))
         self.starts = (
@@ -137,18 +139,26 @@ class SlidingWindowSource:
     def __len__(self) -> int:
         return self.windows_per_series * self.N
 
-    def gather(self, sample_idx: np.ndarray) -> WindowBatch:
-        """Assemble a batch from flat sample indices (vectorised)."""
+    def gather(self, sample_idx: np.ndarray,
+               rng: Optional[np.random.Generator] = None) -> WindowBatch:
+        """Assemble a batch from flat sample indices (vectorised), augmented
+        from ``rng`` where it is given: the shifts are drawn before the
+        gather, the noise after it, as the JAX package draws them."""
 
         if self.windows_per_series <= 0:
             raise IndexError("SlidingWindowSource is empty")
         series_idx = (sample_idx % self.N).astype(np.int64)
         starts = self.starts[sample_idx // self.N]
+        if self.time_shift > 0 and rng is not None:
+            delta = rng.integers(-self.time_shift, self.time_shift + 1, size=starts.shape)
+            starts = np.clip(starts + delta, 0, self.T - self.L - self.H)
         t_in = starts[:, None] + np.arange(self.L)[None, :]
         t_out = (starts + self.L)[:, None] + np.arange(self.H)[None, :]
         x = self.X[t_in, series_idx[:, None]][..., None]
         y = self.X[t_out, series_idx[:, None]][..., None]
         mask = self.M[t_out, series_idx[:, None]][..., None]
+        if self.add_noise_std > 0 and rng is not None:
+            x = x + rng.standard_normal(x.shape).astype(np.float32) * self.add_noise_std
         has_marks = self.marks is not None
         return WindowBatch(
             x=x,
@@ -195,8 +205,9 @@ class WindowBatcher:
         return (self.total + self.batch_size - 1) // self.batch_size
 
     def set_epoch(self, epoch: int) -> None:
-        """Reseed shuffling as a pure function of (seed, epoch), so the batch
-        order does not depend on how many epochs were already iterated."""
+        """Reseed shuffling and augmentation as a pure function of (seed,
+        epoch), so an epoch's batches do not depend on how many epochs were
+        already iterated."""
 
         self._rng = np.random.default_rng([self._seed, int(epoch)])
 
@@ -214,14 +225,15 @@ class WindowBatcher:
                 return str(s.time_frequency)
         return None
 
-    def _gather_global(self, idx: np.ndarray) -> WindowBatch:
+    def _gather_global(self, idx: np.ndarray,
+                       rng: Optional[np.random.Generator] = None) -> WindowBatch:
         pieces: List[WindowBatch] = []
         order = np.argsort(idx, kind="stable")
         sorted_idx = idx[order]
         source_of = np.searchsorted(self._offsets, sorted_idx, side="right") - 1
         for s_id in np.unique(source_of):
             local = sorted_idx[source_of == s_id] - self._offsets[s_id]
-            pieces.append(self.sources[s_id].gather(local))
+            pieces.append(self.sources[s_id].gather(local, rng))
         batch = _concat_batches(pieces)
         # restore the requested order
         inv = np.empty_like(order)
@@ -232,14 +244,15 @@ class WindowBatcher:
         if self.total == 0:
             return
         order = np.arange(self.total)
+        rng = self._rng if self.shuffle else None  # augmentation draws after the shuffle
         if self.shuffle:
             self._rng.shuffle(order)
         n_full = self.total // self.batch_size
         for b in range(n_full):
-            yield self._gather_global(order[b * self.batch_size : (b + 1) * self.batch_size])
+            yield self._gather_global(order[b * self.batch_size : (b + 1) * self.batch_size], rng)
         rem = self.total - n_full * self.batch_size
         if rem > 0 and not self.drop_last:
-            batch = self._gather_global(order[n_full * self.batch_size :])
+            batch = self._gather_global(order[n_full * self.batch_size :], rng)
             if self.pad_final and rem < self.batch_size:
                 batch = pad_batch_rows(batch, self.batch_size)
             yield batch

@@ -38,7 +38,7 @@ import torch
 from torch.func import functional_call
 
 from . import graphs
-from .data.device_windows import StagedWindows, gather_batch
+from .data.device_windows import StagedWindows, gather_batch, strip_augment
 from .device import resolve_device
 from .losses import negative_binomial_mask, negative_binomial_nll
 from .models.timesnet import TimesNet, TimesNetConfig
@@ -89,6 +89,35 @@ def _safe_ratio(num, den) -> float:
     return num / den
 
 
+def first_non_finite(state: TrainState, finite: torch.Tensor) -> Optional[str]:
+    """What a step's finiteness flags (``stats["finite"]`` under
+    ``debug_nans``: the loss, each parameter's gradient, then each parameter
+    after the update, in ``state.params`` order) name as not finite, or
+    None. Reads the flags, which waits for the card."""
+
+    flags = finite.tolist()
+    if all(flags):
+        return None
+    names = list(state.params)
+    parts = [] if flags[0] else ["the loss"]
+    for what, part in (("the gradient of {}", flags[1:1 + len(names)]),
+                       ("{} after the update", flags[1 + len(names):])):
+        bad = [n for n, ok in zip(names, part) if not ok]
+        if bad:
+            parts.append(what.format(bad[0]) + (f" (and {len(bad) - 1} more)" if bad[1:] else ""))
+    return ", ".join(parts)
+
+
+def _flagged(stats: Dict[str, Any], finite: Optional[List[torch.Tensor]],
+             params: List[torch.Tensor]) -> Dict[str, Any]:
+    """``stats`` with ``finite``: the flags given, then whether each
+    parameter is finite (after the update), where flags are given."""
+
+    if finite is not None:
+        stats["finite"] = torch.stack(finite + [torch.isfinite(p).all() for p in params])
+    return stats
+
+
 def _base_mask(y, mask, row_valid, use_loss_masking: bool) -> torch.Tensor:
     base = (mask > 0.0) if use_loss_masking else torch.ones_like(y, dtype=torch.bool)
     if row_valid is not None:
@@ -111,6 +140,7 @@ class Engine:
         weight_decay: float = 0.0,
         num_series: int = 1,
         ema_decay: float = 0.0,
+        debug_nans: bool = False,
     ) -> None:
         self.device = resolve_device(device)
         self.cfg = cfg
@@ -125,6 +155,10 @@ class Engine:
         self.grad_clip_norm = float(grad_clip_norm or 0.0)
         self.weight_decay = float(weight_decay or 0.0)
         self.num_series = int(num_series)
+        # each step also flags whether its loss, each gradient and each updated
+        # parameter are finite (``stats["finite"]``), for the caller to read:
+        # ``train.debug_nans``
+        self.debug_nans = bool(debug_nans)
         self.cuda_graphs = self.device.type == "cuda"  # replay graphs (see the module's doc)
         self._graphs: Dict[tuple, graphs.Captured] = {}
         self._graph_state: Optional[TrainState] = None  # the state the training graphs hold
@@ -380,11 +414,15 @@ class Engine:
         loss, stats = self._loss(batch, generator)
         loss.backward()
         grads = [p.grad if p.grad is not None else torch.zeros_like(p) for p in params]
+        # debug_nans: the loss and each gradient, and each parameter after the
+        # update (the step's outputs, as JAX's jax_debug_nans checks them)
+        finite = ([torch.isfinite(loss).all()] + [torch.isfinite(g).all() for g in grads]
+                  if self.debug_nans else None)
         if self.accum_steps > 1:
             accum = list(state.grad_accum.values())
             torch._foreach_add_(accum, grads, alpha=1.0 / self.accum_steps)
             if not do_update:
-                return loss.detach(), stats
+                return loss.detach(), _flagged(stats, finite, params)
             grads = [a.clone() for a in accum]
             torch._foreach_zero_(accum)
         with torch.no_grad():
@@ -393,7 +431,7 @@ class Engine:
                 ema = list(state.ema.values())
                 torch._foreach_mul_(ema, self.ema_decay)
                 torch._foreach_add_(ema, params, alpha=1.0 - self.ema_decay)
-        return loss.detach(), stats
+        return loss.detach(), _flagged(stats, finite, params)
 
     def train_step(self, state: TrainState, lr: float, generator: Optional[torch.Generator],
                    batch: Mapping[str, Any], do_update: bool = True):
@@ -402,7 +440,8 @@ class Engine:
         With ``accumulation_steps > 1`` the gradient is added to the running
         mean and the update waits for ``do_update``. ``lr`` is this step's
         learning rate; ``generator`` (on the engine's device) drives dropout.
-        The state is updated in place and returned.
+        The state is updated in place and returned. Under ``debug_nans`` the
+        stats also hold ``finite`` (see :func:`first_non_finite`).
 
         On the card, without accumulation, the step replays one CUDA graph
         per ``(TrainState, generator, batch signature)``: the batch is
@@ -425,25 +464,22 @@ class Engine:
             bufs = graphs.static_copies(tensors)
             static_batch = dict(zip(_STEP_KEYS, bufs))
 
-            def body():
-                loss, stats = self._train_body(state, generator, static_batch)
-                return loss, stats["mask_true"], stats["mask_total"]
-
-            graph = self._capture(key, body, inputs=bufs, state=state.tensors(),
-                                  generators=(generator,), pins=(generator,))
-            loss, mask_true, mask_total = graph.replay()
+            graph = self._capture(key, lambda: self._train_body(state, generator, static_batch),
+                                  inputs=bufs, state=state.tensors(), generators=(generator,),
+                                  pins=(generator,))
+            loss, stats = graph.replay()
         else:
-            loss, mask_true, mask_total = graph.replay(tensors)
-        return state, loss.clone(), {"mask_true": mask_true.clone(),
-                                     "mask_total": mask_total.clone()}
+            loss, stats = graph.replay(tensors)
+        return state, loss.clone(), {k: v.clone() for k, v in stats.items()}
 
     # -- device-resident epoch (gather inside the step) --------------------------
 
     def gather_staged_batch(self, staged: StagedWindows, flat_idx, row_valid) -> Dict[str, Any]:
         """One batch gathered from the staged arrays (a probe, an init
-        batch): the clean windows, with ``y_mark`` in recursive mode."""
+        batch): the clean windows (:func:`strip_augment`), with ``y_mark``
+        in recursive mode."""
 
-        return gather_batch(staged, self._on_device(flat_idx, torch.int32),
+        return gather_batch(strip_augment(staged), self._on_device(flat_idx, torch.int32),
                             self._on_device(row_valid, torch.float32),
                             with_y_mark=self.cfg.mode != "direct")
 
@@ -463,7 +499,8 @@ class Engine:
 
     def _resident_buffers(self, rows: int, B: int, sums: bool) -> Dict[str, torch.Tensor]:
         """A plan buffer [rows, B] (indices and row_valid), the step counter
-        and either the per-step outputs (training) or the six sums (eval)."""
+        and either the per-step outputs (training; under ``debug_nans`` also
+        the last step's finiteness flags) or the six sums (eval)."""
 
         dev = self.device
         out = {"idx": torch.zeros((rows, B), dtype=torch.int32, device=dev),
@@ -475,6 +512,9 @@ class Engine:
         else:
             out["losses"] = torch.zeros(rows, dtype=torch.float32, device=dev)
             out["mask_true"] = torch.zeros(rows, dtype=torch.float32, device=dev)
+            if self.debug_nans:
+                out["finite"] = torch.ones(1 + 2 * len(list(self.model.parameters())),
+                                           dtype=torch.bool, device=dev)
         return out
 
     def _plan_row(self, buf: Dict[str, torch.Tensor]):
@@ -499,14 +539,15 @@ class Engine:
         graph = self._graphs.get(key)
         if graph is None or graph.pins[0]["idx"].shape[0] < S:
             buf = self._resident_buffers(max(RESIDENT_PLAN_ROWS, S), B, sums)
-            outputs = buf["sums"] if sums else [buf["losses"], buf["mask_true"]]
+            outputs = buf["sums"] if sums else [buf[k] for k in ("losses", "mask_true", "finite")
+                                                if k in buf]
             graph = self._capture(key, make_body(buf), state=[buf["counter"], *outputs, *state],
                                   generators=generators, pins=(buf, *pins))
         return graph.pins[0], graph.replay
 
     def train_epoch_resident(self, state: TrainState, lr: float,
                              generator: Optional[torch.Generator], staged: StagedWindows, idx,
-                             row_valid, step_offset: int = 0):
+                             row_valid, step_offset: int = 0, on_step=None):
         """One epoch's steps (or one chunk of them) over device-resident
         data: ``(state, losses [S], mask_true [S])``, as device tensors that
         the caller fetches once.
@@ -517,14 +558,17 @@ class Engine:
         step then reads its row on the device, gathers the batch
         (:func:`gather_batch`), takes :meth:`train_step`'s step, writes its
         loss and ``mask_true`` at its row and counts on: on the card one
-        graph replay a step, with no host work between steps. Dropout draws
-        from ``generator``, which every step advances, so chunked calls give
-        what one call gives; ``step_offset``, which the JAX package needs to
-        derive per-step keys, is accepted for its signature and not needed.
-        Requires ``accumulation_steps == 1``.
+        graph replay a step, with no host work between steps. The staged
+        windows' augmentation and dropout draw from ``generator``, in that
+        order, and every step advances it, so chunked calls give what one
+        call gives (the JAX package needs ``step_offset``, the chunk's first
+        step, to derive per-step keys; here it only numbers the steps).
+        ``on_step(step, finite)``, where given (it needs ``debug_nans``), is
+        called after each step with its number in the epoch (from 1) and its
+        finiteness flags, and may raise. Requires ``accumulation_steps ==
+        1``.
         """
 
-        del step_offset  # the generator carries the position within the epoch
         if self.accum_steps != 1:
             raise ValueError("device-resident training requires accumulation_steps == 1")
         self._bind(state)
@@ -533,17 +577,21 @@ class Engine:
         idx_t = self._on_device(idx, torch.int32)
         rv_t = self._on_device(row_valid, torch.float32)
         S, B = (int(n) for n in idx_t.shape)
+        if on_step is not None and not self.debug_nans:
+            raise ValueError("on_step reads the finiteness flags of an engine with debug_nans")
         if self.cuda_graphs:
             self._training_graphs(state)
 
         def make_body(buf):
             def body():
                 flat, rv = self._plan_row(buf)
-                batch = gather_batch(staged, flat, rv)
+                batch = gather_batch(staged, flat, rv, generator=generator)
                 loss, stats = self._train_body(state, generator, batch)
                 with torch.no_grad():
                     buf["losses"].index_copy_(0, buf["counter"], loss.reshape(1))
                     buf["mask_true"].index_copy_(0, buf["counter"], stats["mask_true"].reshape(1))
+                    if self.debug_nans:
+                        buf["finite"].copy_(stats["finite"])
                     buf["counter"].add_(1)
             return body
 
@@ -553,8 +601,10 @@ class Engine:
         buf["idx"][:S].copy_(idx_t)
         buf["rv"][:S].copy_(rv_t)
         buf["counter"].zero_()
-        for _ in range(S):
+        for k in range(S):
             step()
+            if on_step is not None:
+                on_step(step_offset + k + 1, buf["finite"])
         return state, buf["losses"][:S].clone(), buf["mask_true"][:S].clone()
 
     # -- evaluation ---------------------------------------------------------------
@@ -625,9 +675,9 @@ class Engine:
 
     def evaluate_resident(self, params, staged: StagedWindows, idx, row_valid,
                           max_dispatch_steps: int = 0) -> Dict[str, Any]:
-        """:meth:`evaluate` over a plan of the staged arrays: ``idx`` and
-        ``row_valid`` [S, B] (numpy or tensors), ``params`` as there (the
-        trainer passes ``state.ema``).
+        """:meth:`evaluate` over a plan of the staged arrays' clean windows
+        (:func:`strip_augment`): ``idx`` and ``row_valid`` [S, B] (numpy or
+        tensors), ``params`` as there (the trainer passes ``state.ema``).
 
         Each batch is gathered on the device and its six sums are added to
         device accumulators (on the card one graph replay a batch), which
@@ -644,19 +694,20 @@ class Engine:
             return self._metrics(None)
         chunk = min(S, int(max_dispatch_steps)) if max_dispatch_steps else S
         pinned = tuple(params.values()) if params is not None else ()
+        clean = strip_augment(staged)
 
         def make_body(buf):
             def body():
                 with torch.no_grad():
                     flat, rv = self._plan_row(buf)
-                    batch = gather_batch(staged, flat, rv, with_y_mark=self.cfg.mode != "direct")
+                    batch = gather_batch(clean, flat, rv, with_y_mark=self.cfg.mode != "direct")
                     for acc, v in zip(buf["sums"], self.eval_step(params, batch)):
                         acc.add_(v)
                     buf["counter"].add_(1)
             return body
 
         key = ("eval", id(staged), B, tuple(id(t) for t in pinned))
-        buf, step = self._resident(key, chunk, B, True, make_body, pins=(staged, pinned))
+        buf, step = self._resident(key, chunk, B, True, make_body, pins=(staged, clean, pinned))
         for acc in buf["sums"]:
             acc.zero_()
         for start in range(0, S, chunk):

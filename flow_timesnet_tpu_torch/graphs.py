@@ -3,7 +3,9 @@ epoch step: the card's counterpart of the JAX package's compiled programs.
 
 :func:`capture` runs a body a few times on a side stream (cuBLAS and cuFFT
 workspaces, the frozen path's cached geometries and DFT basis, the
-kernels' libraries come into being there), puts back in place whatever
+kernels' libraries come into being there; one stream a card for every
+capture, as cuBLAS keeps a workspace for each stream it has run on for the
+life of the process), puts back in place whatever
 state the body changes (parameters, Adam moments and step counts, EMA,
 counters, the generators' states), so that warming up moves nothing, and
 then captures the body once into the engine's memory pool. Each
@@ -24,6 +26,7 @@ kernels count themselves (``cuda_fold.kernel_runs``).
 
 from __future__ import annotations
 
+import functools
 from typing import Any, Callable, Iterable, List, Optional, Sequence, Tuple
 
 import torch
@@ -54,6 +57,13 @@ class Captured:
         return self.outputs
 
 
+@functools.cache
+def _warmup_stream(device: int) -> torch.cuda.Stream:
+    """The side stream every warm-up on card ``device`` runs on."""
+
+    return torch.cuda.Stream(device)
+
+
 def capture(body: Callable[[], Any], pool, *,
             inputs: Sequence[Optional[torch.Tensor]] = (),
             state: Iterable[torch.Tensor] = (),
@@ -73,7 +83,7 @@ def capture(body: Callable[[], Any], pool, *,
     gens = [g for g in generators if g is not None]
     saved = [t.detach().clone() for t in state]
     gen_states = [g.get_state() for g in gens]
-    side = torch.cuda.Stream()
+    side = _warmup_stream(torch.cuda.current_device())
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
         for _ in range(WARMUP_CALLS):

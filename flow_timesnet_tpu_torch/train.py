@@ -24,10 +24,20 @@ pipeline takes one ``Engine.train_step`` a batch. On the host pipeline
 chunks compute what single steps compute) and batches are not prefetched.
 Dropout draws from one generator, seeded anew each epoch from
 ``(tuning.seed, epoch)``, so a resumed run repeats the epochs it continues.
+Window augmentation (``data.augment``) draws from the training batcher's
+numpy generator on the host pipeline (the JAX package's batches bit for
+bit) and from the dropout generator inside each resident step; validation,
+the probe and evaluation see clean windows.
 
-Not ported (each raises): window augmentation (``data.augment``), data
-parallelism over more than one visible card, ``model.period_buckets``,
-``train.debug_nans`` and ``train.profile_dir``.
+``train.debug_nans`` reads back whether each step's loss, gradients and
+updated parameters are finite (one wait for the card a step) and raises
+``FloatingPointError`` at the first step where one is not, naming the
+epoch, the step and the first such parameter. ``train.profile_dir`` traces the first epoch after the first
+one (``torch.profiler``, the CPU and, on the card, CUDA activities) into
+that directory as a Chrome trace.
+
+Not ported (each raises): data parallelism over more than one visible card
+and ``model.period_buckets``.
 """
 
 from __future__ import annotations
@@ -53,7 +63,7 @@ from .data.split import make_holdout_slices, make_rolling_slices
 from .data.static_features import compute_series_features
 from .data.windows import build_batcher
 from .device import resolve_device
-from .engine import Engine, batch_to_device
+from .engine import Engine, batch_to_device, first_non_finite
 from .optim import LRController, resolve_warmup
 from .utils import artifacts as artifacts_io
 from .utils import metadata as metadata_utils
@@ -222,6 +232,7 @@ def _stage_from_batcher(batcher, sigma_vector, device):
         marks=[s.marks for s in sources],
         static=s0.static,
         sigma_vector=sigma_vector,
+        augment={"add_noise_std": s0.add_noise_std, "time_shift": s0.time_shift},
         device=device,
     )
 
@@ -253,6 +264,36 @@ def _is_on(value: Any, default: str) -> bool:
         "1", "true", "yes", "on", "auto")
 
 
+class _EpochTrace:
+    """``train.profile_dir``: a ``torch.profiler`` trace of one epoch, the
+    CPU's activities and, on the card, CUDA's."""
+
+    def __init__(self) -> None:
+        self.prof = None
+
+    def start(self, device: torch.device) -> None:
+        from torch.profiler import ProfilerActivity, profile
+
+        activities = [ProfilerActivity.CPU]
+        if device.type == "cuda":
+            activities.append(ProfilerActivity.CUDA)
+        self.prof = profile(activities=activities)
+        self.prof.start()
+
+    def stop(self, path: Optional[str] = None) -> None:
+        """Stop a running trace and, given ``path``, write it there as a
+        Chrome trace."""
+
+        prof, self.prof = self.prof, None
+        if prof is None:
+            return
+        prof.stop()
+        if path is not None:
+            os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+            prof.export_chrome_trace(path)
+            _log(f"Profiler trace written to {path}")
+
+
 def train_once(
     cfg: PipelineConfig | Dict[str, Any],
     epoch_hook: Optional[Any] = None,
@@ -264,6 +305,14 @@ def train_once(
     pruner).
     """
 
+    trace = _EpochTrace()
+    try:
+        return _train_once(cfg, epoch_hook, trace)
+    finally:
+        trace.stop()  # a run that raises mid-epoch leaves no profiler running
+
+
+def _train_once(cfg, epoch_hook, trace: _EpochTrace) -> Tuple[float, Dict[str, Any]]:
     t_start = time.perf_counter()
     if isinstance(cfg, PipelineConfig):
         pipeline_cfg = cfg
@@ -282,9 +331,8 @@ def train_once(
     train_section = cfg.setdefault("train", {})
     train_section.setdefault("val", {})
 
-    for knob in ("debug_nans", "profile_dir"):
-        if cfg["train"].get(knob):
-            raise NotImplementedError(f"train.{knob} is not ported to the PyTorch package")
+    debug_nans = bool(cfg["train"].get("debug_nans", False))
+    profile_dir = cfg["train"].get("profile_dir")
     device = resolve_device(
         "cpu" if str(cfg["train"].get("device", "")).lower() == "cpu" else "cuda")
     debug_memory = bool(cfg["model"].get("debug_memory", False))
@@ -500,6 +548,7 @@ def train_once(
             weight_decay=float(cfg["train"].get("weight_decay", 0.0)),
             num_series=len(ids),
             ema_decay=ema_decay,
+            debug_nans=debug_nans,
         )
 
     engine = make_engine(tn_cfg)
@@ -685,10 +734,18 @@ def train_once(
 
     t_loop = time.perf_counter()
     for ep in range(start_epoch, epochs + 1):
+        if profile_dir and ep == start_epoch + 1:  # the first epoch after the warm-up one
+            trace.start(device)
         dl_train.set_epoch(ep)
         generator.manual_seed(_epoch_seed(seed, ep))
         lr = lr_ctl.lr_for_epoch(ep)
         t0 = time.perf_counter()
+
+        def check_step(step: int, finite: torch.Tensor, ep: int = ep) -> None:
+            bad = first_non_finite(state, finite)
+            if bad is not None:
+                raise FloatingPointError(
+                    f"train.debug_nans: {bad} not finite at epoch {ep}, step {step}")
 
         if use_resident:
             idx_np, rv_np = epoch_index_plan(
@@ -712,7 +769,7 @@ def train_once(
                 end = min(off + chunk, n_steps)
                 state, part_losses, part_mask = engine.train_epoch_resident(
                     state, lr, generator, staged_train, idx_np[off:end], rv_np[off:end],
-                    step_offset=off,
+                    step_offset=off, on_step=check_step if debug_nans else None,
                 )
                 loss_parts.append(part_losses)
                 mask_parts.append(part_mask)
@@ -734,6 +791,8 @@ def train_once(
                 do_update = ((i + 1) % accum_steps == 0) or ((i + 1) == batches_per_epoch)
                 state, loss, stats = engine.train_step(state, lr, generator, dev_batch,
                                                        do_update)
+                if debug_nans:
+                    check_step(i + 1, stats["finite"])
                 step_losses.append(loss)
                 step_mask.append(stats["mask_true"])
                 step_total.append(stats["mask_total"])
@@ -786,6 +845,8 @@ def train_once(
              f"windows/s={throughput:.1f} seconds={epoch_time:.3f}")
         if debug_memory and ep == start_epoch:
             _log_device_memory(f"epoch {ep}", device)
+        trace.stop(os.path.join(str(profile_dir), f"torch_trace_epoch{ep}.json")
+                   if profile_dir else None)
         sel_value = val_nll if selection_metric == "nll" else val_smape
         lr_ctl.observe(sel_value)
         if sel_value < best_sel:

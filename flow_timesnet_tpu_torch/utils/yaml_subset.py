@@ -17,15 +17,17 @@ document markers and flow collections over several lines are outside the
 subset and raise ``ValueError``; so are line breaks kept inside a folded
 scalar (blank lines), which the reader drops.
 
-:func:`dumps` writes maps as block maps and lists as flow lists, quoting
-every string, so that ``yaml.safe_load`` (and :func:`loads`) read back the
-same mapping.
+:func:`dumps` writes what PyYAML's ``safe_dump(obj, allow_unicode=True,
+sort_keys=False)`` writes, byte for byte (block maps and lists, strings
+quoted only where their plain text would read back as another value, long
+lines folded at 80 columns), but for a string holding a line break, which
+it writes escaped in double quotes; ``yaml.safe_load`` and :func:`loads`
+read back the same mapping.
 """
 
 from __future__ import annotations
 
 import datetime as _dt
-import json
 import math
 import re
 from typing import Any, List, Mapping, Tuple
@@ -268,7 +270,10 @@ def _split_key(content: str):
 
     if content[:1] in ("'", '"'):
         flow = _Flow(content)
-        key = flow._quoted()
+        try:
+            key = flow._quoted()
+        except ValueError:  # a quoted scalar folded over the next lines: a value
+            return None
         if content[flow.pos:flow.pos + 1] == ":" and content[flow.pos + 1:flow.pos + 2] in ("",
                                                                                               " "):
             return key, content[flow.pos + 1:].strip()
@@ -384,72 +389,249 @@ def loads(text: str) -> Any:
 
 
 # -- writing ---------------------------------------------------------------
+#
+# PyYAML's ``safe_dump(obj, allow_unicode=True, sort_keys=False)``, byte for
+# byte: its representer's scalar texts and its emitter's block style, scalar
+# analysis, quoting and folding at 80 columns, followed step by step.
+
+_WIDTH = 80  # PyYAML's best_width
+_BREAKS = "\n\x85\u2028\u2029"
+_SPACE_OR_BREAK = "\0 \t\r" + _BREAKS
+_QUOTE_ESCAPES = {"\0": "0", "\x07": "a", "\x08": "b", "\t": "t", "\n": "n", "\x0b": "v",
+                  "\x0c": "f", "\r": "r", "\x1b": "e", '"': '"', "\\": "\\", "\x85": "N",
+                  "\xa0": "_", "\u2028": "L", "\u2029": "P"}
 
 
-def _float_text(v: float) -> str:
-    if math.isnan(v):
-        return ".nan"
-    if math.isinf(v):
-        return ".inf" if v > 0 else "-.inf"
-    text = repr(float(v))
-    if "e" in text:
-        mant, exp = text.split("e")
-        if "." not in mant:
-            mant += ".0"
-        if exp[0] not in "+-":
-            exp = "+" + exp
-        text = f"{mant}e{exp}"
-    elif "." not in text:
-        text += ".0"
-    return text
+def _represent(v: Any) -> Tuple[str, bool]:
+    """A scalar's text and whether its plain text resolves back to it."""
 
-
-def _str_text(s: str) -> str:
-    text = json.dumps(s, ensure_ascii=False)
-    # line separators YAML would fold inside a double-quoted scalar
-    return (text.replace("\x85", "\\N").replace("\u2028", "\\L").replace("\u2029", "\\P")
-            .replace("\ufeff", "\\ufeff"))
-
-
-def _scalar(v: Any) -> str:
     if v is None:
-        return "null"
+        return "null", True
     if isinstance(v, bool):
-        return "true" if v else "false"
+        return ("true" if v else "false"), True
     if isinstance(v, int):
-        return str(int(v))
+        return str(int(v)), True
     if isinstance(v, float):
-        return _float_text(v)
+        if math.isnan(v):
+            return ".nan", True
+        if math.isinf(v):
+            return (".inf" if v > 0 else "-.inf"), True
+        text = repr(v).lower()
+        if "." not in text and "e" in text:
+            text = text.replace("e", ".0e", 1)
+        return text, True
     if isinstance(v, str):
-        return _str_text(v)
-    if isinstance(v, (_dt.date, _dt.datetime)):
-        return v.isoformat(sep=" ") if isinstance(v, _dt.datetime) else v.isoformat()
+        return v, v not in ("<<", "=") and isinstance(resolve_plain(v), str)
+    if isinstance(v, _dt.datetime):
+        return v.isoformat(" "), True
+    if isinstance(v, _dt.date):
+        return v.isoformat(), True
     if hasattr(v, "item") and getattr(v, "ndim", 1) == 0:  # a numpy scalar
-        return _scalar(v.item())
+        return _represent(v.item())
     raise TypeError(f"cannot write a {type(v).__name__} as YAML")
 
 
-def _flow(v: Any) -> str:
-    if isinstance(v, Mapping):
-        return "{" + ", ".join(f"{_scalar(k)}: {_flow(x)}" for k, x in v.items()) + "}"
-    if isinstance(v, (list, tuple)):
-        return "[" + ", ".join(_flow(x) for x in v) + "]"
-    return _scalar(v)
+def _analyze(s: str) -> Tuple[bool, bool, bool]:
+    """PyYAML's ``Emitter.analyze_scalar`` (unicode allowed): whether ``s``
+    spans lines, may be written plain in block context, and single-quoted."""
 
-
-def _block(obj: Mapping[str, Any], indent: int, out: List[str]) -> None:
-    pad = " " * indent
-    for k, v in obj.items():
-        if isinstance(v, Mapping) and v:
-            out.append(f"{pad}{_scalar(k)}:")
-            _block(v, indent + 2, out)
+    if not s:
+        return False, True, True
+    indicators = s.startswith(("---", "..."))
+    line_breaks = special = False
+    lead_space = lead_break = trail_space = trail_break = break_space = space_break = False
+    preceded, followed = True, len(s) == 1 or s[1] in _SPACE_OR_BREAK
+    prev_space = prev_break = False
+    for i, ch in enumerate(s):
+        if i == 0:
+            indicators |= ch in "#,[]{}&*!|>'\"%@`" or (ch in "?:-" and followed)
         else:
-            out.append(f"{pad}{_scalar(k)}: {_flow(v)}")
+            indicators |= (ch == ":" and followed) or (ch == "#" and preceded)
+        line_breaks |= ch in _BREAKS
+        if not (ch == "\n" or " " <= ch <= "~"):
+            special |= not ((ch == "\x85" or "\xa0" <= ch <= "\ud7ff" or "\ue000" <= ch <= "\ufffd"
+                             or "\U00010000" <= ch < "\U0010ffff") and ch != "\ufeff")
+        if ch == " ":
+            lead_space |= i == 0
+            trail_space |= i == len(s) - 1
+            break_space |= prev_break
+            prev_space, prev_break = True, False
+        elif ch in _BREAKS:
+            lead_break |= i == 0
+            trail_break |= i == len(s) - 1
+            space_break |= prev_space
+            prev_space, prev_break = False, True
+        else:
+            prev_space = prev_break = False
+        preceded = ch in _SPACE_OR_BREAK
+        followed = i + 2 >= len(s) or s[i + 2] in _SPACE_OR_BREAK
+    plain = not (lead_space or lead_break or trail_space or trail_break or break_space
+                 or space_break or special or line_breaks or indicators)
+    single = not (break_space or space_break or special)
+    return line_breaks, plain, single
+
+
+class _Emitter:
+    """The state of PyYAML's emitter that block style reads: the column,
+    whether the last character written was whitespace or an indentation,
+    and the stack of indents."""
+
+    def __init__(self) -> None:
+        self.out: List[str] = []
+        self.column = 0
+        self.whitespace = self.indention = True
+        self.indent = None
+        self.indents: List[Any] = []
+
+    def write(self, data: str) -> None:
+        self.out.append(data)
+        self.column += len(data)
+
+    def line_break(self) -> None:
+        self.out.append("\n")
+        self.column = 0
+        self.whitespace = self.indention = True
+
+    def write_indent(self) -> None:
+        indent = self.indent or 0
+        if (not self.indention or self.column > indent
+                or (self.column == indent and not self.whitespace)):
+            self.line_break()
+        if self.column < indent:
+            self.whitespace = True
+            self.write(" " * (indent - self.column))
+
+    def indicator(self, text: str, need_space: bool, whitespace=False, indention=False) -> None:
+        self.write(text if self.whitespace or not need_space else " " + text)
+        self.whitespace = whitespace
+        self.indention = self.indention and indention
+
+    def push_indent(self, flow: bool, indentless: bool = False) -> None:
+        self.indents.append(self.indent)
+        if self.indent is None:
+            self.indent = 2 if flow else 0
+        elif not indentless:
+            self.indent += 2
+
+    def node(self, v: Any, in_mapping: bool = False, simple_key: bool = False) -> None:
+        if isinstance(v, (Mapping, list)) and not v:  # an empty collection: flow style
+            self.indicator("{" if isinstance(v, Mapping) else "[", True, whitespace=True)
+            self.indicator("}" if isinstance(v, Mapping) else "]", False)
+        elif isinstance(v, Mapping):
+            self.push_indent(flow=False)
+            for key, value in v.items():
+                self.write_indent()
+                text, _ = _represent(key)
+                if not text or len(text) >= 128 or _analyze(text)[0]:
+                    raise ValueError(f"a mapping key that is not a simple key: {key!r}")
+                self.node(key, in_mapping=True, simple_key=True)
+                self.indicator(":", False)
+                self.node(value, in_mapping=True)
+            self.indent = self.indents.pop()
+        elif isinstance(v, list):
+            self.push_indent(flow=False, indentless=in_mapping and not self.indention)
+            for item in v:
+                self.write_indent()
+                self.indicator("-", True, indention=True)
+                self.node(item)
+            self.indent = self.indents.pop()
+        else:
+            self.scalar(v, simple_key)
+
+    def scalar(self, v: Any, simple_key: bool) -> None:
+        self.push_indent(flow=True)
+        text, implicit = _represent(v)
+        multiline, plain, single = _analyze(text)
+        if implicit and plain and not (simple_key and not text):
+            self.plain(text, not simple_key)
+        elif single and not multiline:
+            self.single_quoted(text, not simple_key)
+        else:
+            # PyYAML would single-quote a string holding a line break and
+            # write the break itself; it is written escaped, double-quoted
+            self.double_quoted(text, not simple_key)
+        self.indent = self.indents.pop()
+
+    def plain(self, text: str, split: bool) -> None:
+        if not self.whitespace:
+            self.write(" ")
+        self.whitespace = self.indention = False
+        spaces, start = False, 0
+        for end in range(len(text) + 1):
+            ch = text[end] if end < len(text) else None
+            if spaces:
+                if ch != " ":
+                    if start + 1 == end and self.column > _WIDTH and split:
+                        self.write_indent()
+                        self.whitespace = self.indention = False
+                    else:
+                        self.write(text[start:end])
+                    start = end
+            elif ch is None or ch == " ":
+                self.write(text[start:end])
+                start = end
+            spaces = ch == " "
+
+    def single_quoted(self, text: str, split: bool) -> None:
+        self.indicator("'", True)
+        spaces, start = False, 0
+        for end in range(len(text) + 1):
+            ch = text[end] if end < len(text) else None
+            if spaces:
+                if ch != " ":
+                    if (start + 1 == end and self.column > _WIDTH and split
+                            and start != 0 and end != len(text)):
+                        self.write_indent()
+                    else:
+                        self.write(text[start:end])
+                    start = end
+            elif ch is None or ch in " '":
+                if start < end:
+                    self.write(text[start:end])
+                    start = end
+            if ch == "'":
+                self.write("''")
+                start = end + 1
+            spaces = ch == " "
+        self.indicator("'", False)
+
+    def double_quoted(self, text: str, split: bool) -> None:
+        self.indicator('"', True)
+        start = 0
+        for end in range(len(text) + 1):
+            ch = text[end] if end < len(text) else None
+            if ch is None or ch in '"\\\x85\u2028\u2029\ufeff' or not (
+                    " " <= ch <= "~" or "\xa0" <= ch <= "\ud7ff" or "\ue000" <= ch <= "\ufffd"):
+                if start < end:
+                    self.write(text[start:end])
+                    start = end
+                if ch is not None:
+                    if ch in _QUOTE_ESCAPES:
+                        self.write("\\" + _QUOTE_ESCAPES[ch])
+                    elif ch <= "\xff":
+                        self.write("\\x%02X" % ord(ch))
+                    elif ch <= "\uffff":
+                        self.write("\\u%04X" % ord(ch))
+                    else:
+                        self.write("\\U%08X" % ord(ch))
+                    start = end + 1
+            if (0 < end < len(text) - 1 and (ch == " " or start >= end)
+                    and self.column + (end - start) > _WIDTH and split):
+                self.write(text[start:end] + "\\")
+                start = max(start, end)
+                self.write_indent()
+                self.whitespace = self.indention = False
+                if text[start] == " ":
+                    self.write("\\")
+        self.indicator('"', False)
 
 
 def dumps(obj: Mapping[str, Any]) -> str:
-    """``obj`` (a mapping of scalars, lists and mappings) as YAML text."""
+    """``obj`` (a mapping of scalars, lists and mappings) as YAML text, as
+    PyYAML's ``safe_dump(obj, allow_unicode=True, sort_keys=False)`` writes
+    it (but strings holding a line break: see :meth:`_Emitter.scalar`)."""
 
-    out: List[str] = []
-    _block(obj, 0, out)
-    return "\n".join(out) + "\n"
+    emitter = _Emitter()
+    emitter.node(dict(obj))
+    emitter.line_break()
+    return "".join(emitter.out)

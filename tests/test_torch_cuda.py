@@ -1334,3 +1334,139 @@ def test_chunked_predict_replays_one_graph(cuda, tmp_path, monkeypatch):
     assert g["ran"] == (graphs.WARMUP_CALLS + 15) * per_pass
     assert e["ran"] == e["wrapped"] == 15 * per_pass
     assert g["csv"] == e["csv"] and g["csv"].count(b"\n") == 1 + 5 * 7
+
+
+# shapes the shipped search spaces send through the bf16 kernels that no
+# earlier path ran on the card: (C, kh, K, L, B); Lp = 2L - 1 at p_cap L - 1
+SEARCH_SPACE_SHAPES = [(48, 3, 3, 28, 256), (64, 7, 2, 28, 256), (32, 9, 2, 28, 256),
+                       (16, 5, 4, 768, 64), (128, 3, 4, 28, 128)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c,k,K,L,B", SEARCH_SPACE_SHAPES)
+def test_bf16_kernels_take_the_search_space_shapes(cuda, c, k, K, L, B):
+    """The bf16 forward, dh and dW at a shape a tuning study reaches (wider
+    or narrower bottlenecks, 9x9, K up to 4, L=768), each against its plain
+    version within rtol 1e-4 and 1e-4 of its largest value (an output sums
+    up to 64 x 49 = 3,136 exact bf16 products and reaches about 60, so the
+    two float32 summation orders alone differ by about 1e-4 absolute; the
+    dW's rule), dh 0 past each fold extent, the same bits twice,
+    each plan equal to the kernel's own."""
+
+    periods = [7, L - 1, 14, 4][:K] if L == 28 else [7, 24, 168, L - 1][:K]
+    geom = fold.make_geometry(torch.tensor(periods, dtype=torch.int32, device=cuda), L, L - 1)
+    assert geom.Lp == 2 * L - 1
+    g = torch.Generator(device=cuda).manual_seed(c + k)
+    h, ct = (torch.randn((K, B, geom.Lp, c), generator=g, device=cuda).bfloat16()
+             for _ in range(2))
+    w = torch.randn((k, k, c, c), generator=g, device=cuda) * 0.3
+    bias = torch.randn((c,), generator=g, device=cuda) * 0.1
+    for sign in (1, -1):
+        assert cuda_fold.fold_mma_plan(sign, K, B, geom.Lp, c, c, k, k, geom.p_max) == (
+            cuda_fold.fold_mma_plan_of_kernel(sign, K, B, geom.Lp, c, c, k, k, geom.p_max))
+        if sign > 0:
+            runs = [cuda_fold.tap_conv_cuda(h, geom, w, bias, k, k) for _ in range(2)]
+            want = fold.tap_conv(h, geom, w, bias, k, k)
+        else:
+            runs = [cuda_fold.tap_conv_dh_cuda(ct, geom, w, k, k) for _ in range(2)]
+            want = fold.tap_conv_dh(ct, geom, w, k, k)
+            for j, total in enumerate(geom.total.tolist()):
+                assert not runs[0][j, :, total:].any()
+        torch.testing.assert_close(runs[0], want, rtol=1e-4,
+                                   atol=1e-4 * float(want.abs().max()))
+        assert torch.equal(runs[0], runs[1])
+    shape = (K, B, geom.Lp, c, c, k, k, geom.p_max)
+    assert cuda_fold.dw_mma_plan(*shape) == cuda_fold.dw_mma_plan_of_kernel(*shape)
+    dw = cuda_fold.tap_conv_dw_cuda(h, geom, ct, k, k)
+    again = cuda_fold.tap_conv_dw_cuda(h, geom, ct, k, k)
+    want = fold.tap_weight_grad(h, geom, ct, k, k)
+    torch.testing.assert_close(dw, want, rtol=1e-4, atol=1e-4 * float(want.abs().max()))
+    assert torch.equal(dw, again)
+
+
+@pytest.mark.cuda
+def test_the_search_space_shapes_take_both_dw_bands(cuda):
+    bands = {cuda_fold.dw_mma_plan(K, B, 2 * L - 1, c, c, k, k, L - 1).band
+             for c, k, K, L, B in SEARCH_SPACE_SHAPES}
+    assert bands == {0, 1}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("frozen", [False, True], ids=["dynamic", "frozen"])
+def test_an_augmented_resident_epoch_replays_equal_eager(cuda, frozen):
+    """A resident epoch over staged windows with augmentation (noise and
+    shifts drawn inside each captured step from the registered generator,
+    dropout after them) replayed from its graph against the same epoch
+    dispatched op by op: the same losses and parameters, bit for bit, and
+    the generator left at the same place; a second epoch replays the graph
+    on the next draws, as eager."""
+
+    import dataclasses
+
+    from flow_timesnet_tpu_torch.data import device_windows as dw
+
+    cfg, params, _ = _graph_setup(cuda, frozen, 0.1)
+    staged, idx, rv = _staged_plan(cuda)
+    staged = dataclasses.replace(staged, noise_std=0.3, time_shift=2)
+    graphed, eager = _engines(cuda, cfg, params)
+    runs = []
+    for eng in (graphed, eager):
+        state, gen = eng.init_state(), torch.Generator(device=cuda).manual_seed(3)
+        losses = [eng.train_epoch_resident(state, 1e-3, gen, staged, idx, rv)[1]
+                  for _ in range(2)]
+        runs.append((torch.cat(losses), state, gen.get_state()))
+    (lg, sg, gg), (le, se, ge) = runs
+    assert torch.equal(lg, le) and torch.equal(gg, ge)
+    assert all(torch.equal(a, b) for a, b in zip(sg.tensors(), se.tensors()))
+    clean = _engines(cuda, cfg, params)[1]
+    plain = clean.train_epoch_resident(clean.init_state(), 1e-3,
+                                       torch.Generator(device=cuda).manual_seed(3),
+                                       dw.strip_augment(staged), idx, rv)[1]
+    assert not torch.equal(plain, lg[:len(idx)])
+
+
+def _card_train_config(tmp_path, **train):
+    import os
+    import sys
+
+    sys.path.insert(0, os.path.dirname(__file__))
+    from test_torch_train_once_control import control_config, write_csv
+
+    cfg = control_config(write_csv(tmp_path), tmp_path / "artifacts", 2, **train)
+    cfg["train"]["device"] = "cuda"
+    cfg["model"].update(d_model=64, d_ff=128, compute_dtype="bfloat16")
+    return cfg
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pipeline", ["device", "host"])
+def test_debug_nans_raises_on_the_card(cuda, tmp_path, pipeline):
+    """``train.debug_nans`` on the card, replaying graphs: an infinite
+    learning rate makes the first update's parameters inf or NaN, and the
+    run raises ``FloatingPointError`` at epoch 1, step 1."""
+
+    from flow_timesnet_tpu_torch import train as ptrain
+
+    cfg = _card_train_config(tmp_path, lr=float("inf"), lr_warmup_steps=0, debug_nans=True,
+                             input_pipeline=pipeline)
+    with pytest.raises(FloatingPointError, match=r"not finite at epoch 1, step 1$"):
+        ptrain.train_once(cfg)
+
+
+@pytest.mark.cuda
+def test_a_profile_dir_trace_names_the_fold_conv_kernels(cuda, tmp_path):
+    """``train.profile_dir`` on the card: the trace of epoch 2 (graph
+    replays of the resident steps) holds CUDA kernel events of the
+    fold-conv kernels, and no profiler runs after the run."""
+
+    import json
+
+    from flow_timesnet_tpu_torch import train as ptrain
+
+    cfg = _card_train_config(tmp_path, profile_dir=str(tmp_path / "trace"))
+    ptrain.train_once(cfg)
+    with open(tmp_path / "trace" / "torch_trace_epoch2.json") as f:
+        events = json.load(f)["traceEvents"]
+    kernels = {e["name"] for e in events if e.get("cat") == "kernel"}
+    assert any("tap_conv" in name for name in kernels), sorted(kernels)[:20]
+    assert not torch.autograd.profiler._is_profiler_enabled

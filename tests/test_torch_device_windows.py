@@ -8,7 +8,7 @@ unequal length (one too short for a window), padded rows, stride 2, a
 recursive horizon and ``y_mark``. The port's gather must also equal the
 port's own host ``WindowBatcher`` on the same sample indices, as
 ``tests/test_device_windows.py`` holds the JAX package's. Augmentation is
-not ported and raises.
+held in ``tests/test_torch_augment.py``.
 """
 
 import numpy as np
@@ -153,15 +153,3 @@ def test_gather_matches_the_window_batcher(stride):
         np.testing.assert_array_equal(dev[key].numpy(), want, err_msg=key)
     np.testing.assert_array_equal(dev["floor"].numpy().reshape(-1),
                                   sigma[host.series_ids.reshape(-1)])
-
-
-def test_augmentation_raises():
-    arrays, masks, marks, static, sigma = _folds()
-    for augment in ({"add_noise_std": 0.1}, {"time_shift": 2}):
-        with pytest.raises(NotImplementedError, match="augmentation"):
-            dw.stage_windows(arrays, masks, 8, 4, 1, "direct", augment=augment, device="cpu")
-    staged = dw.stage_windows(arrays, masks, 8, 4, 1, "direct", device="cpu")
-    for field in ({"noise_std": 0.1}, {"time_shift": 1}):
-        shifted = dw.StagedWindows(**{**vars(staged), **field})
-        with pytest.raises(NotImplementedError, match="augmentation"):
-            dw.gather_batch(shifted, torch.zeros(2, dtype=torch.int32), torch.ones(2))

@@ -13,15 +13,18 @@ the JAX package's, and the port's resume against an uninterrupted run.
   package): 2 epochs that save their training state, then a resumed run to
   3, equal 3 uninterrupted epochs, with dropout on (the generator is
   seeded per epoch) and the cosine horizon pinned.
-- The ``train`` subcommand of ``cli.py`` on a written config, with
-  ``--override``: the recipes' ``device: tpu`` asks for the card (raising
-  here), ``train.device=cpu`` trains; ``predict``, ``evaluate`` and
-  ``tune`` raise and name the ROADMAP item that ports them.
+- The subcommands of ``cli.py`` on a written config, with ``--override``:
+  the recipes' ``device: tpu`` asks for the card (raising here),
+  ``train.device=cpu`` trains; ``predict`` and ``evaluate`` read the
+  artifacts, and a one-trial ``tune`` writes its study's files.
 """
 
 import copy
+import json
 import os
 import sys
+
+import numpy as np
 
 import pytest
 
@@ -104,7 +107,7 @@ def test_resume_continues_from_the_saved_state(tmp_path):
     assert resumed["metrics"]["smape"] == full["metrics"]["smape"]
 
 
-def test_cli_trains_and_names_what_is_not_ported(tmp_path, capsys):
+def test_cli_trains_predicts_evaluates_and_tunes(tmp_path, capsys):
     from make_demand_benchmark import write_benchmark
 
     from flow_timesnet_tpu_torch import cli, dependency
@@ -136,8 +139,17 @@ def test_cli_trains_and_names_what_is_not_ported(tmp_path, capsys):
     assert "Evaluation: nll=" in capsys.readouterr().out
     sub = (tmp_path / "sub.csv").read_text("utf-8-sig").splitlines()
     assert len(sub) == 1 + 5 * 7 and sub[1].startswith("TEST_00+D1,")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md section 1 item 8"):
-        cli.main(["tune", "--config", str(path)])
+    space = tmp_path / "space.yaml"
+    save_yaml({"train.lr": {"low": 1e-4, "high": 1e-2, "log": True, "type": "float"}}, str(space))
+    tuned = tmp_path / "tuned"
+    cli.main(["tune", "--config", str(path), "--search-space", str(space), "--n-trials", "1",
+              "--override", "train.device=cpu", "train.epochs=1", "train.freeze_periods=off",
+              f"artifacts.dir={tuned}"])
+    best = json.loads((tuned / "best_params.json").read_text("utf-8"))
+    assert list(best["best_params"]) == ["train.lr"] and np.isfinite(best["best_value"])
+    best_cfg = yaml.safe_load((tuned / "best_config.yaml").read_text("utf-8"))
+    assert best_cfg["train"]["lr"] == best["best_params"]["train.lr"]
+    assert (tuned / "timesnet.msgpack").is_file()
     seed, devices = dependency.bootstrap(5)
     assert seed == 5 and len(devices) == torch.cuda.device_count()
 

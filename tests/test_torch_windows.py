@@ -78,9 +78,7 @@ def test_padded_final_batch_marks_its_rows_invalid():
     assert not last.x[real:].any() and not last.series_ids[real:].any()
 
 
-def test_augmentation_is_not_ported_yet():
+def test_time_index_must_match_the_values():
     values = np.zeros((40, 2), np.float32)
-    with pytest.raises(NotImplementedError, match="augmentation"):
-        windows.SlidingWindowSource(values, 14, 7, "direct", augment={"time_shift": 2})
     with pytest.raises(ValueError, match="time_index"):
         windows.SlidingWindowSource(values, 14, 7, "direct", time_index=np.arange(3))
