@@ -199,11 +199,29 @@ Phases, each of which fails the run (non-zero exit, no result line):
    the augmentation on its benchmark CSV, its seconds beside phase 15's
    first epoch;
 21. tune: ``cli.main(["tune", ...])`` on configs/demand_benchmark.yaml and
-   configs/search_space_flagship.yaml, 3 trials of one epoch on the
+   configs/search_space_flagship.yaml, 2 trials of one epoch on the
    benchmark's CSV: each trial's parameters, val NLL, epoch seconds and
    ``memory_allocated`` after the study released it (no growth after the
    first trial), ``best_params.json`` and ``best_config.yaml`` loaded, the
-   best value finite, every bf16 kernel run at each size.
+   best value finite, every bf16 kernel run at each size;
+22. dp (run after phase 18, on phase 15's files; ``dp_phase``): data
+   parallelism as one card allows it. (a) One NCCL rank (a spawned
+   one-rank group): configs/demand_benchmark.yaml's ``train_once`` for one
+   epoch through the data-parallel path, its epoch loss and validation
+   metrics bit for bit phase 15's first epoch, the gradient bucket's
+   ``all_reduce`` captured in the replayed steps, every bf16 kernel run at
+   each size. (b) Two gloo ranks sharing the card at the full width of
+   configs/high_cardinality.yaml's model (10,000 series, the table
+   row-sharded 5,000 rows a rank; dropout off, eager) against one process on
+   the same global batches of 512: float32 losses within rtol 1e-5 / atol
+   1e-6 and parameters after 3 steps within rtol 1e-4 / atol 1e-5, the same
+   period selection at every step; bf16 finite and within 1e-3 relative.
+   (c) ``cli predict`` of (a)'s artifacts on the two gloo ranks: one
+   process's keys and values within 1e-4 relative, beside how far one
+   card's frozen forward of 96 rows differs alone and within 192 (the
+   bytes differ by that). (d) With several cards, (b)'s float32 steps on NCCL
+   ranks, one a card, replayed, timed beside one card; with one, a line
+   that says so.
 
 The recipes' blocks (the models, schedules and engine settings of phases
 4-14) are read from configs/demand_benchmark.yaml and
@@ -232,8 +250,9 @@ phases 12-14 (the float32 rows from the long float32 parity steps), and
 the card in phases 15 and 16 (bf16 recipes: the float32 rows count 0), and
 ``launches_predict``, ``launches_evaluate`` and ``launches_predict_long``:
 each kernel's runs on the card in the recipe-as-shipped runs of phases
-17-19 (the same), and ``launches_augment`` / ``launches_tune``: its runs in
-phase 20's ``train_once`` epoch and in phase 21's study.
+17-19 (the same), ``launches_augment`` / ``launches_tune``: its runs in
+phase 20's ``train_once`` epoch and in phase 21's study, and ``launches_dp``:
+its runs in phase 22's one-rank ``train_once`` epoch.
 ``[clock]`` lines give the time since the start at the end of each phase.
 
 The last lines are the ``kernels`` JSON line, the card line of ``nvidia-smi``
@@ -306,7 +325,9 @@ PREDICT_CHUNK, PREDICT_CHUNK_LONG = 64, 16  # rows a chunk of the chunked predic
 AUGMENT_PAD = 17  # padded rows of the augmented batch
 AUGMENT_EQ_STEPS = 20  # resident steps a chunk, replayed against eager (two chunks)
 AUGMENT_CHUNK, AUGMENT_TIMED = 43, 6  # steps a timed resident chunk; chunks timed each way
-TUNE_TRIALS, TUNE_DAYS = 3, 560  # cli tune's trials; days of its benchmark CSV (uncut: 560)
+# cli tune's trials (two keep the script inside its time limit beside [dp]); days of
+# its benchmark CSV (uncut: 560)
+TUNE_TRIALS, TUNE_DAYS = 2, 560
 
 
 def eager(obj):
@@ -2364,9 +2385,10 @@ def train_once_phase(torch, np, cuda_fold, label: str, recipe: str, write_csv, e
     the epochs and each hand kernel's runs on the card (every bf16 kernel
     must have run at each size, no float32 one). Then ``Forecaster.from_artifacts``
     loads the artifact directory and forecasts the last window of the CSV:
-    finite and >= 0. ``serve(tmp, spec)``, where given, then runs on the
-    temporary directory (``data/`` and ``artifacts/``) and the spec the run
-    froze on (else the last telemetry spec of its probe). Returns the card's
+    finite and >= 0. ``serve(tmp, spec, metrics)``, where given, then runs on
+    the temporary directory (``data/`` and ``artifacts/``), the spec the run
+    froze on (else the last telemetry spec of its probe) and the run's
+    metrics. Returns the card's
     kernel runs, what ``serve`` returned and the run's metrics."""
 
     import tempfile
@@ -2472,7 +2494,7 @@ def train_once_phase(torch, np, cuda_fold, label: str, recipe: str, write_csv, e
         spec = frozen[-1] if frozen else probed[-1]
         print(f"[{label}] spec for the serving phases: {[list(map(list, l)) for l in spec]} "
               f"({'the one the run froze on' if frozen else 'the last probe: the run never froze'})")
-        served = serve(Path(tmp), spec) if serve is not None else None
+        served = serve(Path(tmp), spec, m) if serve is not None else None
     return ran, served, m
 
 
@@ -3021,6 +3043,341 @@ def evaluate_phase(torch, np, cuda_fold, label: str, recipe: str, tmp: Path) -> 
     return ran
 
 
+# -- data parallelism -------------------------------------------------------------
+
+DP_STORES, DP_MENUS = 100, 100  # configs/high_cardinality.yaml's 10,000 series, as laid out
+DP_DAYS = 60  # of history for the seeded windows: 26 windows a series
+DP_BATCH, DP_STEPS = 512, 3  # the recipe's global batch; steps held against one rank
+DP_RANKS = 2  # gloo ranks sharing the one card (NCCL refuses two ranks on one card)
+DP_TIMED_PASSES = 10  # passes over the float32 batches that (d) replays and times
+DP_LOSS_RTOL, DP_LOSS_ATOL = 1e-5, 1e-6  # JAX's own DP tolerances (tests/test_data_parallel.py)
+DP_PARAM_RTOL, DP_PARAM_ATOL = 1e-4, 1e-5
+# bf16: each rank sums its own half of the rows before the group sums the
+# halves, so a float32 partial sum taken in another order can cross a bf16
+# rounding step of the next layer's input, which then carries on
+DP_BF16_RTOL = 1e-3
+# the ranks' submission against one process's: each rank forwards half a
+# block, and one card's forward of a row is not the same to the bit in a
+# batch of another size (cuBLAS and the fold kernels plan by the batch; the
+# phase prints how far), so the bytes differ; float32 rounding, carried
+# through the bf16 islands, stays far below this
+DP_PREDICT_RTOL = 1e-4
+
+
+def dp_train_once_rank(cfg_path: str, overrides: list) -> dict:
+    """[dp] (a), in a one-rank NCCL group: ``train_once`` through the data-
+    parallel path, counting the kernels' launches and runs and the
+    ``all_reduce`` calls made while a graph was being captured."""
+
+    import torch
+    import torch.distributed as dist
+
+    from flow_timesnet_tpu_torch.config import PipelineConfig
+    from flow_timesnet_tpu_torch.ops import cuda_fold
+    from flow_timesnet_tpu_torch.parallel import mesh
+    from flow_timesnet_tpu_torch.train import train_once
+
+    calls = {"captured": 0, "eager": 0}
+    real = dist.all_reduce
+
+    def counted(t, *args, **kwargs):
+        calls["captured" if torch.cuda.is_current_stream_capturing() else "eager"] += 1
+        return real(t, *args, **kwargs)
+
+    dist.all_reduce = counted
+    counters = path_counters(cuda_fold)
+    for counter in counters.values():
+        counter.clear()
+    cuda_fold.clear_kernel_runs()
+    t0 = time.perf_counter()
+    try:
+        best, paths = train_once(PipelineConfig.from_files(cfg_path, overrides=overrides))
+    finally:
+        dist.all_reduce = real
+    seconds = time.perf_counter() - t0
+    return {"best": best, "metrics": paths["metrics"], "seconds": seconds, "calls": calls,
+            "launches": {name: dict(c) for name, c in counters.items()},
+            "ran": run_counts(cuda_fold), "mesh": dataclasses.asdict(mesh.current())}
+
+
+def dp_windows(np, windows, cfg):
+    """Seeded Poisson counts with a weekly cycle over ``DP_DAYS`` days of
+    10,000 series, 5 static features and the recipe's calendar features, as
+    phase 7 builds its windows: the first ``2 * DP_STEPS`` shuffled global
+    batches of 512 and the per-series dispersion floors."""
+
+    n = DP_STORES * DP_MENUS
+    rng = np.random.default_rng(4)
+    weekly = 1.0 + 0.5 * np.sin(2 * np.pi * (np.arange(DP_DAYS)[:, None] / 7.0
+                                             + rng.uniform(0, 1, n)))
+    values = rng.poisson(rng.gamma(2.0, 6.0, n) * weekly).astype(np.float32)
+    dates = np.datetime64("2023-03-06") + np.arange(DP_DAYS)
+    static = rng.standard_normal((n, 5)).astype(np.float32)
+    sigma = rng.uniform(0.01, 0.1, n).astype(np.float32)
+    tf_cfg = {"enabled": True, "features": ["day_of_week", "day_of_month", "month", "day_of_year"],
+              "encoding": "cyclical", "normalize": True}
+    src = windows.SlidingWindowSource(values, cfg.input_len, cfg.pred_len, "direct",
+                                      series_static=static, series_ids=np.arange(n),
+                                      time_index=dates, time_feature_config=tf_cfg)
+    batcher = windows.WindowBatcher([src], DP_BATCH, shuffle=True, drop_last=True, seed=0)
+    return [b for _, b in zip(range(2 * DP_STEPS), batcher)], sigma
+
+
+def dp_steps(model_kw: dict, params: dict, batches: list, sigma, engine_kw: dict,
+             graphs: bool = False, repeat: int = 1) -> dict:
+    """A step on this process's rows of each global batch (all of them
+    without a group), ``repeat`` times over, eagerly unless ``graphs``
+    (then the first step captures and the rest replay): the losses, each
+    eager step's period selection (a replay runs no Python to record it),
+    the assembled parameters (numpy), the rows of the series table held
+    here and each step's ms."""
+
+    import numpy as np
+    import torch
+
+    from flow_timesnet_tpu_torch.engine import Engine, batch_to_device
+    from flow_timesnet_tpu_torch.models.timesnet import TimesNetConfig
+    from flow_timesnet_tpu_torch.parallel import mesh
+
+    cfg = TimesNetConfig(**model_kw)
+    eng = Engine(cfg, {k: torch.from_numpy(v) for k, v in params.items()}, **engine_kw,
+                 shard_table=True)
+    eng.cuda_graphs = graphs and mesh.graphs_allowed()
+    selected = []
+    if not eng.cuda_graphs:  # reading the selection waits for the card
+        for i in range(cfg.n_layers):
+            getattr(eng.model, f"blocks_{i}").register_forward_pre_hook(
+                lambda mod, a: selected.append(tuple(int(p) for p in a[1].periods.tolist())))
+    state = eng.init_state()
+    gen = torch.Generator(device=eng.device).manual_seed(0)
+    sync = torch.cuda.synchronize if eng.device.type == "cuda" else (lambda: None)
+    losses, step_ms = [], []
+    for batch in batches * repeat:
+        local = mesh.shard_rows(batch)
+        dev = batch_to_device(local, floor=sigma[local.series_ids.reshape(-1)].reshape(-1, 1, 1),
+                              device=eng.device)
+        sync()
+        t0 = time.perf_counter()
+        state, loss, _ = eng.train_step(state, 1e-3, gen, dev)
+        sync()
+        step_ms.append(1e3 * (time.perf_counter() - t0))
+        losses.append(float(loss))
+    whole = mesh.host_fetch(state.params, eng.sharded)
+    return {"losses": losses, "selected": selected, "step_ms": step_ms,
+            "params": {k: v.float().cpu().numpy() for k, v in whole.items()},
+            "table_rows": int(state.params[mesh.TABLE_NAME].shape[0]),
+            "sharded": list(eng.sharded), "graphs": eng.cuda_graphs}
+
+
+def dp_gloo_rank(runs: dict, predict_argv: list) -> dict:
+    """[dp] (b) and (c) on a gloo rank sharing the card: ``dp_steps`` of
+    each run (float32, bf16), then ``cli predict`` of (a)'s artifacts."""
+
+    from flow_timesnet_tpu_torch import cli
+    from flow_timesnet_tpu_torch.parallel import mesh
+
+    out = {name: dp_steps(**kw) for name, kw in runs.items()}
+    t0 = time.perf_counter()
+    cli.main(predict_argv)
+    out["predict_seconds"] = time.perf_counter() - t0
+    out["mesh"] = dataclasses.asdict(mesh.current())
+    return out
+
+
+def dp_phase(torch, np, windows, cuda_fold, tmp: Path, flagship: dict) -> dict:
+    """``[dp]``: data parallelism, the only multi-rank runs one card allows.
+
+    (a) One NCCL rank: the flagship recipe's ``train_once`` for one epoch
+    through the data-parallel path (the launcher, a one-rank group): its
+    epoch loss and validation NLL equal ``[train-once]``'s first epoch bit
+    for bit, graphs were captured with the gradient bucket's
+    ``all_reduce`` inside them, and every bf16 kernel ran at each size.
+    (b) Two gloo ranks sharing the card at the full width of
+    ``configs/high_cardinality.yaml``'s model (d_model 128, d_ff 512, 2
+    layers, context rank 16, 10,000 series: the table row-sharded, 5,000
+    rows a rank), dropout off (each rank draws its own masks), eager (gloo's
+    collectives cannot be captured): ``DP_STEPS`` global steps of 512
+    against one process on the same batches. float32: losses within rtol
+    1e-5 / atol 1e-6, parameters within rtol 1e-4 / atol 1e-5, the same
+    period selection at every step; bf16: finite, within 1e-3 relative.
+    (c) ``cli predict`` of (a)'s artifacts on the two gloo ranks: the keys
+    and columns of one process's submission and its values within 1e-4
+    relative (not its bytes: a row's forward depends, in the last bits, on
+    the size of the batch it runs in, which the phase measures on one card).
+    (d) With more than one card visible, (b)'s
+    float32 steps on NCCL ranks, one a card, replayed, beside one card's;
+    with one card the phase says so.
+    Returns the card's kernel runs in (a)'s run."""
+
+    from flow_timesnet_tpu_torch import convert
+    from flow_timesnet_tpu_torch.parallel import mesh
+
+    t_phase = time.perf_counter()
+    data = tmp / "data"
+    paths = [f"data.train_csv={data / 'train.csv'}", f"data.test_dir={data / 'test'}",
+             f"data.sample_submission={data / 'sample_submission.csv'}"]
+    art = tmp / "dp_artifacts"
+    a = mesh.launch(dp_train_once_rank, 1, str(REPO / "configs" / "demand_benchmark.yaml"),
+                    [*paths, f"artifacts.dir={art}", "train.epochs=1"], device="cuda")[0]
+    m = a["metrics"]
+    print(f"[dp] (a) one {a['mesh']['backend']} rank on {a['mesh']['device']}: train_once epoch "
+          f"{m['epoch_seconds'][0]:.3f} s ({m['epoch_windows_per_s'][0]:.1f} windows/s), run "
+          f"{a['seconds']:.3f} s; loss {m['epoch_loss'][0]!r} against [train-once]'s "
+          f"{flagship['epoch_loss'][0]!r}, val NLL {m['epoch_val_nll'][0]!r} against "
+          f"{flagship['epoch_val_nll'][0]!r}; all_reduce calls: {a['calls']['captured']} "
+          f"captured, {a['calls']['eager']} eager")
+    check(m["epoch_loss"][0] == flagship["epoch_loss"][0]
+          and m["epoch_val_nll"][0] == flagship["epoch_val_nll"][0]
+          and m["epoch_val_smape"][0] == flagship["epoch_val_smape"][0],
+          "[dp] (a): the one-rank group's epoch differs from [train-once]'s first")
+    check(a["calls"]["captured"] > 0, "[dp] (a): no all_reduce was captured in a graph")
+    for kind in KINDS:
+        for kh, kw in KERNEL_SIZES:
+            size = f"{kh}x{kw}"
+            check(a["ran"][f"{kind}_mma"].get(size, 0) > 0
+                  and a["ran"][kind] == a["ran"][f"{kind}_mma"],
+                  f"[dp] (a): {kind} {size} ran {a['ran'][kind]}")
+    print(f"[dp] (a) the card ran {a['ran']}; the wrappers launched {a['launches']}")
+
+    # (b) the high-cardinality model at full width on two gloo ranks
+    from flow_timesnet_tpu_torch.build import merged_config_from_yaml
+
+    hc = Recipe(merged_config_from_yaml(str(REPO / "configs" / "high_cardinality.yaml")),
+                {}, {}, {})
+    cfg = dataclasses.replace(recipe_config(hc, 5, DP_STORES * DP_MENUS), dropout=0.0)
+    t = hc.merged["train"]
+    engine_kw = dict(device="cuda", use_loss_masking=bool(t["use_loss_masking"]),
+                     grad_clip_norm=float(t["grad_clip_norm"]),
+                     weight_decay=float(t["weight_decay"]), num_series=DP_STORES * DP_MENUS)
+    params = {k: v.numpy() for k, v in flagship_params(torch, convert, cfg).items()}
+    t0 = time.perf_counter()
+    batches, sigma = dp_windows(np, windows, cfg)
+    data_s = time.perf_counter() - t0
+    runs = {}
+    for dtype, part in (("float32", batches[:DP_STEPS]), ("bfloat16", batches[DP_STEPS:])):
+        model_kw = {**dataclasses.asdict(cfg), "compute_dtype": dtype}
+        runs[dtype] = dict(model_kw=model_kw, params=params, batches=part, sigma=sigma,
+                           engine_kw=engine_kw)
+    one = {name: dp_steps(**kw) for name, kw in runs.items()}
+    sub_one, sub_two = tmp / "dp_one.csv", tmp / "dp_two.csv"
+    predict = ["predict", "--config", str(REPO / "configs" / "demand_benchmark.yaml"),
+               "--override", *paths, f"artifacts.dir={art}"]
+    from flow_timesnet_tpu_torch import cli
+
+    cli.main([*predict, f"submission.out_path={sub_one}"])
+    t0 = time.perf_counter()
+    two = mesh.launch(dp_gloo_rank, DP_RANKS, runs, [*predict, f"submission.out_path={sub_two}"],
+                      device="cuda:0", backend="gloo")
+    launch_s = time.perf_counter() - t0
+    n_params = sum(v.size for v in params.values())
+    print(f"[dp] (b) configs/high_cardinality.yaml's model at full width ({n_params:,} "
+          f"parameters, {DP_STORES * DP_MENUS:,} series), {DP_RANKS} gloo ranks on "
+          f"{two[0]['mesh']['device']} (eager), global batch {DP_BATCH}, dropout off; "
+          f"windows of {DP_DAYS} days built in {data_s:.2f} s; the ranks' launch "
+          f"{launch_s:.1f} s")
+    for r, out in enumerate(two):
+        f32, ref = out["float32"], one["float32"]
+        check(out["float32"]["sharded"] == [mesh.TABLE_NAME]
+              and f32["table_rows"] == DP_STORES * DP_MENUS // DP_RANKS,
+              f"[dp] (b) rank {r}: table rows {f32['table_rows']}, sharded {f32['sharded']}")
+        check(f32["selected"] == ref["selected"],
+              f"[dp] (b) rank {r}: selections {f32['selected']} against {ref['selected']}")
+        loss_err = np.abs(np.array(f32["losses"]) - np.array(ref["losses"]))
+        check(bool(np.all(loss_err <= DP_LOSS_ATOL + DP_LOSS_RTOL * np.abs(ref["losses"]))),
+              f"[dp] (b) rank {r}: float32 losses {f32['losses']} against {ref['losses']}")
+        worst = 0.0
+        for k, want in ref["params"].items():
+            err = np.abs(f32["params"][k] - want) - DP_PARAM_RTOL * np.abs(want)
+            worst = max(worst, float(err.max()))
+        check(worst <= DP_PARAM_ATOL, f"[dp] (b) rank {r}: parameters off by {worst:.3e} "
+              "beyond rtol 1e-4")
+        bf, bref = out["bfloat16"], one["bfloat16"]
+        rel = np.abs(np.array(bf["losses"]) - np.array(bref["losses"])) / np.abs(bref["losses"])
+        check(bool(np.isfinite(bf["losses"]).all()) and float(rel.max()) <= DP_BF16_RTOL,
+              f"[dp] (b) rank {r}: bf16 losses {bf['losses']} against {bref['losses']}")
+        print(f"[dp] (b) rank {r}: float32 losses {f32['losses']} (one process "
+              f"{ref['losses']}; max abs diff {float(loss_err.max()):.3e}), parameters within "
+              f"rtol 1e-4 + {max(worst, 0.0):.3e}, selections {sorted(set(f32['selected']))} at "
+              f"every step as one process, table {f32['table_rows']:,} rows; bf16 losses "
+              f"{bf['losses']} (max relative diff {float(rel.max()):.3e}); eager step ms "
+              f"float32 {spread(np, f32['step_ms'])} (one process {spread(np, ref['step_ms'])})")
+    from flow_timesnet_tpu_torch.utils.submission import read_submission
+
+    with open(sub_one, "rb") as f1, open(sub_two, "rb") as f2:
+        same = f1.read() == f2.read()
+    got, want = (read_submission(str(p), "utf-8-sig") for p in (sub_two, sub_one))
+    diff = np.abs(got.values - want.values)
+    print(f"[dp] (c) cli predict of (a)'s artifacts on {DP_RANKS} gloo ranks "
+          f"({two[0]['predict_seconds']:.2f} s) against one process's submission "
+          f"({sub_one.stat().st_size} bytes): {'the same bytes' if same else 'other bytes'}, "
+          f"{int((diff > 0).sum())} of {diff.size} cells differ, "
+          f"{max_rel(np, got.values, want.values)}; {batch_invariance(torch)}")
+    check((got.keys, got.columns) == (want.keys, want.columns)
+          and bool(np.all(diff <= DP_PREDICT_RTOL * np.abs(want.values))),
+          f"[dp] (c): the ranks' submission is not one process's within {DP_PREDICT_RTOL}")
+
+    dp_across_cards(torch, np, runs["float32"])
+    print(f"[dp] phase {time.perf_counter() - t_phase:.1f} s")
+    return a["ran"]
+
+
+def batch_invariance(torch) -> str:
+    """How far one card's forward of a row depends on the batch it runs in:
+    the flagship (seeded weights, bf16 and float32) on a frozen spec (no
+    selection to move) forwards 192 seeded rows at once, and their first 96
+    alone."""
+
+    from flow_timesnet_tpu_torch import convert
+    from flow_timesnet_tpu_torch.engine import Engine
+
+    spec = (((7, 4, True), (14, 2, True)),) * 2
+    parts = []
+    for dtype in ("bfloat16", "float32"):
+        cfg = dataclasses.replace(flagship_config(load_recipes()["flagship"]), compute_dtype=dtype,
+                                  frozen_periods=spec)
+        eng = eager(Engine(cfg, flagship_params(torch, convert, cfg), "cuda"))
+        g = torch.Generator(device="cuda").manual_seed(3)
+        x = torch.rand(B, L, 1, device="cuda", generator=g) * 5
+        marks = torch.randn(B, L, cfg.time_features, device="cuda", generator=g)
+        static = torch.randn(B, 1, cfg.static_dim, device="cuda", generator=g)
+        ids = torch.arange(B, device="cuda", dtype=torch.int32)[:, None]
+        h = B // 2
+        d = (eng.forward(x, marks, static, ids)[0][:h]
+             - eng.forward(x[:h], marks[:h], static[:h], ids[:h])[0]).abs()
+        parts.append(f"{dtype} {int((d > 0).sum())} of {d.numel()} rates differ, max abs "
+                     f"{float(d.max()):.3e}")
+    return ("one card's frozen forward of the first 96 of 192 rows, alone against within the "
+            "whole batch: " + "; ".join(parts))
+
+
+def dp_across_cards(torch, np, run: dict) -> None:
+    """[dp] (d): ``run``'s steps (``dp_steps``' arguments) replayed on NCCL
+    ranks, one a card, against one card replaying them: losses within rtol
+    1e-5 / atol 1e-6 (the selections are (b)'s check: a replay records
+    none), step ms and windows/s beside one card's. With one card visible
+    it prints that and runs nothing."""
+
+    from flow_timesnet_tpu_torch.parallel import mesh
+
+    cards = torch.cuda.device_count()
+    if cards < 2:
+        print("[dp] (d) one card is visible: NCCL across cards was not run (it needs two or "
+              "more)")
+        return
+    run = dict(run, graphs=True, repeat=DP_TIMED_PASSES)
+    single = dp_steps(**run)
+    multi = mesh.launch(dp_steps, cards, *run.values(), device="cuda")
+    for r, out in enumerate(multi):
+        ok = np.allclose(out["losses"], single["losses"], rtol=DP_LOSS_RTOL, atol=DP_LOSS_ATOL)
+        check(ok and out["graphs"],
+              f"[dp] (d) rank {r}: losses {out['losses']} against {single['losses']}")
+    p50, p50_one = (float(np.median(x["step_ms"][1:])) for x in (multi[0], single))
+    print(f"[dp] (d) {cards} NCCL ranks, one a card, replayed: step ms p50 {p50:.3f} "
+          f"({DP_BATCH / p50 * 1e3:.1f} windows/s) against one card's {p50_one:.3f} "
+          f"({DP_BATCH / p50_one * 1e3:.1f} windows/s); losses {multi[0]['losses']} as one "
+          f"card's {single['losses']}")
+
+
 def stamp(phase: str) -> None:
     print(f"[clock] {phase} done at {time.perf_counter() - T0:.1f} s")
 
@@ -3389,7 +3746,7 @@ def main() -> int:
 
     # 15-16. train_once from a config and a CSV: the flagship and the long
     # recipe; 17-19. predict and evaluate from each run's artifacts
-    def predict_flagship(tmp, spec):
+    def predict_flagship(tmp, spec, run):
         runs = {"predict": predict_phase(
             torch, np, cuda_fold, "predict", "demand_benchmark.yaml", tmp, spec,
             files=DEMAND_TEST_FILES, series=B, horizon=DEMAND_HORIZON, chunk=PREDICT_CHUNK,
@@ -3398,9 +3755,11 @@ def main() -> int:
         runs["evaluate"] = evaluate_phase(torch, np, cuda_fold, "evaluate",
                                           "demand_benchmark.yaml", tmp)
         stamp("evaluate")
+        runs["dp"] = dp_phase(torch, np, windows, cuda_fold, tmp, run)
+        stamp("dp")
         return runs
 
-    def predict_long(tmp, spec):
+    def predict_long(tmp, spec, run):
         runs = {"predict_long": predict_phase(
             torch, np, cuda_fold, "predict-long", "long_context.yaml", tmp, spec,
             files=LONG_TEST_FILES, series=LONG_SERIES, horizon=LONG_HORIZON,

@@ -394,7 +394,7 @@ class TrainConfig:
     prefetch_factor: int = 2
     channels_last: bool = False  # retained for config compat
     use_loss_masking: bool = False
-    dcn_slices: int = 1  # multi-slice data parallelism (not ported)
+    dcn_slices: int = 1  # multi-slice data parallelism: the world must split into this many
     shard_embedding: str = "auto"  # auto|true|false: row-shard the id table
     val_strategy: str = "holdout"
     val_holdout_days: Optional[int] = None

@@ -26,6 +26,15 @@ raises. On the CPU every path runs the same body eagerly. (The attribute
 ``Engine.cuda_graphs``, True on the card, may be set to False to dispatch
 every op from Python there: the yardstick that the card tests and
 ``chip_smoke.py`` hold the graphs against.)
+
+Under data parallelism (a group of ``parallel/mesh.py``) each rank steps on
+its rows of the global batch: the loss divides by the global count of valid
+elements, the gradients and the loss are summed over the ranks in one flat
+bucket before the update (a row-sharded series table keeps its own rows'
+gradient out of it, and the clip adds its norm), evaluation sums are summed
+before the metrics, and the resident passes take their columns of the
+global plan. NCCL's collectives are captured with the step; under gloo,
+whose collectives cannot be, every step runs eagerly.
 """
 
 from __future__ import annotations
@@ -43,6 +52,7 @@ from .device import resolve_device
 from .losses import negative_binomial_mask, negative_binomial_nll
 from .models.timesnet import TimesNet, TimesNetConfig
 from .optim import Optimizer, build_optimizer
+from .parallel import mesh
 from .utils.metrics import smape_batch_sums, wsmape_batch_sums
 
 _ARGS = ("x", "x_mark", "static", "ids", "floor")
@@ -141,11 +151,17 @@ class Engine:
         num_series: int = 1,
         ema_decay: float = 0.0,
         debug_nans: bool = False,
+        shard_table: bool = False,
     ) -> None:
         self.device = resolve_device(device)
         self.cfg = cfg
         self.model = TimesNet(cfg)
         self.model.load_state_dict(dict(params))
+        # data parallelism: the series table split by rows over the ranks
+        self.sharded: tuple = ()
+        if shard_table and mesh.world() > 1 and cfg.id_embed_dim > 0:
+            self.model.series_embedding.shard()
+            self.sharded = (mesh.TABLE_NAME,)
         self.model.to(self.device).eval()
         self.use_loss_masking = bool(use_loss_masking)
         self.accum_steps = max(1, int(accumulation_steps))
@@ -159,7 +175,9 @@ class Engine:
         # parameter are finite (``stats["finite"]``), for the caller to read:
         # ``train.debug_nans``
         self.debug_nans = bool(debug_nans)
-        self.cuda_graphs = self.device.type == "cuda"  # replay graphs (see the module's doc)
+        # replay graphs (see the module's doc); not under gloo, whose
+        # collectives a graph cannot capture: there every step runs eagerly
+        self.cuda_graphs = self.device.type == "cuda" and mesh.graphs_allowed()
         self._graphs: Dict[tuple, graphs.Captured] = {}
         self._graph_state: Optional[TrainState] = None  # the state the training graphs hold
         self._pool = None
@@ -373,7 +391,10 @@ class Engine:
         that starts at the parameters when ``ema_decay > 0``."""
 
         if params is not None:
-            self.model.load_state_dict(dict(params))
+            params = dict(params)
+            if self.sharded and params[mesh.TABLE_NAME].shape[0] == self.cfg.id_vocab:
+                params = mesh.shard_train_state(params, self.sharded)
+            self.model.load_state_dict(params)
         named = dict(self.model.named_parameters())
         accum = None
         if self.accum_steps > 1:
@@ -381,12 +402,18 @@ class Engine:
         ema = None
         if self.ema_decay > 0.0:
             ema = {k: p.detach().clone() for k, p in named.items()}
-        optimizer = build_optimizer(named.values(), self.grad_clip_norm, self.weight_decay)
+        optimizer = build_optimizer(named.values(), self.grad_clip_norm, self.weight_decay,
+                                    [i for i, k in enumerate(named) if k in self.sharded])
         return TrainState(params=named, optimizer=optimizer, grad_accum=accum, ema=ema)
 
     def _loss(self, batch: Mapping[str, Any], generator: Optional[torch.Generator]):
         """Masked NB-NLL of the model on ``batch`` and the mask stats, as
-        device tensors; dropout draws from ``generator`` in training mode."""
+        device tensors; dropout draws from ``generator`` in training mode.
+
+        Under a group, ``batch`` is this rank's rows: the counts are summed
+        over the ranks, the loss is this rank's sum over the global count (so
+        the ranks' losses and gradients sum to the global batch's), and the
+        stats are the global batch's."""
 
         rv = batch.get("row_valid")
         rate, dispersion = self.model(
@@ -395,13 +422,33 @@ class Engine:
         y = batch["y"]
         base = _base_mask(y, batch["mask"], rv, self.use_loss_masking)
         nbm = negative_binomial_mask(y, rate, dispersion, base)
-        loss = negative_binomial_nll(y, rate, dispersion, nbm)
         if rv is not None:
             # coverage over real rows only (padding adds row_valid=0 rows)
             total = rv.float().sum() * float(y.shape[1] * y.shape[2])
         else:
             total = torch.full((), float(y.numel()), device=y.device)
+        if mesh.grouped():
+            counts = mesh.all_sum_(torch.stack([nbm.sum().float(), total.detach().float()]))
+            loss = negative_binomial_nll(y, rate, dispersion, nbm, count=counts[0])
+            return loss, {"mask_true": counts[0], "mask_total": counts[1]}
+        loss = negative_binomial_nll(y, rate, dispersion, nbm)
         return loss, {"mask_true": nbm.sum().float(), "mask_total": total}
+
+    def _reduce(self, grads: List[torch.Tensor], loss: torch.Tensor) -> torch.Tensor:
+        """Sum the gradients (a sharded table's excepted: each rank holds the
+        whole gradient of its rows) and the loss over the group in one flat
+        bucket, one ``all_reduce`` a step; the sums are copied back into
+        ``grads`` (views of the bucket would start at other alignments,
+        and the clip's norm would then sum in another order). Returns the
+        summed loss."""
+
+        keep = [grads[i] for i, (k, _) in enumerate(self.model.named_parameters())
+                if k not in self.sharded]
+        flat = mesh.all_sum_(torch.cat([g.reshape(-1) for g in keep]
+                                       + [loss.detach().reshape(1)]))
+        parts = torch.split(flat[:-1], [g.numel() for g in keep])
+        torch._foreach_copy_(keep, [part.view_as(g) for part, g in zip(parts, keep)])
+        return flat[-1]
 
     def _train_body(self, state: TrainState, generator: Optional[torch.Generator],
                     batch: Mapping[str, Any], do_update: bool = True):
@@ -414,6 +461,8 @@ class Engine:
         loss, stats = self._loss(batch, generator)
         loss.backward()
         grads = [p.grad if p.grad is not None else torch.zeros_like(p) for p in params]
+        if mesh.grouped():
+            loss = self._reduce(grads, loss)
         # debug_nans: the loss and each gradient, and each parameter after the
         # update (the step's outputs, as JAX's jax_debug_nans checks them)
         finite = ([torch.isfinite(loss).all()] + [torch.isfinite(g).all() for g in grads]
@@ -487,10 +536,13 @@ class Engine:
                                         row_valid) -> Dict[str, Any]:
         """:meth:`collect_period_telemetry` of the batch that ``flat_idx``
         and ``row_valid`` [B] gather from ``staged``: the resident trainer's
-        probe, run eagerly on a fixed batch and read back once."""
+        probe, run eagerly on a fixed batch and read back once. Under a
+        group ``flat_idx`` is the global batch's row and each rank gathers
+        its own rows of it."""
 
+        rows = mesh.rank_rows(len(flat_idx)) if mesh.world() > 1 else slice(None)
         return self.collect_period_telemetry(
-            params, self.gather_staged_batch(staged, flat_idx, row_valid))
+            params, self.gather_staged_batch(staged, flat_idx[rows], row_valid[rows]))
 
     def _on_device(self, a, dtype) -> torch.Tensor:
         """A plan (numpy or a tensor) as ``dtype`` on the engine's device."""
@@ -558,7 +610,10 @@ class Engine:
         step then reads its row on the device, gathers the batch
         (:func:`gather_batch`), takes :meth:`train_step`'s step, writes its
         loss and ``mask_true`` at its row and counts on: on the card one
-        graph replay a step, with no host work between steps. The staged
+        graph replay a step, with no host work between steps. Under a group
+        the plan is the global one, ``[S, dp_batch_rows]``, and each rank
+        takes its columns (the losses and counts are the global batch's,
+        as :meth:`_loss` sums them). The staged
         windows' augmentation and dropout draw from ``generator``, in that
         order, and every step advances it, so chunked calls give what one
         call gives (the JAX package needs ``step_offset``, the chunk's first
@@ -574,8 +629,8 @@ class Engine:
         self._bind(state)
         self.model.train()
         state.optimizer.set_lr(lr)
-        idx_t = self._on_device(idx, torch.int32)
-        rv_t = self._on_device(row_valid, torch.float32)
+        idx_t = self._on_device(mesh.plan_columns(idx), torch.int32)
+        rv_t = self._on_device(mesh.plan_columns(row_valid), torch.float32)
         S, B = (int(n) for n in idx_t.shape)
         if on_step is not None and not self.debug_nans:
             raise ValueError("on_step reads the finiteness flags of an engine with debug_nans")
@@ -643,7 +698,9 @@ class Engine:
     def evaluate(self, params, batches: Iterable[Mapping[str, Any]]) -> Dict[str, Any]:
         """Stream eval metrics of ``params`` (a name -> tensor mapping such as
         ``state.ema``, or None for the model's own) over device-ready
-        batches: the sums stay on the device and are read once at the end."""
+        batches: the sums stay on the device and are read once at the end.
+        Under a group each rank streams its rows of the same batches, and
+        the sums are summed over the ranks before the metrics are formed."""
 
         self.model.eval()
         totals = None
@@ -663,8 +720,8 @@ class Engine:
                 "series_sums": np.zeros(self.num_series, np.float32),
                 "series_cnts": np.zeros(self.num_series, np.float32),
             }
-        # one copy to the host for the whole pass
-        flat = torch.cat([t.reshape(-1).float() for t in totals]).cpu().numpy()
+        # one copy to the host for the whole pass, after one sum over the group
+        flat = mesh.all_sum_(torch.cat([t.reshape(-1).float() for t in totals])).cpu().numpy()
         nll_num, nll_den, s_sum, s_cnt = flat[:4]
         return {
             "nll": _safe_ratio(nll_num, nll_den),
@@ -687,8 +744,8 @@ class Engine:
         """
 
         self.model.eval()
-        idx_t = self._on_device(idx, torch.int32)
-        rv_t = self._on_device(row_valid, torch.float32)
+        idx_t = self._on_device(mesh.plan_columns(idx), torch.int32)
+        rv_t = self._on_device(mesh.plan_columns(row_valid), torch.float32)
         S, B = (int(n) for n in idx_t.shape)
         if S == 0:
             return self._metrics(None)

@@ -41,6 +41,7 @@ def negative_binomial_nll(
     dispersion: torch.Tensor,
     mask: Optional[torch.Tensor] = None,
     eps: float = 1e-8,
+    count: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """NB2 negative log-likelihood averaged over valid elements (float32).
 
@@ -54,6 +55,11 @@ def negative_binomial_nll(
     of an unselected ``where`` branch is 0 times that branch's derivative,
     which is NaN for a NaN target, so zeroing after (as the JAX package does)
     lets a NaN in a masked element reach every parameter's gradient.
+
+    ``count``, where given, is the denominator's count of valid elements in
+    place of this call's own: under data parallelism the global batch's
+    (summed over the ranks), so that the ranks' losses and gradients sum to
+    the global batch's.
     """
 
     y32 = torch.clamp(y.float(), min=0.0)
@@ -74,7 +80,7 @@ def negative_binomial_nll(
         - inv_alpha * log1p_am
         + y32 * (torch.log(alpha) + torch.log(mu) - log1p_am)
     )
-    denom = torch.clamp(valid.float().sum(), min=1.0)
+    denom = torch.clamp(valid.float().sum() if count is None else count, min=1.0)
     masked_ll = torch.where(valid, ll, torch.zeros_like(ll))
     return -masked_ll.sum() / denom
 

@@ -18,6 +18,8 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from ..parallel import mesh
+
 _NEG_INF = float("-inf")
 
 
@@ -59,14 +61,37 @@ def _lower_median(x: torch.Tensor, dim: int) -> torch.Tensor:
 
 
 def _batch_mean(values: torch.Tensor, row_weight: Optional[torch.Tensor]) -> torch.Tensor:
-    """Mean over the batch axis, optionally over the rows with weight > 0 only."""
+    """Mean over the batch axis, optionally over the rows with weight > 0 only.
 
+    Under data parallelism over more than one rank the batch is the global
+    one: the weighted sum and the weight sum are summed over the group
+    before the division, so every rank selects the periods of the whole
+    batch, as the JAX package's sharded mean does. The means only choose
+    indices (top-k, argmax, a ranking), so the sum carries no gradient.
+    """
+
+    if mesh.world() > 1:
+        return _global_batch_mean(values, row_weight)
     if row_weight is None:
         return values.mean(dim=0)
     w = row_weight.float().reshape((-1,) + (1,) * (values.dim() - 1))
     # zero dropped rows before multiplying: values may hold -inf
     masked = torch.where(w > 0.0, values, torch.zeros((), dtype=values.dtype, device=values.device))
     return (masked * w).sum(dim=0) / torch.clamp(w.sum(), min=1.0)
+
+
+def _global_batch_mean(values: torch.Tensor, row_weight: Optional[torch.Tensor]) -> torch.Tensor:
+    values = values.detach().float()
+    if row_weight is None:
+        total = values.sum(dim=0)
+        count = torch.full((1,), float(values.shape[0]), device=values.device)
+    else:
+        w = row_weight.detach().float().reshape((-1,) + (1,) * (values.dim() - 1))
+        masked = torch.where(w > 0.0, values, torch.zeros((), device=values.device))
+        total = (masked * w).sum(dim=0)
+        count = w.sum().reshape(1)
+    both = mesh.all_sum_(torch.cat([total.reshape(-1), count]))
+    return both[:-1].reshape(total.shape) / torch.clamp(both[-1], min=1.0)
 
 
 def select_periods(

@@ -27,6 +27,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ..ops.softplus import softplus20
+from ..parallel import mesh
 from .embedding import (
     DataEmbedding,
     Dense,
@@ -126,13 +127,27 @@ class TimesNetConfig:
 
 
 class Embed(nn.Module):
-    """flax ``nn.Embed``: a table ``embedding`` [vocab, dim]."""
+    """flax ``nn.Embed``: a table ``embedding`` [vocab, dim].
+
+    :meth:`shard` keeps only this rank's rows of the table (data
+    parallelism over more than one rank): the lookup then goes through
+    :class:`~..parallel.mesh.ShardedLookup`, whose output equals the whole
+    table's bit for bit."""
 
     def __init__(self, vocab: int, dim: int) -> None:
         super().__init__()
         self.embedding = nn.Parameter(torch.zeros(vocab, dim))
+        self.sharded = False
+
+    def shard(self) -> None:
+        """Cut the table to this rank's rows (the world must divide them)."""
+
+        self.embedding = nn.Parameter(mesh.local_rows(self.embedding.detach()).clone())
+        self.sharded = True
 
     def forward(self, ids: torch.Tensor) -> torch.Tensor:
+        if self.sharded:
+            return mesh.ShardedLookup.apply(self.embedding, ids)
         return self.embedding[ids.long()]
 
 

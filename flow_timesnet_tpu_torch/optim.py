@@ -21,18 +21,22 @@ from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import Any, Dict, Iterable, List, Mapping, Optional
+from typing import Any, Dict, Iterable, List, Mapping, Optional, Sequence
 
 import torch
+
+from .parallel import mesh
 
 
 class Optimizer:
     """AdamW (b1 0.9, b2 0.999, eps 1e-8) behind an optional global-norm clip."""
 
-    def __init__(self, adamw: torch.optim.AdamW, grad_clip_norm: float, lr: torch.Tensor) -> None:
+    def __init__(self, adamw: torch.optim.AdamW, grad_clip_norm: float, lr: torch.Tensor,
+                 sharded: Sequence[int] = ()) -> None:
         self.adamw = adamw
         self.grad_clip_norm = grad_clip_norm
         self.lr = lr
+        self.sharded = tuple(sharded)  # positions of parameters split by rows over the ranks
         self._lr_value: Optional[float] = None
 
     @property
@@ -59,16 +63,18 @@ class Optimizer:
         """
 
         if self.grad_clip_norm > 0:
-            clip_by_global_norm_(grads, self.grad_clip_norm)
+            clip_by_global_norm_(grads, self.grad_clip_norm, self.sharded)
         for p, g in zip(self.params, grads):
             p.grad = g
         self.adamw.step()
 
 
 def build_optimizer(
-    params: Iterable[torch.Tensor], grad_clip_norm: float, weight_decay: float
+    params: Iterable[torch.Tensor], grad_clip_norm: float, weight_decay: float,
+    sharded: Sequence[int] = (),
 ) -> Optimizer:
-    """The JAX package's ``build_optimizer`` over ``params`` (on one device)."""
+    """The JAX package's ``build_optimizer`` over ``params`` (on one device);
+    ``sharded``: the positions of those that hold only this rank's rows."""
 
     params = list(params)
     device = params[0].device
@@ -85,16 +91,29 @@ def build_optimizer(
             "exp_avg": torch.zeros_like(p, memory_format=torch.preserve_format),
             "exp_avg_sq": torch.zeros_like(p, memory_format=torch.preserve_format),
         }
-    return Optimizer(adamw, float(grad_clip_norm or 0.0), lr)
+    return Optimizer(adamw, float(grad_clip_norm or 0.0), lr, sharded)
 
 
-def clip_by_global_norm_(grads: List[torch.Tensor], max_norm: float) -> torch.Tensor:
+def clip_by_global_norm_(grads: List[torch.Tensor], max_norm: float,
+                         sharded: Sequence[int] = ()) -> torch.Tensor:
     """``optax.clip_by_global_norm`` in place: below ``max_norm`` the
     gradients stay as they are, otherwise each becomes ``g / norm * max_norm``
     (no epsilon is added to the norm, unlike ``clip_grad_norm_``). Returns
-    the global norm as a device tensor."""
+    the global norm as a device tensor.
 
-    norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+    ``sharded``: positions of gradients that hold only this rank's rows of a
+    parameter (the row-sharded table under data parallelism). The norm's
+    square is then the others' (replicated, already summed over the ranks)
+    plus the sum over the ranks of the sharded ones' squares.
+    """
+
+    if sharded:
+        norms = torch._foreach_norm(grads)
+        rest = [n for i, n in enumerate(norms) if i not in sharded]
+        shard_sq = mesh.all_sum_(torch.stack([norms[i] for i in sharded]).square().sum())
+        norm = torch.sqrt(torch.linalg.vector_norm(torch.stack(rest)).square() + shard_sq)
+    else:
+        norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
     keep = norm < max_norm
     one = torch.ones((), dtype=norm.dtype, device=norm.device)
     torch._foreach_div_(grads, torch.where(keep, one, norm))

@@ -19,10 +19,18 @@ CUDA graph (``Engine.forward``), so the fixed-shape chunks of
 are read by ``data/csv_long.py`` and submissions written by
 ``utils/submission.py``, byte for byte as pandas writes them.
 
+Data parallelism (``predict.data_parallel``, default ``auto``): in a
+process that is a rank of a group (``parallel/mesh.py``; ``cli predict``
+spawns one rank per visible card), every forward block is padded to a
+multiple of the world (repeats of its last row, masked by ``row_valid``),
+each rank forwards its rows (the period selection is the whole block's),
+the rows are gathered on every rank and rank 0 writes the files. Chunk rows
+round up to the world, as in JAX.
+
 Deliberate differences from the JAX package: a horizon ``freq`` that is a
 calendar alias with no fixed step (``MS``, ``B``, ...) raises, naming the
-alias, where pandas would step it; data parallelism over more than one
-visible card raises (it is not ported).
+alias, where pandas would step it; JAX's data-parallel predict runs in one
+process only, the port's on ranks.
 """
 
 from __future__ import annotations
@@ -44,6 +52,7 @@ from .data.csv_long import read_csv_long
 from .data.pivot import infer_freq, inverse_transform, pivot_long_to_wide, transform_array
 from .data.time_features import build_time_features
 from .device import resolve_device
+from .parallel import mesh
 from .forecaster import (
     Forecaster,
     checkpoint_floors,
@@ -78,7 +87,8 @@ _CALENDAR_ALIAS = re.compile(
 
 
 def _log(msg: str) -> None:
-    print(msg, flush=True)
+    if mesh.is_main():
+        print(msg, flush=True)
 
 
 def _is_alias(freq: str) -> bool:
@@ -372,6 +382,8 @@ def _reduce_files(paths: Sequence[str], out_path: str, reduce: str, what: str) -
         if frame.keys != head.keys:
             raise ValueError(f"Ensemble member {p} rendered different submission rows than the "
                              "base member")
+    if not mesh.is_main():  # rank 0 alone writes
+        return
     stacked = np.stack([f.values for f in frames])
     out = head.copy()
     out.values = np.median(stacked, axis=0) if reduce == "median" else stacked.mean(axis=0)
@@ -441,6 +453,7 @@ def _predict_ensemble(runtime_dict: Dict[str, Any], ensemble_dirs: Sequence[str]
         _reduce_files([quantile_out_path(p, q) for p in member_paths],
                       quantile_out_path(out_path, q), reduce,
                       f"{quantile_label(q)} ensemble submission")
+    mesh.barrier()  # the files exist when any rank returns
     return out_path
 
 
@@ -665,24 +678,19 @@ def predict_once(cfg: PipelineConfig | Dict[str, Any]) -> str:
     # will run, ``auto`` pins the stored spec (if any) and makes the result
     # independent of how the rows are chunked.
     predict_cfg_raw = cfg_used.get("predict") or {}
+    mesh.check_launch(predict_cfg_raw, device, "predict", "predict")
+    n_ranks = mesh.world()  # the ranks share every forward block
     raw_freeze = predict_cfg_raw.get("freeze_periods")
     if raw_freeze is None:
-        will_chunk = _resolve_chunk_rows(predict_cfg_raw, len(ids), 1) is not None
+        will_chunk = _resolve_chunk_rows(predict_cfg_raw, len(ids), n_ranks) is not None
         raw_freeze = "auto" if will_chunk else "off"
         if will_chunk:
             _log("freeze_periods defaulting to 'auto' (chunked predict: pin the trained period "
                  "selection if the checkpoint froze)")
     tn_cfg = freeze_for_serving(tn_cfg, raw_freeze, train_cfg.get("frozen_periods_spec"), _log)
 
-    # Data parallelism over several cards is ROADMAP section 1 item 9.
-    predict_dp = str(predict_cfg_raw.get("data_parallel", "auto")).lower() not in (
-        "off", "false", "0", "no")
-    if device.type == "cuda" and torch.cuda.device_count() > 1 and predict_dp:
-        raise NotImplementedError(
-            f"{torch.cuda.device_count()} cards are visible and predict.data_parallel is "
-            f"'{predict_cfg_raw.get('data_parallel', 'auto')}': data-parallel predict is not "
-            "ported yet (ROADMAP.md section 1 item 9, parallel/mesh.py). Make one card visible "
-            "(CUDA_VISIBLE_DEVICES) or set predict.data_parallel=off.")
+    if n_ranks > 1:
+        _log(f"Predict: data-parallel over {n_ranks} ranks ({mesh.current().backend})")
     fc = Forecaster(convert.params_from_jax(tree, tn_cfg), tn_cfg, ids, scaler, method,
                     static_full, sigma_vector, device=device)
     engine = fc.engine
@@ -719,8 +727,12 @@ def predict_once(cfg: PipelineConfig | Dict[str, Any]) -> str:
     q_pred_lists: Dict[float, List[Forecasts]] = {q: [] for q in q_levels}
 
     def run_rows(arrays: Dict[str, Optional[np.ndarray]], n_rows: int, decode_steps: int):
-        """One fixed-shape forward; rows [0, n_rows) of rate and dispersion."""
+        """One fixed-shape forward; rows [0, n_rows) of rate and dispersion.
+        Under a group each rank forwards its rows of the block (padded to
+        the world) and every rank gets them all back."""
 
+        if n_ranks > 1:
+            arrays = mesh.shard_rows(_pad_rows(arrays, n_ranks))
         t = {k: (fc._tensor(v) if v is not None else None) for k, v in arrays.items()}
         if tn_cfg.mode == "direct":
             rate, disp = engine.forward(t["x"], t["x_mark"], t["static"], t["ids"], t["floor"],
@@ -729,8 +741,9 @@ def predict_once(cfg: PipelineConfig | Dict[str, Any]) -> str:
             rate, disp = engine.rollout(t["x"], decode_steps, x_mark=t["x_mark"],
                                         y_mark=t["y_mark"], static=t["static"], ids=t["ids"],
                                         floor=t["floor"], row_valid=t["row_valid"])
-        both = torch.stack([rate[:n_rows, :, 0], disp[:n_rows, :, 0]]).float().cpu().numpy()
-        return both[0], both[1]
+        both = torch.stack([rate[:, :, 0], disp[:, :, 0]], dim=1).float()  # [b, 2, H]
+        both = mesh.gather_rows(both)[:n_rows].cpu().numpy()
+        return both[:, 0], both[:, 1]
 
     pred_list: List[Forecasts] = []
     for batch in test_batches:
@@ -787,7 +800,7 @@ def predict_once(cfg: PipelineConfig | Dict[str, Any]) -> str:
             "floor": sigma_vector[gather].reshape(-1, 1, 1) if sigma_vector is not None else None,
             "row_valid": None,
         }
-        chunk_rows = _resolve_chunk_rows(cfg_used.get("predict"), num_series, 1)
+        chunk_rows = _resolve_chunk_rows(cfg_used.get("predict"), num_series, n_ranks)
         t_fwd = time.monotonic()
         if chunk_rows is None:
             rate_np, disp_np = run_rows(host_arrays, num_series, decode_steps)
@@ -853,14 +866,34 @@ def predict_once(cfg: PipelineConfig | Dict[str, Any]) -> str:
     if not output_path:
         raise ValueError(
             "submission.output_path (or out_path) must be specified in the configuration")
-    render_and_write(writer, preds, context, output_path)
+    if mesh.is_main():
+        render_and_write(writer, preds, context, output_path)
     _log(f"Saved submission: {output_path} (render+write {time.monotonic() - t_write:.1f}s)")
 
     for q in q_levels:
         q_path = quantile_out_path(output_path, q)
-        render_and_write(writer, merge_forecasts(q_pred_lists[q]), context, q_path)
+        if mesh.is_main():
+            render_and_write(writer, merge_forecasts(q_pred_lists[q]), context, q_path)
         _log(f"Saved {quantile_label(q)} submission ({q_method}): {q_path}")
+    mesh.barrier()  # the files exist when any rank returns
     return output_path
+
+
+def _pad_rows(arrays: Dict[str, Optional[np.ndarray]], n: int) -> Dict[str, Optional[np.ndarray]]:
+    """A forward block padded to a multiple of ``n`` rows with repeats of
+    its last row, which ``row_valid`` keeps out of the period selection's
+    batch means (JAX ``predict.py``'s padded shards)."""
+
+    pad = (-arrays["x"].shape[0]) % n
+    if not pad:
+        return arrays
+    valid = arrays.get("row_valid")
+    if valid is None:
+        valid = np.ones(arrays["x"].shape[0], np.float32)
+    out = {k: (np.concatenate([v, np.repeat(v[-1:], pad, axis=0)]) if v is not None else None)
+           for k, v in arrays.items()}
+    out["row_valid"] = np.concatenate([valid, np.zeros(pad, np.float32)])
+    return out
 
 
 def render_and_write(writer, predictions: Forecasts, context, path: str) -> None:

@@ -29,6 +29,21 @@ numpy generator on the host pipeline (the JAX package's batches bit for
 bit) and from the dropout generator inside each resident step; validation,
 the probe and evaluation see clean windows.
 
+Data parallelism (``train.data_parallel``, default ``auto``): in a process
+that is a rank of a group (``parallel/mesh.py``: ``cli train`` spawns one
+rank per visible card, or ``torchrun`` starts them), the global batch is
+padded with ``row_valid = 0`` rows to a multiple of the world and each rank
+steps on its rows, as the JAX package shards a batch over its mesh. Every
+rank builds the same global batches and plans from the same seeds; dropout
+and the resident augmentation draw from a generator seeded per rank. The
+period selection, the loss's normaliser, the gradients and the evaluation
+sums are global; ``train.shard_embedding`` (``auto``: ``id_vocab >= 2048``)
+row-shards the series table where the world divides it. Rank 0's frozen
+spec, metrics and pruning decision hold on every rank, and rank 0 alone
+logs and writes the artifacts (from the assembled table: the files one card
+writes). A process that sees several cards and belongs to no group raises,
+naming both ways to launch ranks.
+
 ``train.debug_nans`` reads back whether each step's loss, gradients and
 updated parameters are finite (one wait for the card a step) and raises
 ``FloatingPointError`` at the first step where one is not, naming the
@@ -36,8 +51,7 @@ epoch, the step and the first such parameter. ``train.profile_dir`` traces the f
 one (``torch.profiler``, the CPU and, on the card, CUDA activities) into
 that directory as a Chrome trace.
 
-Not ported (each raises): data parallelism over more than one visible card
-and ``model.period_buckets``.
+Not ported (it raises): ``model.period_buckets``.
 """
 
 from __future__ import annotations
@@ -61,10 +75,11 @@ from .data.pivot import fit_series_scaler, infer_freq, pivot_long_to_wide, trans
 from .data.schema import DataSchema
 from .data.split import make_holdout_slices, make_rolling_slices
 from .data.static_features import compute_series_features
-from .data.windows import build_batcher
+from .data.windows import build_batcher, pad_batch_rows
 from .device import resolve_device
 from .engine import Engine, batch_to_device, first_non_finite
 from .optim import LRController, resolve_warmup
+from .parallel import mesh
 from .utils import artifacts as artifacts_io
 from .utils import metadata as metadata_utils
 from .utils.metrics import wsmape_from_series_sums
@@ -75,7 +90,8 @@ _ALIAS_SECONDS = {"D": 86400, "h": 3600, "H": 3600, "min": 60, "T": 60, "s": 1, 
 
 
 def _log(msg: str) -> None:
-    print(msg, flush=True)
+    if mesh.is_main():
+        print(msg, flush=True)
 
 
 def masked_std(
@@ -248,11 +264,13 @@ def _staged_nbytes(batcher) -> int:
     return per_fold * len(sources)
 
 
-def _epoch_seed(seed: int, epoch: int) -> int:
+def _epoch_seed(seed: int, epoch: int, rank: Optional[int] = None) -> int:
     """The dropout generator's seed for ``epoch``: a function of the run's
-    seed and the epoch only."""
+    seed and the epoch only, and of the rank where there are several (each
+    rank's rows draw their own masks)."""
 
-    return int(np.random.SeedSequence([int(seed), 1, int(epoch)]).generate_state(1)[0])
+    entropy = [int(seed), 1, int(epoch)] + ([int(rank)] if rank is not None else [])
+    return int(np.random.SeedSequence(entropy).generate_state(1)[0])
 
 
 def _spec_lists(spec) -> List[List[List[Any]]]:
@@ -537,6 +555,35 @@ def _train_once(cfg, epoch_hook, trace: _EpochTrace) -> Tuple[float, Dict[str, A
         raise ValueError("Training split has no windows")
     init_params = convert.init_params(tn_cfg, torch.Generator().manual_seed(seed))
 
+    # Data parallelism: one rank a card, each on its rows of the global
+    # batch, padded with row_valid=0 rows to a multiple of the world (JAX
+    # train.py:670-720); the series table row-sharded where asked and where
+    # the world divides it.
+    mesh.check_launch(cfg["train"], device, "train", "train")
+    use_dp = mesh.grouped()
+    n_ranks = mesh.world()
+    dp_rows = mesh.dp_batch_rows(batch_size) if use_dp else batch_size
+    plan_rows = dp_rows if use_dp else None
+    shard_tables = False
+    if use_dp:
+        mesh.check_dcn(n_ranks, cfg["train"].get("dcn_slices", 1))
+        shard_raw = str(cfg["train"].get("shard_embedding", "auto")).lower()
+        vocab = tn_cfg.id_vocab
+        want_shard = (vocab >= 2048 if shard_raw == "auto"
+                      else shard_raw in ("true", "1", "yes", "on"))
+        shard_tables = want_shard and vocab % n_ranks == 0
+        if want_shard and not shard_tables:
+            _log(f"shard_embedding requested but id_vocab={vocab} does not divide the world "
+                 f"size {n_ranks}; the table stays replicated")
+        cfg["train"]["shard_embedding_effective"] = bool(shard_tables)
+        _log(f"Data parallel: batch {batch_size}"
+             + (f" (padded to {dp_rows})" if dp_rows != batch_size else "")
+             + f" sharded over mesh {mesh.current().axes}"
+             + (" · embedding table row-sharded" if shard_tables else "")
+             + f" ({mesh.current().backend}"
+             + ("; its collectives cannot be captured, so every step runs eagerly)"
+                if device.type == "cuda" and not mesh.graphs_allowed() else ")"))
+
     def make_engine(model_cfg):
         return Engine(
             model_cfg,
@@ -549,9 +596,11 @@ def _train_once(cfg, epoch_hook, trace: _EpochTrace) -> Tuple[float, Dict[str, A
             num_series=len(ids),
             ema_decay=ema_decay,
             debug_nans=debug_nans,
+            shard_table=shard_tables,
         )
 
     engine = make_engine(tn_cfg)
+    sharded = engine.sharded  # the parameters each rank holds only its rows of
     # Period specialization (``train.freeze_periods``): after
     # ``train.freeze_after_epoch`` warm-up epochs, a selection that is the
     # same at two consecutive probes becomes an engine on the frozen-period
@@ -571,6 +620,9 @@ def _train_once(cfg, epoch_hook, trace: _EpochTrace) -> Tuple[float, Dict[str, A
         if not freeze_enabled:
             return current_engine
         spec_now = Engine.frozen_spec_from_telemetry(telemetry, tn_cfg.n_layers)
+        # every rank takes rank 0's spec: ranks on different specs would run
+        # different programs and deadlock in the next collective
+        spec_now = mesh.sync_frozen_spec(spec_now, tn_cfg.n_layers, tn_cfg.k_periods)
         if spec_now is None:
             return current_engine
         prev = frozen_state["prev"]
@@ -599,23 +651,20 @@ def _train_once(cfg, epoch_hook, trace: _EpochTrace) -> Tuple[float, Dict[str, A
         return frozen_state["engines"][spec_now]
 
     state = engine.init_state()
-
-    # Data parallelism over several cards is ROADMAP section 1 item 9.
-    dp_enabled = str(cfg["train"].get("data_parallel", "auto")).lower() not in (
-        "off", "false", "0", "no",
-    )
-    if device.type == "cuda" and torch.cuda.device_count() > 1 and dp_enabled:
-        raise NotImplementedError(
-            f"{torch.cuda.device_count()} cards are visible and train.data_parallel is "
-            f"'{cfg['train'].get('data_parallel', 'auto')}': data parallelism is not ported "
-            "yet (ROADMAP.md section 1 item 9, parallel/mesh.py). Make one card visible "
-            "(CUDA_VISIBLE_DEVICES) or set train.data_parallel=off."
-        )
+    if use_dp:  # every rank starts from rank 0's weights (a shard keeps its own rows)
+        mesh.replicate(t.detach() for named in (state.params, state.ema or {})
+                       for k, t in named.items() if k not in sharded)
 
     def to_device(batch):
+        if use_dp:  # this rank's rows of the global batch, padded to the world
+            if batch.x.shape[0] < dp_rows:
+                batch = pad_batch_rows(batch, dp_rows)
+            batch = mesh.shard_rows(batch)
         return batch_to_device(batch, floor=_floor_for_batch(batch, sigma_vector), device=device)
 
     n_params = sum(int(p.numel()) for p in state.params.values())
+    if sharded:
+        n_params = int(n_params + (n_ranks - 1) * state.params[mesh.TABLE_NAME].numel())
     _log(f"Parameters: {n_params:,}")
 
     # ------------------------------------------------------------ lr schedule
@@ -672,7 +721,7 @@ def _train_once(cfg, epoch_hook, trace: _EpochTrace) -> Tuple[float, Dict[str, A
     train_state_path = os.path.join(art_dir, artifacts_io.TRAIN_STATE_FILE)
     start_epoch = 1
     if resume_enabled and os.path.exists(train_state_path):
-        state, resume_extra = artifacts_io.load_train_state(train_state_path, state)
+        state, resume_extra = artifacts_io.load_train_state(train_state_path, state, sharded)
         start_epoch = int(resume_extra.get("epoch", 0)) + 1
         best_nll = float(resume_extra.get("best_nll", best_nll))
         best_smape = float(resume_extra.get("best_smape", best_smape))
@@ -693,8 +742,8 @@ def _train_once(cfg, epoch_hook, trace: _EpochTrace) -> Tuple[float, Dict[str, A
             best_frozen_spec = None
         if os.path.exists(model_path) and np.isfinite(best_nll):
             tree, _ = artifacts_io.load_checkpoint(model_path)
-            best_params = {k: v.to(device)
-                           for k, v in convert.params_from_jax(tree, tn_cfg).items()}
+            best_params = {k: v.to(device) for k, v in mesh.shard_train_state(
+                convert.params_from_jax(tree, tn_cfg), sharded).items()}
         _log(f"Resumed from epoch {start_epoch - 1} "
              f"(best_nll={best_nll:.6f} @ epoch {best_epoch})")
 
@@ -720,11 +769,11 @@ def _train_once(cfg, epoch_hook, trace: _EpochTrace) -> Tuple[float, Dict[str, A
     cfg["train"]["input_pipeline_effective"] = "device" if use_resident else "host"
     if use_resident:
         # the eval plan is deterministic: build it once
-        val_idx, val_rv = epoch_index_plan(staged_val.total, batch_size, None, shuffle=False,
-                                           drop_last=False)
+        val_idx, val_rv = epoch_index_plan(staged_val.total, batch_size, plan_rows,
+                                           shuffle=False, drop_last=False)
         # a FIXED telemetry probe batch, so that the drift check does not see
         # batch-sampling noise as selection drift
-        probe_idx, probe_rv = epoch_index_plan(staged_train.total, batch_size, None,
+        probe_idx, probe_rv = epoch_index_plan(staged_train.total, batch_size, plan_rows,
                                                shuffle=False, drop_last=True)
         _log("Input pipeline: device-resident "
              f"({(_staged_nbytes(dl_train) + _staged_nbytes(dl_val)) / 1e6:.1f} MB staged)")
@@ -737,11 +786,13 @@ def _train_once(cfg, epoch_hook, trace: _EpochTrace) -> Tuple[float, Dict[str, A
         if profile_dir and ep == start_epoch + 1:  # the first epoch after the warm-up one
             trace.start(device)
         dl_train.set_epoch(ep)
-        generator.manual_seed(_epoch_seed(seed, ep))
+        generator.manual_seed(_epoch_seed(seed, ep, mesh.rank() if n_ranks > 1 else None))
         lr = lr_ctl.lr_for_epoch(ep)
         t0 = time.perf_counter()
 
         def check_step(step: int, finite: torch.Tensor, ep: int = ep) -> None:
+            if use_dp:  # a sharded table's flags are each rank's own: stop together
+                finite = mesh.all_sum_((~finite).int()) == 0
             bad = first_non_finite(state, finite)
             if bad is not None:
                 raise FloatingPointError(
@@ -749,7 +800,7 @@ def _train_once(cfg, epoch_hook, trace: _EpochTrace) -> Tuple[float, Dict[str, A
 
         if use_resident:
             idx_np, rv_np = epoch_index_plan(
-                staged_train.total, batch_size, None, shuffle=True, drop_last=True,
+                staged_train.total, batch_size, plan_rows, shuffle=True, drop_last=True,
                 rng=np.random.default_rng([seed, ep]),
             )
             if idx_np.shape[0] == 0:
@@ -809,8 +860,11 @@ def _train_once(cfg, epoch_hook, trace: _EpochTrace) -> Tuple[float, Dict[str, A
         coverage = mask_true_total / mask_total if mask_total > 0 else 0.0
         throughput = (n_batches * batch_size) / max(epoch_time, 1e-9)
         epoch_throughputs.append(float(throughput))
+        mean_loss = float(np.mean(losses))
+        if use_dp:  # global sums already; rank 0's values decide for every rank
+            mean_loss, coverage = mesh.agree([mean_loss, coverage])
 
-        if not np.isfinite(np.mean(losses)):
+        if not np.isfinite(mean_loss):
             raise FloatingPointError(
                 f"Non-finite training loss at epoch {ep}; check data scaling and lr."
             )
@@ -834,19 +888,21 @@ def _train_once(cfg, epoch_hook, trace: _EpochTrace) -> Tuple[float, Dict[str, A
             metrics = engine.evaluate(eval_params, (to_device(vb) for vb in dl_val))
         val_nll = float(metrics["nll"])
         val_smape = float(metrics["smape"])
+        if use_dp:
+            val_nll, val_smape = mesh.agree([val_nll, val_smape])
         for key, value in (("seconds", epoch_time), ("probe_seconds", t_probe - t0),
                            ("eval_seconds", time.perf_counter() - t_eval),
                            ("frozen", engine.cfg.frozen_periods is not None),
-                           ("loss", float(np.mean(losses))), ("val_nll", val_nll),
+                           ("loss", mean_loss), ("val_nll", val_nll),
                            ("val_smape", val_smape)):
             history[key].append(value)
-        _log(f"Epoch {ep} loss={np.mean(losses):.6f} val_nll={val_nll:.6f} "
+        _log(f"Epoch {ep} loss={mean_loss:.6f} val_nll={val_nll:.6f} "
              f"val_smape={val_smape:.6f} lr={lr:.3e} mask_cov={coverage:.4f} "
              f"windows/s={throughput:.1f} seconds={epoch_time:.3f}")
         if debug_memory and ep == start_epoch:
             _log_device_memory(f"epoch {ep}", device)
         trace.stop(os.path.join(str(profile_dir), f"torch_trace_epoch{ep}.json")
-                   if profile_dir else None)
+                   if profile_dir and mesh.is_main() else None)
         sel_value = val_nll if selection_metric == "nll" else val_smape
         lr_ctl.observe(sel_value)
         if sel_value < best_sel:
@@ -867,16 +923,18 @@ def _train_once(cfg, epoch_hook, trace: _EpochTrace) -> Tuple[float, Dict[str, A
                      f"with val_{selection_metric}={best_sel:.6f} "
                      f"(val_nll={best_nll:.6f}, val_smape={best_smape:.6f})")
                 break
-        if epoch_hook is not None and epoch_hook(ep, float(sel_value)):
+        if epoch_hook is not None and mesh.agree([float(epoch_hook(ep, float(sel_value)))])[0]:
             _log(f"Pruned at epoch {ep} by the tuner (val_{selection_metric}={sel_value:.6f})")
             break
         if save_state_enabled:
             if best_params is not None and best_epoch == ep:
-                artifacts_io.save_checkpoint(
-                    model_path,
-                    convert.params_to_jax(best_params, tn_cfg),
-                    _checkpoint_aux(min_sigma_scalar, sigma_vector),
-                )
+                whole = mesh.host_fetch(best_params, sharded)
+                if mesh.is_main():
+                    artifacts_io.save_checkpoint(
+                        model_path,
+                        convert.params_to_jax(whole, tn_cfg),
+                        _checkpoint_aux(min_sigma_scalar, sigma_vector),
+                    )
             artifacts_io.save_train_state(
                 train_state_path,
                 state,
@@ -894,20 +952,25 @@ def _train_once(cfg, epoch_hook, trace: _EpochTrace) -> Tuple[float, Dict[str, A
                         _spec_lists(best_frozen_spec) if best_frozen_spec is not None else []
                     ),
                 },
+                sharded,
             )
+            mesh.barrier()
 
     _log(f"Best epoch {best_epoch} with val_nll={best_nll:.6f} "
          f"(val_smape={best_smape:.6f}, val_wsmape={best_wsmape:.6f})")
     if best_params is None:
         best_params = state.ema if ema_decay > 0.0 else state.params
         best_frozen_spec = frozen_state["spec"]
+    best_params = mesh.host_fetch(best_params, sharded)  # the whole table on every rank
 
     # --------------------------------------------------------------- artifacts
+    # rank 0 writes them; the others wait at the barrier below
     t_artifacts = time.perf_counter()
-    os.makedirs(art_dir, exist_ok=True)
-    artifacts_io.save_checkpoint(model_path, convert.params_to_jax(best_params, tn_cfg),
-                                 _checkpoint_aux(min_sigma_scalar, sigma_vector))
-
+    main = mesh.is_main()
+    if main:
+        os.makedirs(art_dir, exist_ok=True)
+        artifacts_io.save_checkpoint(model_path, convert.params_to_jax(best_params, tn_cfg),
+                                     _checkpoint_aux(min_sigma_scalar, sigma_vector))
     scaler_path = os.path.join(art_dir, cfg["artifacts"].get("scaler_file", "scaler.pkl"))
     schema_path = os.path.join(art_dir, cfg["artifacts"].get("schema_file", "schema.json"))
     cfg_path = os.path.join(art_dir, cfg["artifacts"].get("config_file", "config_used.yaml"))
@@ -925,24 +988,14 @@ def _train_once(cfg, epoch_hook, trace: _EpochTrace) -> Tuple[float, Dict[str, A
             cfg["train"]["frozen_periods_spec"] = _spec_lists(best_frozen_spec)
         else:
             cfg["train"].pop("frozen_periods_spec", None)
-    artifacts_io.save_pickle(
-        {
+    scaler_payload = {
             "scaler": scaler,
             "method": norm_method,
             "ids": ids,
             "static_features": series_static_np,
             "feature_names": static_feature_names,
             "time_features": time_feature_meta,
-        },
-        scaler_path,
-    )
-    artifacts_io.save_schema_artifact(
-        schema_path,
-        schema,
-        normalization=normalization_meta,
-        extras={"time_features": time_feature_meta},
-    )
-    save_yaml(cfg, cfg_path)
+    }
     static_feature_dim = static_dim
     metadata_artifact = metadata_utils.MetadataArtifact.from_training(
         window=window_cfg,
@@ -953,7 +1006,6 @@ def _train_once(cfg, epoch_hook, trace: _EpochTrace) -> Tuple[float, Dict[str, A
             "feature_dim": static_feature_dim,
         },
     )
-    metadata_utils.save_metadata_artifact(metadata_artifact, metadata_path)
 
     signature_payload = {
         "signature_version": 1,
@@ -988,7 +1040,18 @@ def _train_once(cfg, epoch_hook, trace: _EpochTrace) -> Tuple[float, Dict[str, A
             "schema_artifact_version": artifacts_io.SCHEMA_ARTIFACT_VERSION,
         },
     }
-    metadata_utils.save_json(signature_payload, signature_path)
+    if main:
+        artifacts_io.save_pickle(scaler_payload, scaler_path)
+        artifacts_io.save_schema_artifact(
+            schema_path,
+            schema,
+            normalization=normalization_meta,
+            extras={"time_features": time_feature_meta},
+        )
+        save_yaml(cfg, cfg_path)
+        metadata_utils.save_metadata_artifact(metadata_artifact, metadata_path)
+        metadata_utils.save_json(signature_payload, signature_path)
+    mesh.barrier()  # the files exist when any rank returns
     t_end = time.perf_counter()
     _log(f"Saved: {model_path}, {scaler_path}, {schema_path}, {cfg_path}, "
          f"{signature_path}, {metadata_path}")

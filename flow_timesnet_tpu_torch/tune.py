@@ -15,6 +15,13 @@ diverged trial (``FloatingPointError``) scores ``inf``, and
 artifacts directory on every improvement and at the end, as the JAX
 package writes them.
 
+Under data parallelism (a group of ``parallel/mesh.py``; ``cli tune``
+spawns one rank per visible card) every trial's ``train_once`` runs on
+every rank. The sampler runs on every rank from the same seed and history,
+and each suggestion is checked against rank 0's; the timeout and each
+pruning are rank 0's decisions; rank 0 alone writes ``best_params.json``
+and ``best_config.yaml``.
+
 Between trials everything a trial held on the card is released: its
 engines, CUDA graphs and their memory pools, its staged folds and
 parameters are garbage once ``train_once`` returns, and are collected
@@ -34,6 +41,7 @@ import numpy as np
 import torch
 
 from .config import PipelineConfig, load_yaml, save_yaml
+from .parallel import mesh
 from .train import train_once
 from .utils.metadata import save_json
 
@@ -47,7 +55,18 @@ except ImportError:
 
 
 def _log(msg: str) -> None:
-    print(msg, flush=True)
+    if mesh.is_main():
+        print(msg, flush=True)
+
+
+def _same_on_every_rank(params: Mapping[str, Any]) -> Dict[str, Any]:
+    """``params``, checked equal to rank 0's suggestion: ranks that
+    trained different trials would deadlock in their first collective."""
+
+    first = mesh.broadcast_object(dict(params))
+    if first != dict(params):
+        raise RuntimeError(f"rank {mesh.rank()} suggested {dict(params)}, rank 0 {first}")
+    return dict(params)
 
 
 def _set_dotted(cfg: Dict[str, Any], path: str, value: Any) -> None:
@@ -172,6 +191,7 @@ def tune(
         )
 
     def run_with(params: Mapping[str, Any], epoch_hook=None) -> float:
+        params = _same_on_every_rank(params)
         cfg_dict = base_cfg.to_dict()
         for path, value in params.items():
             _set_dotted(cfg_dict, path, value)
@@ -189,10 +209,13 @@ def tune(
     t_start = time.monotonic()
 
     def _timed_out() -> bool:
-        return timeout_s is not None and (time.monotonic() - t_start) >= timeout_s
+        late = timeout_s is not None and (time.monotonic() - t_start) >= timeout_s
+        return bool(mesh.agree([float(late)])[0])
 
     def _persist_best(value: float, params: Mapping[str, Any]) -> None:
         # on every improvement, so that a study cut mid-trial leaves its best so far
+        if not mesh.is_main():
+            return
         save_json({"best_value": value, "objective": objective_key, "best_params": params},
                   os.path.join(out_dir, "best_params.json"))
         cfg_out = base_cfg.to_dict()
@@ -229,7 +252,13 @@ def tune(
                 raise optuna.TrialPruned()
             return value
 
-        study.optimize(objective, n_trials=trials, timeout=timeout_s)
+        if mesh.world() > 1:  # the timeout is rank 0's decision: one trial at a time
+            for _ in range(trials):
+                if _timed_out():
+                    break
+                study.optimize(objective, n_trials=1)
+        else:
+            study.optimize(objective, n_trials=trials, timeout=timeout_s)
         best_params = dict(study.best_params)
         best_value = float(study.best_value)
     else:
@@ -269,5 +298,6 @@ def tune(
                 _persist_best(best_value, best_params)
 
     _persist_best(best_value, best_params)
+    mesh.barrier()  # the files exist when any rank returns
     _log(f"Best trial: {objective_key}={best_value:.6f} params={best_params}")
     return {"best_value": best_value, "best_params": best_params}

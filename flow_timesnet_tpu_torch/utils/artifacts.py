@@ -12,6 +12,10 @@ run (parameters, AdamW moments and step counts, EMA, accumulator, and the
 loop counters) is the port's own layout, in the same codec, in a file of
 its own name (:data:`TRAIN_STATE_FILE`): neither package takes the other's.
 ``scaler.pkl`` holds no pandas object, so both packages read each other's.
+Under data parallelism with a row-sharded series table the training state
+is written from the assembled table and moments (rank 0 writes, every rank
+takes part in the assembly), byte for byte what one card writes, and
+loading cuts them to each rank's rows again.
 """
 
 from __future__ import annotations
@@ -25,6 +29,7 @@ import numpy as np
 import torch
 
 from ..data.schema import DataSchema
+from ..parallel import mesh
 from . import msgpack_codec
 from .metadata import load_json, save_json
 
@@ -99,40 +104,44 @@ def load_checkpoint(path: str) -> Tuple[Any, Dict[str, Any]]:
 # -- full training state (true resume: params + optimizer + loop counters) ---
 
 
-def _named(tensors: Optional[Mapping[str, torch.Tensor]]):
+def _named(tensors: Optional[Mapping[str, torch.Tensor]], sharded=()):
     if tensors is None:
         return None
-    return {k: v.detach().cpu().numpy() for k, v in tensors.items()}
+    return {k: v.cpu().numpy() for k, v in mesh.host_fetch(tensors, sharded).items()}
 
 
-def save_train_state(path: str, state: Any, extra: Mapping[str, Any]) -> None:
+def save_train_state(path: str, state: Any, extra: Mapping[str, Any], sharded=()) -> None:
     """Persist a port ``TrainState`` and the loop's host state for resume:
     parameters, each parameter's AdamW ``exp_avg``, ``exp_avg_sq`` and
     ``step``, the accumulator and the EMA (each None where off), and
-    ``extra`` (epoch, bests, patience, ``LRController.state_dict()``)."""
+    ``extra`` (epoch, bests, patience, ``LRController.state_dict()``).
+    ``sharded`` names the tensors that hold one rank's rows: every rank
+    calls this, the whole tensors are assembled and rank 0 writes."""
 
     opt = state.optimizer.adamw
-    moments = {key: {name: opt.state[p][key].detach().cpu().numpy()
-                     for name, p in state.params.items()}
+    moments = {key: _named({name: opt.state[p][key] for name, p in state.params.items()},
+                           sharded if key != "step" else ())
                for key in ("exp_avg", "exp_avg_sq", "step")}
     payload = {
         "format": TRAIN_STATE_FORMAT,
         "version": CHECKPOINT_VERSION,
-        "params": _named(state.params),
+        "params": _named(state.params, sharded),
         "optimizer": moments,
-        "grad_accum": _named(state.grad_accum),
-        "ema": _named(state.ema),
+        "grad_accum": _named(state.grad_accum, sharded),
+        "ema": _named(state.ema, sharded),
         "extra": dict(extra),
     }
-    _write(path, payload)
+    if mesh.is_main():
+        _write(path, payload)
 
 
-def load_train_state(path: str, template_state: Any) -> Tuple[Any, Dict[str, Any]]:
+def load_train_state(path: str, template_state: Any, sharded=()) -> Tuple[Any, Dict[str, Any]]:
     """Copy a saved training state into ``template_state``'s tensors in
     place (they keep their storage, so graphs captured on them stay
     valid) and return ``(state, extra)``. An EMA missing from the file
     restarts from the resumed parameters; one the template lacks is
-    dropped."""
+    dropped. The tensors named in ``sharded`` take this rank's rows of the
+    stored ones."""
 
     payload = _read(path)
     if not isinstance(payload, dict) or payload.get("format") != TRAIN_STATE_FORMAT:
@@ -141,6 +150,8 @@ def load_train_state(path: str, template_state: Any) -> Tuple[Any, Dict[str, Any
     def load_into(dst: Mapping[str, torch.Tensor], src: Mapping[str, np.ndarray], what: str):
         if set(dst) != set(src):
             raise ValueError(f"{path}: the stored {what} are not this model's")
+        if what != "optimizer step":
+            src = mesh.shard_train_state(src, sharded)
         with torch.no_grad():
             for name, t in dst.items():
                 value = torch.from_numpy(np.asarray(src[name])).to(dtype=t.dtype)

@@ -1470,3 +1470,91 @@ def test_a_profile_dir_trace_names_the_fold_conv_kernels(cuda, tmp_path):
     kernels = {e["name"] for e in events if e.get("cat") == "kernel"}
     assert any("tap_conv" in name for name in kernels), sorted(kernels)[:20]
     assert not torch.autograd.profiler._is_profiler_enabled
+
+
+# -- data parallelism: each rank's batch, a group of one on the card ---------------
+
+DP_RANK_BATCHES = (64, 128, 256)  # the flagship's 256 and the high-cardinality 512 over 2 and 4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", DP_RANK_BATCHES)
+@pytest.mark.parametrize("kh", [3, 5, 7])
+def test_every_route_plans_each_ranks_batch(cuda, B, kh):
+    """At the flagship's fold (K=2, L=28, Lp=55, 32 channels) and each batch
+    a rank steps on under data parallelism, every route's plan (bf16 forward,
+    dh and dW; float32 forward, dh and dW) equals the kernel's own; at the
+    smallest, each route equals its plain version (1e-4; dW 1e-4 of its
+    largest value)."""
+
+    K, L, C = 2, 28, 32
+    geom = fold.make_geometry(torch.tensor([7, 27], dtype=torch.int32, device=cuda), L, L - 1)
+    shape = (K, B, geom.Lp, C, C, kh, kh, geom.p_max)
+    for sign in (1, -1):
+        assert cuda_fold.fold_mma_plan(sign, *shape) == cuda_fold.fold_mma_plan_of_kernel(
+            sign, *shape)
+    assert cuda_fold.dw_mma_plan(*shape) == cuda_fold.dw_mma_plan_of_kernel(*shape)
+    assert cuda_fold.fwd_f32_plan(*shape) == cuda_fold.fwd_f32_plan_of_kernel(*shape)
+    assert cuda_fold.dh_f32_plan(*shape) == cuda_fold.dh_f32_plan_of_kernel(*shape)
+    assert cuda_fold.dw_f32_plan(*shape[:-1]) == cuda_fold.dw_f32_plan_of_kernel(*shape[:-1])
+    if B != min(DP_RANK_BATCHES):
+        return
+    g = torch.Generator(device=cuda).manual_seed(B + kh)
+    h32, ct32 = (torch.randn((K, B, geom.Lp, C), generator=g, device=cuda) for _ in range(2))
+    w = torch.randn((kh, kh, C, C), generator=g, device=cuda) * 0.3
+    bias = torch.randn((C,), generator=g, device=cuda) * 0.1
+    for dtype in (torch.bfloat16, torch.float32):
+        h, ct = h32.to(dtype), ct32.to(dtype)
+        torch.testing.assert_close(cuda_fold.tap_conv_cuda(h, geom, w, bias, kh, kh),
+                                   fold.tap_conv(h, geom, w, bias, kh, kh), rtol=1e-4, atol=1e-4)
+        torch.testing.assert_close(cuda_fold.tap_conv_dh_cuda(ct, geom, w, kh, kh),
+                                   fold.tap_conv_dh(ct, geom, w, kh, kh), rtol=1e-4, atol=1e-4)
+        want = fold.tap_weight_grad(h, geom, ct, kh, kh)
+        torch.testing.assert_close(cuda_fold.tap_conv_dw_cuda(h, geom, ct, kh, kh), want,
+                                   rtol=1e-4, atol=1e-4 * float(want.abs().max()))
+
+
+@pytest.mark.cuda
+def test_a_group_of_one_on_nccl_replays_the_ungrouped_step_bitwise(cuda, monkeypatch):
+    """Ten replayed steps in a one-rank NCCL group against ten replayed
+    steps with no group, from the same state: the same losses, masks and
+    state, bit for bit (a sum over one rank is the identity), and the
+    captured step holds the gradient bucket's ``all_reduce`` (the
+    collectives called while the capture ran)."""
+
+    import torch.distributed as dist
+
+    from flow_timesnet_tpu_torch.parallel import mesh
+
+    cfg, params, batch = _graph_setup(cuda, False, 0.0)
+    captured = []
+    real = dist.all_reduce
+
+    def all_reduce(t, *args, **kwargs):
+        captured.append(torch.cuda.is_current_stream_capturing())
+        return real(t, *args, **kwargs)
+
+    monkeypatch.setattr(dist, "all_reduce", all_reduce)
+    out = []
+    for grouped in (False, True):
+        if grouped:
+            mesh.setup(0, 1, f"tcp://localhost:{mesh.free_port()}", device="cuda")
+            captured.clear()
+        try:
+            graphed, _ = _engines(cuda, cfg, params)
+            assert graphed.cuda_graphs
+            state, gen = graphed.init_state(), torch.Generator(device=cuda).manual_seed(7)
+            losses, masks = [], []
+            for _ in range(10):
+                state, loss, stats = graphed.train_step(state, 1e-3, gen, batch)
+                losses.append(loss)
+                masks.append(stats["mask_true"])
+            torch.cuda.synchronize()
+            out.append((torch.stack(losses), torch.stack(masks), state))
+        finally:
+            if grouped:
+                mesh.teardown()
+    (l0, m0, s0), (l1, m1, s1) = out
+    assert torch.equal(l0, l1) and torch.equal(m0, m1)
+    assert all(torch.equal(a, b) for a, b in zip(s0.tensors(), s1.tensors()))
+    assert any(captured), "no all_reduce was captured with the step"
