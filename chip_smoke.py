@@ -38,18 +38,18 @@ Phases, each of which fails the run (non-zero exit, no result line):
 4. serve: a ``Forecaster`` at the full width of the flagship model
    (``configs/demand_benchmark.yaml``: d_model 128, d_ff 512, two layers,
    2,536,356 parameters, bf16 conv islands) with seeded random weights
-   answers 200 timed requests of 192 series x 28 days; the forward must be
+   answers 100 timed requests of 192 series x 28 days; the forward must be
    launched 12 times per request, all on the tensor-core route, the forecasts must be finite and >= 0,
    and a float32 request must match the same request on the CPU within 1e-4,
    its forward launched 12 times, none on the tensor-core route.
-   Then 200 requests interleaved with 200 forwards on the request's own
+   Then 100 requests interleaved with 100 forwards on the request's own
    device inputs split the request into host and forward;
-5. profile: device time per request by kernel (torch.profiler, 50
+5. profile: device time per request by kernel (torch.profiler, 20
    requests) against the request's p50, which gives the device's busy and
    idle share. Then ``[serve-frozen]``: the frozen spec from
    ``Engine.collect_period_telemetry`` on the serving batch, stored as JSON
    and read back with ``frozen_spec_from_config``; the ``Forecaster`` on
-   it answers 100 timed requests, each launching the forward 2 x 3 x U
+   it answers 50 timed requests, each launching the forward 2 x 3 x U
    times (U: the unique valid periods, summed over layers), all on the
    tensor-core route, forecasts finite and >= 0; a float32 frozen request
    equals the same request on the CPU within 1e-4 and the float32 dynamic
@@ -66,7 +66,7 @@ Phases, each of which fails the run (non-zero exit, no result line):
    equal the wrapper's mirror of it. float32 is also held against cuDNN's
    convolution backward over the exact fold grids within 1e-3 (of the
    largest dW);
-7. train: the flagship at full width and depth takes 5 + 100 timed
+7. train: the flagship at full width and depth takes 5 + 50 timed
    ``Engine.train_step`` calls at B=256 on seeded windows of 192 series x
    365 days (``SlidingWindowSource`` -> ``WindowBatcher`` ->
    ``batch_to_device``; lr from ``LRController``, dropout 0.0675, EMA 0.99,
@@ -78,12 +78,12 @@ Phases, each of which fails the run (non-zero exit, no result line):
    within 1e-5 relative, gradients within 1e-4 of the largest, the NB-NLL
    alone within 1e-5), its forward, dh and dW on the CUDA-core routes (12
    launches each, none on a tensor-core route); then device time per step
-   by kernel over 20 profiled steps, of the bf16 step and of a float32 one
-   (``compute_dtype="float32"``, the JAX package's default: 20 timed steps,
-   then 20 profiled), each with the fold conv's device time per step.
+   by kernel over 10 profiled steps, of the bf16 step and of a float32 one
+   (``compute_dtype="float32"``, the JAX package's default: 10 timed steps,
+   then 10 profiled), each with the fold conv's device time per step.
    Then ``[train-frozen]``: the spec from telemetry on a training batch,
    and an engine on it that continues the dynamic run's ``TrainState`` for
-   5 + 50 timed steps (p50 with p10-p90, windows/s), each launching the
+   5 + 25 timed steps (p50 with p10-p90, windows/s), each launching the
    forward, dh and dW 2 x 3 x U times on the tensor-core routes; a float32
    frozen step with dropout 0 equals the same step on the CPU (loss within
    1e-5 relative, gradients within 1e-4 of the largest), its kernels on
@@ -96,7 +96,7 @@ Phases, each of which fails the run (non-zero exit, no result line):
    beside the times of their previous design (the float32 forward also at
    B=256 on the training path's periods, where a float32 step runs it; the
    ``kernels`` line keeps B=192). Times are device time (torch.profiler's
-   kernel time, mean of 100 calls; a profiler session that loses records is
+   kernel time, mean of 50 calls; a profiler session that loses records is
    taken again, and the run fails if they keep being lost); the kernel's and
    cuDNN's calls are also timed back to back by CUDA events, which adds the
    host's launch work where that is the longer. Then each route of each
@@ -106,17 +106,17 @@ Phases, each of which fails the run (non-zero exit, no result line):
    float32 step's, the frozen request's and the frozen step's profiles.
 
 9. serve-graph: ``Forecaster.forecast`` as served by default, the forward
-   replayed from its CUDA graph: 200 requests on the dynamic path and 200
+   replayed from its CUDA graph: 100 requests on the dynamic path and 100
    on the frozen spec of phase 5, each running the forward 12 times (2 x 3
    x U) on the card, forecasts equal to the eager ones of phases 4-5
-   within rtol/atol 1e-5, p50 beside the eager p50, and 50 replayed
+   within rtol/atol 1e-5, p50 beside the eager p50, and 20 replayed
    requests under the profiler (device busy, busy share, launches);
 10. train-graph: ``Engine.train_step`` as trained by default, replayed from
-   its CUDA graph: 5 + 100 dynamic steps, then 5 + 100 frozen ones
+   its CUDA graph: 5 + 50 dynamic steps, then 5 + 50 frozen ones
    continuing the state, against eager steps from the same state,
    generator and batches (losses within 1e-5 relative, the state within
    1e-4 of its largest value), 12 runs of each kernel a step on the card
-   (2 x 3 x U), p50 and windows/s beside the eager ones, 20 replayed steps
+   (2 x 3 x U), p50 and windows/s beside the eager ones, 10 replayed steps
    of each path under the profiler;
 11. train-resident: ``Engine.train_epoch_resident`` over the staged
    192-series data of phase 7, four epochs of 215 steps as the JAX
@@ -133,7 +133,7 @@ Phases, each of which fails the run (non-zero exit, no result line):
    256, K=4, ``use_checkpoint``, bf16, seeded random weights) serves one
    request of 48 series x 512 hours with 24 ahead on the live selector,
    made with numpy from a seed as ``tools/make_long_context_benchmark.py``
-   makes its data: 50 eager and 50 replayed requests (p50, the forward
+   makes its data: 25 eager and 25 replayed requests (p50, the forward
    launched 2 x 2 times a size each, replays equal to eager), 20 of each
    under the profiler, and a float32 request card vs CPU within 1e-4;
 13. train-long: steps at B=64 and the recipe's rate, remat on: 3 + 20
@@ -221,7 +221,26 @@ Phases, each of which fails the run (non-zero exit, no result line):
    card's frozen forward of 96 rows differs alone and within 192 (the
    bytes differ by that). (d) With several cards, (b)'s float32 steps on NCCL
    ranks, one a card, replayed, timed beside one card; with one, a line
-   that says so.
+   that says so;
+23. buckets (after phase 11): ``model.period_buckets: auto`` (the ladder 7,
+   14, 27 at L=28), which the port accepts and runs on the full-cap fold
+   (the bucketed result). (a) The flagship's request with the ladder
+   against the same request without it, eager and replayed, bit for bit,
+   12 forward runs a replayed request on the card, p50 each way. (b)
+   Replayed B=256 steps of phase 7's batches, bf16 (10) and float32 (5),
+   dropout on: losses and the whole state equal the unbucketed steps bit
+   for bit, 12 runs of each kernel a step;
+24. rollout: the flagship with ``model.mode: recursive`` and seeded
+   weights serves its 7-step horizon: 20 eager requests, then the decode
+   captured as one graph and 20 replayed requests, each equal to the eager
+   forecast bit for bit, 12 x 7 forward runs a request on the card and no
+   wrapper; p50 of both;
+25. prefetch: ``train_once`` of configs/demand_benchmark.yaml on the host
+   pipeline for two epochs of its benchmark CSV cut to 120 days (58 steps
+   of 256 an epoch), periods live, four runs with ``prefetch_factor`` 2, 0,
+   0, 2: the epoch losses, validation NLL and checkpoint bytes bit for
+   bit, a prefetch thread an epoch where it is on, every bf16 kernel run at
+   each size; each run's epoch seconds (the second epoch steady).
 
 The recipes' blocks (the models, schedules and engine settings of phases
 4-14) are read from configs/demand_benchmark.yaml and
@@ -233,7 +252,7 @@ Launches are counted twice. The wrappers count where they launch a kernel
 no wrapper, so phases 9-11 hold the wrappers to the first call's warm-up
 and capture ((3 + 1) x a pass) and to nothing after it, and the card's
 counts to every run: the warm-up calls and each replay (the capture runs
-nothing). Phase 4 holds the two counts equal over its 200 eager requests.
+nothing). Phase 4 holds the two counts equal over its 100 eager requests.
 Phases 4-8 set ``Engine.cuda_graphs = False`` on their engines and
 forecasters (op-by-op dispatch), the yardstick of phases 9-11.
 The ``kernels`` line also gives each kernel's exact-extent numbers
@@ -241,7 +260,7 @@ The ``kernels`` line also gives each kernel's exact-extent numbers
 and step (``launches_serve_frozen``, ``launches_train_frozen``; the float32
 rows from the float32 frozen request and parity step) and its runs on the
 card in the replayed paths of phases 9-11 (``launches_serve_graph`` over
-200 replayed requests, ``launches_train_graph`` over 100 replayed steps,
+100 replayed requests, ``launches_train_graph`` over 50 replayed steps,
 ``launches_resident`` over a steady resident epoch of 215 steps, each also
 ``_frozen``; bf16, so the float32 rows count 0 there), and for 3x3 and 5x5
 ``long_context``: the long-context times of phase 3 by geometry and the launches of
@@ -251,8 +270,12 @@ the card in phases 15 and 16 (bf16 recipes: the float32 rows count 0), and
 ``launches_predict``, ``launches_evaluate`` and ``launches_predict_long``:
 each kernel's runs on the card in the recipe-as-shipped runs of phases
 17-19 (the same), ``launches_augment`` / ``launches_tune``: its runs in
-phase 20's ``train_once`` epoch and in phase 21's study, and ``launches_dp``:
-its runs in phase 22's one-rank ``train_once`` epoch.
+phase 20's ``train_once`` epoch and in phase 21's study, ``launches_dp``:
+its runs in phase 22's one-rank ``train_once`` epoch,
+``launches_buckets_step`` / ``launches_buckets_request``,
+``launches_rollout`` and ``launches_prefetch``: its runs on the card in one
+replayed bucketed step (the float32 rows: a float32 one) and request, in
+phase 24's replayed requests and in phase 25's first prefetched ``train_once``.
 ``[clock]`` lines give the time since the start at the end of each phase.
 
 The last lines are the ``kernels`` JSON line, the card line of ``nvidia-smi``
@@ -284,9 +307,9 @@ KERNEL_SIZES = ((3, 3), (5, 5), (7, 7))
 PERIOD_SETS = ((7, 14), (4, 27), (1, 27))
 TOL = 1e-4
 DENSE_PERIODS = (7, 27)  # the frozen paths' exact extents: Lp = total = 28 and 54
-REQUESTS = 200  # timed requests per serving measurement (about 12 ms each)
-FROZEN_REQUESTS, FROZEN_STEPS = 100, 50  # timed on the frozen-period path
-PROFILED = 50  # requests under the profiler
+REQUESTS = 100  # timed requests per serving measurement
+FROZEN_REQUESTS, FROZEN_STEPS = 50, 25  # timed on the frozen-period path
+PROFILED = 20  # requests under the profiler
 PROFILER_TRIES = 10  # profiler sessions a device time may take before the run fails
 LAUNCHES_PER_PASS = 12  # 2 layers x 2 inception blocks x 3 branches, per forward or backward
 # device us of the previous design of the float32 forward (B=192, the served
@@ -306,8 +329,8 @@ REPLACES_DW = "flow_timesnet_tpu/ops/fold.py:265 (XLA; companion of pallas_fold.
 SOURCE = "flow_timesnet_tpu_torch/csrc/tap_conv_fwd.cu"
 SOURCE_BWD = "flow_timesnet_tpu_torch/csrc/tap_conv_bwd.cu"
 DAYS, HELD_OUT_DAYS = 365, 44  # 44 days hold 10 windows a series: 8 batches, the last padded
-WARMUP_STEPS, TIMED_STEPS, OVERFIT_STEPS, PROFILED_STEPS = 5, 100, 30, 20
-GRAPH_REQUESTS, GRAPH_STEPS = 200, 100  # replayed from CUDA graphs, each path
+WARMUP_STEPS, TIMED_STEPS, OVERFIT_STEPS, PROFILED_STEPS = 5, 50, 30, 10
+GRAPH_REQUESTS, GRAPH_STEPS = 100, 50  # replayed from CUDA graphs, each path
 RESIDENT_CHUNK = 20  # resident steps under the profiler, each path
 DEVICE = "cuda"
 # the long-context recipe (configs/long_context.yaml): hourly, 48 series x 2,400 hours
@@ -315,16 +338,17 @@ LONG_L, LONG_H, LONG_SERIES, LONG_HOURS, LONG_HOLDOUT, LONG_B = 512, 24, 48, 240
 LONG_SIZES = ((3, 3), (5, 5))
 LONG_PERIODS = (511, 168, 24, 7)  # the dynamic kernel shape: K=4, Lp 1023, p_cap 511
 LONG_DENSE = (25, 171)  # the daily and weekly periods' exact extents: Lp 525 and 513
-LONG_REQUESTS = 50  # timed long requests, eager and replayed
+LONG_REQUESTS = 25  # timed long requests, eager and replayed
 LONG_WARMUP, LONG_STEPS, LONG_MEM_STEPS = 3, 20, 10  # long training steps, each path
 LONG_HOST_STEPS = 20  # resident losses held against the host pipeline's eager steps
 LONG_PARITY_B = 16  # rows of the float32 card-vs-CPU long step
 LONG_ITERS = 20  # calls a long-context kernel timing takes
+KERNEL_ITERS = 50  # calls a flagship kernel timing takes
 TRAIN_ONCE_EPOCHS, TRAIN_ONCE_LONG_EPOCHS = 3, 1  # train_once's epochs on each recipe
 PREDICT_CHUNK, PREDICT_CHUNK_LONG = 64, 16  # rows a chunk of the chunked predict: 3 a file
 AUGMENT_PAD = 17  # padded rows of the augmented batch
 AUGMENT_EQ_STEPS = 20  # resident steps a chunk, replayed against eager (two chunks)
-AUGMENT_CHUNK, AUGMENT_TIMED = 43, 6  # steps a timed resident chunk; chunks timed each way
+AUGMENT_CHUNK, AUGMENT_TIMED = 43, 3  # steps a timed resident chunk; chunks timed each way
 # cli tune's trials (two keep the script inside its time limit beside [dp]); days of
 # its benchmark CSV (uncut: 560)
 TUNE_TRIALS, TUNE_DAYS = 2, 560
@@ -440,7 +464,7 @@ def spread(np, values) -> str:
             f"min {np.min(values):.3f}, max {np.max(values):.3f}; n={len(values)})")
 
 
-def time_ms(torch, fn, iters: int = 100) -> float:
+def time_ms(torch, fn, iters: int = KERNEL_ITERS) -> float:
     """Device time of one call: what its kernels take on the card, from
     torch.profiler over ``iters`` calls after a warm-up (inputs stay in L2,
     as they do between the model's ops). The host's time between launches is
@@ -486,7 +510,7 @@ def time_ms(torch, fn, iters: int = 100) -> float:
     fail(f"the profiler lost {PROFILER_TRIES} sessions in a row: device time not measured")
 
 
-def call_ms(torch, fn, iters: int = 100) -> float:
+def call_ms(torch, fn, iters: int = KERNEL_ITERS) -> float:
     """Time of one call back to back with the next, from CUDA events around
     ``iters`` calls after a warm-up: the device time, or the host's launch
     work where that is longer."""
@@ -503,7 +527,7 @@ def call_ms(torch, fn, iters: int = 100) -> float:
     return start.elapsed_time(end) / iters
 
 
-def measure(torch, kernel, plain, lib, bnd, iters: int = 100) -> dict:
+def measure(torch, kernel, plain, lib, bnd, iters: int = KERNEL_ITERS) -> dict:
     """One kernel's numbers on one set of inputs, under the keys of the
     ``kernels`` line: device time of the kernel, of its plain version and of
     cuDNN (``lib``); the bound ``bnd`` = (ms, bound_by, ms counting all
@@ -753,7 +777,7 @@ def check_forward(torch, fold, cuda_fold, h, geom, weight, bias, kh, kw, label: 
 
 
 def time_forward(torch, F, fold, cuda_fold, h, geom, periods, weight, bias, kh, kw,
-                 plain=True, iters: int = 100):
+                 plain=True, iters: int = KERNEL_ITERS):
     """:func:`measure` of the forward kernel on these inputs; the route is
     that of their dtype; ``plain`` False leaves the plain version untimed."""
 
@@ -780,7 +804,7 @@ def before_line(np, kind: str, key: str, rows, periods, batch: int) -> str:
 
 
 def time_backward(torch, fold, cuda_fold, h, ct, geom, periods, weight, kh, kw,
-                  kinds=("dh", "dw"), plain=True, iters: int = 100):
+                  kinds=("dh", "dw"), plain=True, iters: int = KERNEL_ITERS):
     """:func:`measure` of the dh and dW kernels (``kinds``) on these inputs,
     by kind; each takes the route of their dtype; ``plain`` False leaves the
     plain versions untimed."""
@@ -1047,8 +1071,9 @@ def train_phase(torch, np, modules, rec, cfg, params, dev):
 def float32_steps(torch, np, engine_mod, cfg, params, engine_kw, batch, lr, dev):
     """Phase 7, float32: the flagship at full width with
     ``compute_dtype="float32"`` (the JAX package's default, which runs the
-    CUDA-core fold-conv kernels) takes 5 + 20 timed steps on one batch, then
-    20 under the profiler: device time per step and the fold conv's."""
+    CUDA-core fold-conv kernels) takes 5 + ``PROFILED_STEPS`` timed steps on
+    one batch, then as many under the profiler: device time per step and the
+    fold conv's."""
 
     eng = eager(engine_mod.Engine(dataclasses.replace(cfg, compute_dtype="float32"), params,
                                   **engine_kw))
@@ -1344,7 +1369,7 @@ def serve_graph(torch, np, cuda_fold, make_fc, request, cfg, spec, eager_runs: d
     show the card running the forward 12 times a request (2 x 3 x U frozen)
     at every size, on the tensor-core route. Each replayed forecast must
     equal the eager request's of phases 4 and 5 within rtol/atol 1e-5 (they
-    are expected bit for bit). Then 50 replayed requests under the
+    are expected bit for bit). Then ``PROFILED`` replayed requests under the
     profiler. ``eager_runs`` maps each path to its eager first forecast and
     p50. Returns each path's launches as the card counted them, p50 and
     profile."""
@@ -3378,6 +3403,229 @@ def dp_across_cards(torch, np, run: dict) -> None:
           f"card's {single['losses']}")
 
 
+# -- period buckets and the recursive decode
+
+BUCKET_STEPS = {"bfloat16": 10, "float32": 5}  # replayed B=256 steps each way
+BUCKET_REQUESTS = 30  # replayed requests timed each way
+ROLLOUT_REQUESTS = 20  # recursive requests timed, eager and replayed
+
+
+def bucket_request(torch, np, cuda_fold, make_fc, forecast, cfg, hist) -> dict:
+    """``[buckets]`` (a): the flagship's request with ``model.period_buckets:
+    auto`` against the same request without it, eager and replayed, bit for
+    bit; the replayed bucketed request runs the forward 12 times on the
+    card and no wrapper. Returns the card's runs of one replayed bucketed
+    request."""
+
+    from flow_timesnet_tpu_torch.models.timesblock import resolve_period_buckets
+
+    cfg_b = dataclasses.replace(cfg, period_buckets="auto")
+    caps = resolve_period_buckets("auto", L, P_MAX)
+    per = LAUNCHES_PER_PASS // len(KERNEL_SIZES)
+    eager_b, eager_u = forecast(make_fc(cfg_b), hist), forecast(make_fc(cfg), hist)
+    graphed = {k: make_fc(c, graphed=True) for k, c in (("bucketed", cfg_b), ("plain", cfg))}
+    first = {k: forecast(fc, hist) for k, fc in graphed.items()}  # warm-up, capture, replay
+    ms = {k: [] for k in graphed}
+    for _ in range(BUCKET_REQUESTS):
+        for k, fc in graphed.items():
+            t0 = time.perf_counter()
+            forecast(fc, hist)
+            ms[k].append(1e3 * (time.perf_counter() - t0))
+    clear_counts(cuda_fold)  # one replayed bucketed request's launches, from here ...
+    replayed = forecast(graphed["bucketed"], hist)
+    wrapped, ran = launch_counts(cuda_fold), run_counts(cuda_fold)  # ... to here
+    check(not any(wrapped.values()), f"a replayed bucketed request ran a wrapper: {wrapped}")
+    check_launches(ran, ("tap_conv_fwd",), per, True, "a replayed bucketed request (card)")
+    same = [np.array_equal(eager_b, eager_u), np.array_equal(first["bucketed"], eager_u),
+            np.array_equal(replayed, eager_u), np.array_equal(first["plain"], eager_u)]
+    check(all(same), "[buckets] request: bucketed eager, replayed (first, later) and "
+                     f"unbucketed replayed against unbucketed eager bit for bit: {same}")
+    print(f"[buckets] request (192 series x 28 days), ladder {list(caps)}: bucketed = "
+          f"unbucketed bit for bit, eager and replayed; replayed p50 ms bucketed "
+          f"{np.median(ms['bucketed']):.3f}, unbucketed {np.median(ms['plain']):.3f} "
+          f"({BUCKET_REQUESTS} each, in turns); one replayed bucketed request ran "
+          f"{ran['tap_conv_fwd']} on the card, the wrappers none")
+    return ran
+
+
+def bucket_steps(torch, np, engine_mod, cuda_fold, cfg, params, engine_kw, trained) -> dict:
+    """``[buckets]`` (b): replayed B=256 training steps of the flagship with
+    ``period_buckets: auto`` on phase 7's batches against the same steps
+    without it, from the same state and generator seed, bf16 and float32,
+    dropout on: the losses and the whole state after them bit for bit; a
+    replayed bucketed step runs each kernel 12 times on the card (a pass)
+    and no wrapper. Returns the card's runs of one replayed bucketed step,
+    by dtype."""
+
+    lr, per = trained["lr"], LAUNCHES_PER_PASS // len(KERNEL_SIZES)
+    batches = [trained["to_device"](b) for b in trained["batches"][:max(BUCKET_STEPS.values())]]
+    out = {}
+    for dtype, n in BUCKET_STEPS.items():
+        runs = {}
+        for buckets in ("auto", None):
+            eng = engine_mod.Engine(dataclasses.replace(cfg, compute_dtype=dtype,
+                                                        period_buckets=buckets),
+                                    params, **engine_kw)
+            state, gen = eng.init_state(), torch.Generator(device=DEVICE).manual_seed(5)
+            losses = []
+            for i, batch in enumerate(batches[:n]):
+                if i == 1:
+                    clear_counts(cuda_fold)  # one replayed step's launches, from here ...
+                state, loss, _ = eng.train_step(state, lr, gen, batch)
+                if i == 1:
+                    torch.cuda.synchronize()
+                    wrapped, ran = launch_counts(cuda_fold), run_counts(cuda_fold)  # ... to here
+                losses.append(loss)
+            check(not any(wrapped.values()), f"a replayed {dtype} step ran a wrapper: {wrapped}")
+            check_launches(ran, KINDS, per, dtype == "bfloat16",
+                           f"a replayed {'bucketed' if buckets else 'unbucketed'} {dtype} step")
+            runs[buckets] = (torch.stack(losses), [t.detach() for t in state.tensors()], ran)
+        (lb, sb, ranb), (lu, su, _) = runs["auto"], runs[None]
+        same = torch.equal(lb, lu) and all(torch.equal(a, b) for a, b in zip(sb, su))
+        check(same, f"[buckets] {dtype} steps: bucketed against unbucketed losses "
+                    f"{same_or_diff(torch, lb, lu)}, state {same_or_diff(torch, sb, su)}")
+        print(f"[buckets] {n} replayed {dtype} steps of {B_TRAIN} windows: losses and "
+              "parameters, Adam moments and EMA equal the unbucketed steps bit for bit; a "
+              f"replayed bucketed step ran forward {ranb['tap_conv_fwd']}, dh "
+              f"{ranb['tap_conv_dh']}, dW {ranb['tap_conv_dw']} on the card, the wrappers none")
+        out[dtype] = ranb
+    return out
+
+
+def rollout_phase(torch, np, convert, forecaster, cuda_fold, cfg, serving: dict) -> dict:
+    """``[rollout]``: the flagship with ``model.mode: recursive`` and seeded
+    weights serves the recipe's horizon (7 one-step forwards a request):
+    ``ROLLOUT_REQUESTS`` eager requests (``cuda_graphs`` off), then the
+    first graphed request (the whole decode warmed up and captured as one
+    graph, :func:`check_first_call` of 7 passes) and ``ROLLOUT_REQUESTS``
+    replayed ones, each equal to the eager forecast bit for bit, running the
+    forward 12 x 7 times on the card and no wrapper. p50 of both. Returns
+    the card's runs over the replayed requests."""
+
+    cfg_r = dataclasses.replace(cfg, mode="recursive")
+    params_r = flagship_params(torch, convert, cfg_r)
+    horizon, per = cfg.pred_len, LAUNCHES_PER_PASS // len(KERNEL_SIZES)
+    hist, dates = serving["history"], serving["dates"]
+
+    def make(graphed):
+        fc = forecaster.Forecaster(params_r, cfg_r, *serving["args"], device="cuda")
+        return fc if graphed else eager(fc)
+
+    def request(fc):
+        return fc.forecast(hist, horizon=horizon, dates=dates)
+
+    fe, fg = make(False), make(True)
+    want = request(fe)
+    check(want.shape == (horizon, len(serving["args"][0])) and bool(np.isfinite(want).all())
+          and bool((want >= 0).all()), f"recursive forecast {want.shape}, finite and >= 0")
+    ms = {"eager": [], "replayed": []}
+    for _ in range(ROLLOUT_REQUESTS):
+        t0 = time.perf_counter()
+        request(fe)
+        ms["eager"].append(1e3 * (time.perf_counter() - t0))
+    clear_counts(cuda_fold)  # the first graphed request's launches, from here ...
+    t0 = time.perf_counter()
+    first = request(fg)
+    capture_ms = 1e3 * (time.perf_counter() - t0)
+    check_first_call(cuda_fold, ("tap_conv_fwd",), per * horizon, "first recursive request")
+    check([k[0] for k in fg.engine._graphs] == ["rollout"], f"graphs {list(fg.engine._graphs)}")
+    clear_counts(cuda_fold)  # the replayed requests' launches, from here ...
+    outs = []
+    for _ in range(ROLLOUT_REQUESTS):
+        t0 = time.perf_counter()
+        outs.append(request(fg))
+        ms["replayed"].append(1e3 * (time.perf_counter() - t0))
+    wrapped, ran = launch_counts(cuda_fold), run_counts(cuda_fold)  # ... to here
+    check(not any(wrapped.values()), f"replayed recursive requests ran a wrapper: {wrapped}")
+    check_launches(ran, ("tap_conv_fwd",), ROLLOUT_REQUESTS * per * horizon, True,
+                   "replayed recursive requests (card)")
+    check(all(np.array_equal(o, want) for o in [first] + outs),
+          "a replayed recursive forecast differs from the eager decode")
+    print(f"[rollout] recursive flagship ({sum(v.numel() for v in params_r.values()):,} "
+          f"parameters), {horizon} steps a request of 192 series x 28 days: eager ms "
+          f"{spread(np, ms['eager'])}; first graphed request (warm-up, capture, replay) "
+          f"{capture_ms:.1f} ms; replayed ms {spread(np, ms['replayed'])} "
+          f"({np.median(ms['eager']) / np.median(ms['replayed']):.2f}x); every replayed "
+          f"forecast = the eager decode bit for bit; the card ran {ran['tap_conv_fwd']} in "
+          f"{ROLLOUT_REQUESTS} replayed requests, the wrappers none")
+    return dict(counts=ran)
+
+
+PREFETCH_DEPTH, PREFETCH_DAYS = 2, 120  # 120 days of the benchmark: 58 steps of 256
+PREFETCH_RUNS = (PREFETCH_DEPTH, 0, 0, PREFETCH_DEPTH)  # prefetch depth a run, in turns
+
+
+def prefetch_phase(torch, np, cuda_fold) -> dict:
+    """``[prefetch]``: ``train_once`` of configs/demand_benchmark.yaml at
+    full width on the host pipeline (``train.input_pipeline: host``) for two
+    epochs of its benchmark CSV cut to ``PREFETCH_DAYS`` days, periods live
+    (``train.freeze_periods`` off, so the second epoch replays the first
+    one's graphs), four runs in turns with ``prefetch_factor`` 2, 0, 0, 2
+    (and the recipe's ``scan_steps``, which the port ignores): the epochs'
+    losses, the validation NLL and the checkpoint's bytes bit for bit, one
+    prefetch thread an epoch where it is on and none where it is off, every
+    bf16 kernel run on the card at each size; each run's epoch seconds, the
+    second epoch the steady one. Returns the card's runs of the first
+    prefetched run."""
+
+    import tempfile
+
+    from flow_timesnet_tpu_torch.config import PipelineConfig
+    from flow_timesnet_tpu_torch.data import windows as win
+    from flow_timesnet_tpu_torch.train import train_once
+
+    real_pre, runs = win.Prefetcher.__init__, []
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_prefetch_") as tmp:
+        data = Path(tmp) / "data"
+        write_demand_csv(np, data / "train.csv", 7, 8, 24, PREFETCH_DAYS)
+        for i, depth in enumerate(PREFETCH_RUNS):
+            threads = []
+
+            def prefetcher(self, *args, threads=threads, **kwargs):
+                threads.append(1)
+                real_pre(self, *args, **kwargs)
+
+            cfg = PipelineConfig.from_files(str(REPO / "configs" / "demand_benchmark.yaml"),
+                                            overrides=[
+                f"data.train_csv={data / 'train.csv'}", f"artifacts.dir={Path(tmp) / str(i)}",
+                "train.epochs=2", "train.freeze_periods=false", "train.input_pipeline=host",
+                f"train.prefetch_factor={depth}"])
+            clear_counts(cuda_fold)  # this run's launches, from here ...
+            win.Prefetcher.__init__ = prefetcher
+            try:
+                best, paths = train_once(cfg)
+            finally:
+                win.Prefetcher.__init__ = real_pre
+            ran = run_counts(cuda_fold)  # ... to here
+            m = paths["metrics"]
+            check(m["input_pipeline"] == "host",
+                  f"[prefetch] the {m['input_pipeline']} pipeline ran")
+            check(len(threads) == (2 if depth else 0),
+                  f"[prefetch] run {i}: {len(threads)} prefetch threads at depth {depth}")
+            for kind in KINDS:
+                for kh, kw in KERNEL_SIZES:
+                    size = f"{kh}x{kw}"
+                    check(ran[f"{kind}_mma"].get(size, 0) > 0 and ran[kind] == ran[f"{kind}_mma"],
+                          f"[prefetch] run {i}: {kind} {size} ran {ran[kind]}")
+            runs.append(dict(depth=depth, result=(best, m["epoch_loss"], m["epoch_val_nll"],
+                                                  Path(paths["model"]).read_bytes()),
+                             ran=ran, seconds=m["epoch_seconds"]))
+    check(all(r["result"] == runs[0]["result"] for r in runs),
+          "[prefetch] the runs' losses, val NLL and checkpoints differ: "
+          + str([(r["depth"], r["result"][1], r["result"][2]) for r in runs]))
+    steady = {d: [r["seconds"][1] for r in runs if r["depth"] == d] for d in (PREFETCH_DEPTH, 0)}
+    print(f"[prefetch] train_once on the host pipeline, two epochs of {B_TRAIN}-window steps "
+          f"({PREFETCH_DAYS} days of the benchmark, periods live), prefetch "
+          f"{' / '.join(str(d) for d in PREFETCH_RUNS)} in turns: epoch losses "
+          f"{runs[0]['result'][1]}, val NLL {runs[0]['result'][2]} and the checkpoint bit for "
+          "bit; epoch seconds (first, second) "
+          + "; ".join(f"{r['depth']}: {r['seconds'][0]:.3f}, {r['seconds'][1]:.3f}" for r in runs)
+          + f"; steady epoch mean {np.mean(steady[PREFETCH_DEPTH]):.3f} s with prefetch, "
+          f"{np.mean(steady[0]):.3f} without; the card ran {runs[0]['ran']['tap_conv_fwd']} "
+          "forwards in the first prefetched run")
+    return dict(counts=runs[0]["ran"])
+
+
 def stamp(phase: str) -> None:
     print(f"[clock] {phase} done at {time.perf_counter() - T0:.1f} s")
 
@@ -3727,6 +3975,21 @@ def main() -> int:
     stamp("train-resident")
     graph_runs = {"serve_graph": graph_serve, "train_graph": graph_train, "resident": resident}
 
+    # 11b-d. model.period_buckets, the recursive decode as one graph, the host
+    # pipeline's prefetch thread
+    bucketed = {
+        "request": bucket_request(torch, np, cuda_fold, make_fc,
+                                  lambda fc_, hist: fc_.forecast(hist, dates=dates), cfg, history),
+        "steps": bucket_steps(torch, np, engine_mod, cuda_fold, cfg, params, flag_rec.engine,
+                              trained)}
+    stamp("buckets")
+    rolled = rollout_phase(torch, np, convert, forecaster, cuda_fold, cfg,
+                           {"args": (ids, scaler, "zscore", static, sigma, tf_cfg),
+                            "history": history, "dates": dates})
+    stamp("rollout")
+    prefetched = prefetch_phase(torch, np, cuda_fold)
+    stamp("prefetch")
+
     # 12-14. the long-context recipe, served and trained
     long_cfg = long_config(long_rec)
     long_params = flagship_params(torch, convert, long_cfg)
@@ -3817,6 +4080,12 @@ def main() -> int:
         row["exact_extent"] = {
             f"p{p}": {**dense[name][f"p{p}"], "lp": L + (-L) % p} for p in DENSE_PERIODS}
         row["exact_extent_max_abs_err"] = dense[name]["max_abs_err"]
+        # the bucketed, recursive and prefetched paths' runs on the card
+        step_counts = bucketed["steps"]["bfloat16" if route == "mma" else "float32"]
+        row["launches_buckets_step"] = route_count(step_counts, kind, route, key)
+        row["launches_buckets_request"] = route_count(bucketed["request"], kind, route, key)
+        row["launches_rollout"] = route_count(rolled["counts"], kind, route, key)
+        row["launches_prefetch"] = route_count(prefetched["counts"], kind, route, key)
         if route == "mma":
             row["launches_serve_frozen"] = served_frozen["counts"][counter].get(key, 0)
             row["launches_train_frozen"] = frozen_counts[counter].get(key, 0)

@@ -12,8 +12,9 @@ package's does (``time_shift``: each start moved by a uniform integer in
 ``[-time_shift, time_shift]`` and clipped to the array; ``add_noise_std``:
 Gaussian noise on the inputs), so augmented batches are the JAX package's
 bit for bit too. :func:`build_batcher` assembles a batcher over per-fold
-arrays as the JAX trainer does. The native C++ gather is not ported: numpy
-gathers the same values.
+arrays as the JAX trainer does. :class:`Prefetcher` assembles the next
+batches on a thread while the card steps. The native C++ gather is not
+ported: numpy gathers the same values.
 """
 
 from __future__ import annotations
@@ -256,6 +257,87 @@ class WindowBatcher:
             if self.pad_final and rem < self.batch_size:
                 batch = pad_batch_rows(batch, self.batch_size)
             yield batch
+
+
+class Prefetcher:
+    """Batches from any iterable, assembled ahead on a background thread
+    (the JAX package's ``Prefetcher``).
+
+    One daemon thread takes the next ``depth`` batches from ``iterable``
+    (the numpy gathers and concatenations of a ``WindowBatcher``) while the
+    card runs the current step: the host pipeline's counterpart of a data
+    loader's prefetch (``train.prefetch_factor``). The batches come out in
+    the iterable's order. An exception raised by the producer is raised again
+    where the consumer takes the next batch. :meth:`close` releases the
+    producer when the consumer stops early.
+    """
+
+    _END = object()
+
+    def __init__(self, iterable, depth: int = 2) -> None:
+        import queue
+        import threading
+
+        self._queue_mod = queue
+        self._q: "queue.Queue" = queue.Queue(maxsize=max(1, int(depth)))
+        self._err: Optional[BaseException] = None
+        self._stopped = False
+
+        def _run() -> None:
+            try:
+                for item in iterable:
+                    if self._stopped:
+                        break
+                    self._q.put(item)
+                    if self._stopped:
+                        break
+            except BaseException as e:  # noqa: BLE001 - raised again at the consumer
+                self._err = e
+            finally:
+                while not self._stopped:  # close() owns the shutdown once it is called
+                    try:
+                        self._q.put(self._END, timeout=0.1)
+                        break
+                    except queue.Full:
+                        continue
+
+        self._thread = threading.Thread(target=_run, name="flow-timesnet-prefetch", daemon=True)
+        self._thread.start()
+
+    def __iter__(self) -> "Prefetcher":
+        return self
+
+    def __next__(self):
+        item = self._q.get()
+        if item is self._END:
+            if self._err is not None:
+                raise self._err
+            raise StopIteration
+        return item
+
+    def close(self) -> None:
+        """Release the producer when the consumer stops before the end.
+
+        Sets the stop flag and drains the queue, so that a producer blocked
+        on a full queue wakes, sees the flag and ends; then leaves the end
+        marker, so that a later ``next`` stops rather than blocks.
+        """
+
+        self._stopped = True
+        self._drain()
+        self._thread.join(timeout=5.0)
+        self._drain()  # what the released producer put before it saw the flag
+        try:
+            self._q.put_nowait(self._END)
+        except self._queue_mod.Full:
+            pass
+
+    def _drain(self) -> None:
+        try:
+            while True:
+                self._q.get_nowait()
+        except self._queue_mod.Empty:
+            pass
 
 
 def _map_batch(fn, batch: WindowBatch) -> WindowBatch:

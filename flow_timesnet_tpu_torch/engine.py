@@ -16,9 +16,10 @@ with the window gather inside it) is ``train_epoch_resident`` over
 ``data/device_windows.py``'s staged arrays and ``[S, B]`` plan, beside
 ``evaluate_resident`` and ``collect_period_telemetry_staged``.
 
-On a CUDA device, ``forward``, ``train_step`` (without accumulation), each
-step of ``train_epoch_resident`` and each batch of ``evaluate_resident``
-replay a CUDA graph (``graphs.py``), the counterpart of the JAX package's
+On a CUDA device, ``forward``, ``rollout`` (the whole recursive decode),
+``train_step`` (without accumulation), each step of
+``train_epoch_resident`` and each batch of ``evaluate_resident`` replay a
+CUDA graph (``graphs.py``), the counterpart of the JAX package's
 compiled programs: one per input signature and, for training, per
 ``TrainState`` and generator. The first call captures it, after eager
 warm-up calls whose effects on the state are undone; a failed capture
@@ -199,7 +200,8 @@ class Engine:
         captured beside them), so a graph never outlives its state."""
 
         if state is not self._graph_state:
-            self._graphs = {k: g for k, g in self._graphs.items() if k[0] == "forward"}
+            self._graphs = {k: g for k, g in self._graphs.items()
+                            if k[0] in ("forward", "rollout")}
             self._graph_state = state
 
     # -- forward / decode ------------------------------------------------------
@@ -239,10 +241,30 @@ class Engine:
     def rollout(self, x, horizon, x_mark=None, y_mark=None, static=None, ids=None, floor=None,
                 row_valid=None):
         """Recursive ``horizon``-step decode: each step's last rate is
-        appended to the window (and the next future mark to the marks)."""
+        appended to the window (and the next future mark to the marks).
+
+        On the card the whole decode (the ``horizon`` forwards, the windows'
+        and the marks' concatenations and the stacking of the steps) is one
+        CUDA graph per input signature and horizon, the counterpart of the
+        JAX package's ``lax.scan`` decode; a replay equals the eager loop
+        bit for bit."""
 
         self.model.eval()
-        return self._rollout(None, x, horizon, x_mark, y_mark, static, ids, floor, row_valid)
+        horizon = int(horizon)
+        args = (x, x_mark, y_mark, static, ids, floor, row_valid)
+        if not self.cuda_graphs:
+            return self._rollout(None, x, horizon, x_mark, y_mark, static, ids, floor, row_valid)
+        key = ("rollout", horizon, graphs.signature(args))
+        graph = self._graphs.get(key)
+        if graph is None:
+            bufs = graphs.static_copies(args)
+            xb, mb, yb, *rest = bufs
+            graph = self._capture(
+                key, lambda: self._rollout(None, xb, horizon, mb, yb, *rest), inputs=bufs)
+            rate, disp = graph.replay()
+        else:
+            rate, disp = graph.replay(args)
+        return rate.clone(), disp.clone()
 
     def _rollout(self, params, x, horizon, x_mark, y_mark, static, ids, floor, row_valid):
         if x_mark is not None and y_mark is None:

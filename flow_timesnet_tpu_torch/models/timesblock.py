@@ -6,7 +6,10 @@ program over the masked dilated-tap fold conv of ``ops/cuda_fold.py``, which
 runs the CUDA kernels on the card. A block given a frozen spec (static
 ``(period, freq_bin, valid)`` slots) skips the selector and the grouper and
 runs each unique period at its exact extent through ``dense_fold_conv``, on
-the same kernels; only the slots' softmax weights stay live. With
+the same kernels; only the slots' softmax weights stay live. A period
+bucket ladder (``period_buckets``, :func:`resolve_period_buckets`) is
+accepted and runs the full-cap fold, whose result is the bucketed one (see
+:class:`TimesBlock`). With
 ``compute_dtype="bfloat16"`` the casts follow the JAX package point by
 point: matmul inputs are bf16, products are summed in float32, the float32
 bias is added, and only then is the result cast.
@@ -44,6 +47,40 @@ def _activation(name: str):
     if name.lower() == "relu":
         return F.relu
     return F.gelu  # exact (erf) GELU, as the JAX package asks for
+
+
+def resolve_period_buckets(raw, seq_len: int, p_cap: int) -> Tuple[int, ...]:
+    """The static period-cap ladder of ``model.period_buckets`` (the JAX
+    package's ``resolve_period_buckets``).
+
+    ``None`` or a falsy value -> one full-cap fold (``(p_cap,)``); ``"auto"``
+    -> caps at ``ceil(L/4)`` and ``ceil(L/2)``; a string of integers (commas
+    or spaces) or an iterable of ints -> those caps; ``"off"``, ``"none"``,
+    ``"false"``, ``"0"`` or a string that does not parse -> ``(p_cap,)``.
+    The ladder is deduplicated, keeps the caps in ``(0, p_cap)`` and always
+    ends in ``p_cap``.
+    """
+
+    if not raw:
+        return (p_cap,)
+    if isinstance(raw, str):
+        text = raw.strip().lower()
+        if text in ("", "off", "none", "false", "0"):
+            return (p_cap,)
+        if text == "auto":
+            caps = [-(-seq_len // 4), -(-seq_len // 2)]
+        else:
+            try:
+                caps = [int(tok) for tok in text.replace(",", " ").split()]
+            except ValueError:
+                return (p_cap,)
+    else:
+        try:
+            caps = [int(c) for c in raw]
+        except TypeError:
+            caps = [int(raw)]
+    ladder = sorted({c for c in caps if 0 < c < p_cap})
+    return tuple(ladder) + (p_cap,)
 
 
 class InceptionBranch(nn.Module):
@@ -142,6 +179,15 @@ class TimesBlock(nn.Module):
     ``freq_indices``) as tensors, with no read to the host; it is None, and
     nothing is recorded, unless the caller asks
     (``Engine.collect_period_telemetry``).
+
+    ``period_buckets`` (``model.period_buckets``) is kept and the dynamic
+    path runs the full-cap fold whatever the ladder. The JAX package runs
+    the smallest cap that holds the largest valid period, and its result is
+    the full-cap one: a valid candidate (p <= cap) reads only rows below
+    ``cycles * p <= L + p - 1 < L + cap``, and a candidate past the cap is
+    invalid (weight 0). Choosing a cap would branch on a device value,
+    which a CUDA graph cannot hold, and the fold conv's kernels already skip
+    each candidate's rows past its own fold.
     """
 
     def __init__(
@@ -159,9 +205,11 @@ class TimesBlock(nn.Module):
         conv_dtype: str = "float32",
         dropout: float = 0.0,
         frozen: Optional[Tuple[Tuple[int, int, bool], ...]] = None,
+        period_buckets: object = None,
     ) -> None:
         super().__init__()
         self.d_model = d_model
+        self.period_buckets = period_buckets
         self.min_period = min_period
         self.max_period = max_period
         self.p_cap = p_cap

@@ -38,7 +38,7 @@ from .embedding import (
     resolve_embed_norm_mode,
 )
 from .period import resolve_log_base, resolve_max_unique, select_periods
-from .timesblock import TimesBlock
+from .timesblock import TimesBlock, resolve_period_buckets
 
 
 @dataclass(frozen=True)
@@ -94,11 +94,12 @@ class TimesNetConfig:
             raise ValueError("context_rank must be non-negative")
         if self.compute_dtype not in ("float32", "bfloat16"):
             raise ValueError("compute_dtype must be 'float32' or 'bfloat16'")
-        if self.period_buckets not in (None, False, "", "off", "none"):
-            raise NotImplementedError(
-                "period_buckets is not ported yet; it is the last module of the port's "
-                "queue (see ROADMAP.md)"
-            )
+        # a frozen dataclass hashes its fields: a list-like ladder becomes a tuple
+        if isinstance(self.period_buckets, (list, set)):
+            object.__setattr__(self, "period_buckets",
+                               tuple(int(c) for c in self.period_buckets))
+        # a ladder that does not resolve fails here (the fold runs the full cap)
+        resolve_period_buckets(self.period_buckets, self.input_len, max(1, self.input_len - 1))
 
     @property
     def out_steps(self) -> int:
@@ -209,6 +210,7 @@ class TimesNet(nn.Module):
                     conv_dtype=cfg.compute_dtype,
                     dropout=cfg.dropout,
                     frozen=frozen[i],
+                    period_buckets=cfg.period_buckets,
                 ),
             )
         self.layer_norm = LayerNorm32(cfg.d_model)

@@ -19,9 +19,13 @@ staged arrays fit ``train.device_stage_mb`` and accumulation is off, and
 then each epoch runs ``Engine.train_epoch_resident`` in chunks of
 ``train.resident_max_dispatch_steps`` (on the card one CUDA-graph replay a
 step) and validation ``Engine.evaluate_resident``; otherwise the host
-pipeline takes one ``Engine.train_step`` a batch. On the host pipeline
-``train.scan_steps`` is accepted and ignored (the JAX package's scanned
-chunks compute what single steps compute) and batches are not prefetched.
+pipeline gathers batches with numpy, a ``data/windows.py::Prefetcher``
+assembling the next ``train.prefetch_factor`` of them on a thread (0: off),
+and takes one ``Engine.train_step`` a batch (on the card one CUDA-graph
+replay). ``train.scan_steps`` is accepted and ignored: the JAX package's
+scanned chunks compute what single steps compute, and a chunk captured as
+one CUDA graph cost more to capture than it saved over a flagship epoch on
+an H100 (``PERF.md``).
 Dropout draws from one generator, seeded anew each epoch from
 ``(tuning.seed, epoch)``, so a resumed run repeats the epochs it continues.
 Window augmentation (``data.augment``) draws from the training batcher's
@@ -49,9 +53,9 @@ updated parameters are finite (one wait for the card a step) and raises
 ``FloatingPointError`` at the first step where one is not, naming the
 epoch, the step and the first such parameter. ``train.profile_dir`` traces the first epoch after the first
 one (``torch.profiler``, the CPU and, on the card, CUDA activities) into
-that directory as a Chrome trace.
-
-Not ported (it raises): ``model.period_buckets``.
+that directory as a Chrome trace. ``model.period_buckets`` is accepted and
+runs the full-cap fold, which gives the bucketed result
+(``models/timesblock.py``).
 """
 
 from __future__ import annotations
@@ -75,7 +79,7 @@ from .data.pivot import fit_series_scaler, infer_freq, pivot_long_to_wide, trans
 from .data.schema import DataSchema
 from .data.split import make_holdout_slices, make_rolling_slices
 from .data.static_features import compute_series_features
-from .data.windows import build_batcher, pad_batch_rows
+from .data.windows import Prefetcher, build_batcher, pad_batch_rows
 from .device import resolve_device
 from .engine import Engine, batch_to_device, first_non_finite
 from .optim import LRController, resolve_warmup
@@ -749,6 +753,8 @@ def _train_once(cfg, epoch_hook, trace: _EpochTrace) -> Tuple[float, Dict[str, A
 
     # longest single resident pass, in steps (0: the whole epoch at once)
     resident_max_dispatch = int(cfg["train"].get("resident_max_dispatch_steps", 512) or 0)
+    # the host pipeline's next batches, assembled on a thread (0: off)
+    prefetch = int(cfg["train"].get("prefetch_factor", 2) or 0)
 
     # Input-pipeline selection, as in JAX: "device" stages the folds on the
     # device once and gathers each batch there; "host" gathers with numpy;
@@ -832,22 +838,30 @@ def _train_once(cfg, epoch_hook, trace: _EpochTrace) -> Tuple[float, Dict[str, A
         else:
             step_losses, step_mask, step_total = [], [], []
             n_batches = 0
-            for i, batch in enumerate(dl_train):
-                dev_batch = to_device(batch)
-                if i == 0:
-                    telemetry = dynamic_engine.collect_period_telemetry(state.params, dev_batch)
-                    _log_period_telemetry(telemetry, inferred_freq, ep)
-                    engine = maybe_freeze(ep, telemetry, engine)
-                    t_probe = time.perf_counter()
-                do_update = ((i + 1) % accum_steps == 0) or ((i + 1) == batches_per_epoch)
-                state, loss, stats = engine.train_step(state, lr, generator, dev_batch,
-                                                       do_update)
-                if debug_nans:
-                    check_step(i + 1, stats["finite"])
-                step_losses.append(loss)
-                step_mask.append(stats["mask_true"])
-                step_total.append(stats["mask_total"])
-                n_batches += 1
+            # the next batches assembled on a thread while the card steps
+            # (train.prefetch_factor, 0: off), released however the loop ends
+            host_iter = Prefetcher(dl_train, prefetch) if prefetch > 0 else dl_train
+            try:
+                for i, batch in enumerate(host_iter):
+                    dev_batch = to_device(batch)
+                    if i == 0:
+                        telemetry = dynamic_engine.collect_period_telemetry(state.params,
+                                                                            dev_batch)
+                        _log_period_telemetry(telemetry, inferred_freq, ep)
+                        engine = maybe_freeze(ep, telemetry, engine)
+                        t_probe = time.perf_counter()
+                    do_update = ((i + 1) % accum_steps == 0) or ((i + 1) == batches_per_epoch)
+                    state, loss, stats = engine.train_step(state, lr, generator, dev_batch,
+                                                           do_update)
+                    if debug_nans:
+                        check_step(i + 1, stats["finite"])
+                    step_losses.append(loss)
+                    step_mask.append(stats["mask_true"])
+                    step_total.append(stats["mask_total"])
+                    n_batches += 1
+            finally:
+                if isinstance(host_iter, Prefetcher):
+                    host_iter.close()
             if n_batches == 0:
                 raise ValueError("Training split has no windows")
             fetched = torch.stack(

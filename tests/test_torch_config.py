@@ -137,8 +137,6 @@ def test_timesnet_config_from_dict_agrees(path):
     assert same(got_cfg, want_cfg)
     kw = dict(static_dim=5, time_feature_dim=pbuild.time_feature_dim_of(got_cfg), id_vocab=192)
     assert kw["time_feature_dim"] == jbuild.time_feature_dim_of(want_cfg)
-    if want_cfg["model"].get("period_buckets") not in (None, False, "", "off", "none"):
-        pytest.skip("period_buckets is not ported")
     want = dataclasses.asdict(jbuild.timesnet_config_from_dict(want_cfg, **kw))
     got = dataclasses.asdict(pbuild.timesnet_config_from_dict(got_cfg, **kw))
     assert want.pop("use_pallas") is False
@@ -157,3 +155,23 @@ def test_writer_round_trips_through_safe_load(tmp_path):
     text = path.read_text(encoding="utf-8")
     assert same(yaml.safe_load(text), cfg)
     assert same(pconfig.load_yaml(str(path)), cfg)
+
+
+@pytest.mark.parametrize("ladder", ["auto", "[7, 14]", "'7 14'", "off"])
+def test_timesnet_config_from_dict_agrees_with_period_buckets(ladder):
+    """A recipe that sets ``model.period_buckets`` builds the JAX package's
+    model config in the port (the ladder is a tuple in the port's, which a
+    frozen dataclass needs to hash)."""
+
+    path = str(REPO / "configs" / "demand_benchmark.yaml")
+    overrides = [f"model.period_buckets={ladder}"]
+    want_cfg = jconfig.apply_overrides(jbuild.merged_config_from_yaml(path), overrides)
+    got_cfg = pconfig.apply_overrides(pbuild.merged_config_from_yaml(path), overrides)
+    assert same(got_cfg, want_cfg)
+    kw = dict(static_dim=5, time_feature_dim=pbuild.time_feature_dim_of(got_cfg), id_vocab=192)
+    want = dataclasses.asdict(jbuild.timesnet_config_from_dict(want_cfg, **kw))
+    got = dataclasses.asdict(pbuild.timesnet_config_from_dict(got_cfg, **kw))
+    assert want.pop("use_pallas") is False
+    if isinstance(want["period_buckets"], list):
+        want["period_buckets"] = tuple(want["period_buckets"])
+    assert got == want and got["period_buckets"] not in (None, "")

@@ -1558,3 +1558,73 @@ def test_a_group_of_one_on_nccl_replays_the_ungrouped_step_bitwise(cuda, monkeyp
     assert torch.equal(l0, l1) and torch.equal(m0, m1)
     assert all(torch.equal(a, b) for a, b in zip(s0.tensors(), s1.tensors()))
     assert any(captured), "no all_reduce was captured with the step"
+
+
+# -- period buckets and the recursive decode under graphs --
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_bucketed_steps_and_requests_replay_the_unbucketed_bits(cuda, dtype):
+    """``period_buckets: auto`` on the small graph model: three replayed
+    training steps (dropout on) and a replayed request equal the
+    unbucketed engine's bit for bit, on a batch whose largest valid period
+    the JAX package folds in a bucket below the full cap (a weekly cycle:
+    cap 7 of 27); the kernels run as many times a pass as without buckets."""
+
+    import dataclasses
+
+    from flow_timesnet_tpu_torch import engine
+
+    cfg, params, batch = _graph_setup(cuda, False, 0.1)
+    cfg = dataclasses.replace(cfg, compute_dtype=dtype)
+    t = torch.arange(28, device=cuda, dtype=torch.float32)[None, :, None]
+    # a weekly cycle (period 7) and a weaker 5.6-step one (period 5, below the
+    # model's min_period_threshold 7: invalid), so the largest valid period is 7
+    batch["x"] = (3 + 2 * torch.sin(2 * torch.pi * 4 * t / 28)
+                  + torch.sin(2 * torch.pi * 5 * t / 28) + 0.001 * batch["x"])
+    kw = dict(use_loss_masking=True, grad_clip_norm=1.0, ema_decay=0.99, num_series=16)
+    out = []
+    for buckets in ("auto", None):
+        eng = engine.Engine(dataclasses.replace(cfg, period_buckets=buckets), params,
+                            device=cuda, **kw)
+        state, gen = eng.init_state(), torch.Generator(device=cuda).manual_seed(3)
+        losses = [eng.train_step(state, 1e-3, gen, batch)[1] for _ in range(3)]
+        ran = _card_runs(lambda: eng.train_step(state, 1e-3, gen, batch))
+        rate, _ = eng.forward(batch["x"], ids=batch["ids"])
+        tel = eng.collect_period_telemetry(None, batch)
+        out.append((torch.stack(losses), state, rate, ran))
+    (lb, sb, rb, ranb), (lu, su, ru, ranu) = out
+    pmax = [max([1] + [int(p) for p, v in zip(info["periods"], info["valid"]) if v])
+            for info in tel.values()]
+    assert min(pmax) <= 7, pmax
+    assert torch.equal(lb, lu) and torch.equal(rb, ru) and ranb == ranu
+    assert all(torch.equal(a, b) for a, b in zip(sb.tensors(), su.tensors()))
+
+
+@pytest.mark.cuda
+def test_the_recursive_decode_replays_one_graph_equal_to_the_eager_loop(cuda):
+    """A recursive bf16 model decoding 7 steps: the first call captures the
+    whole decode, the next replays it; both equal the eager loop (engine
+    with ``cuda_graphs`` off) bit for bit, on new inputs too. One graph for
+    the signature and horizon, a second for another horizon; the card runs
+    the forward 12 times a decode step."""
+
+    import dataclasses
+
+    from flow_timesnet_tpu_torch import convert
+
+    cfg, _, batch = _graph_setup(cuda, False, 0.0)
+    cfg = dataclasses.replace(cfg, mode="recursive")
+    graphed, eager = _engines(cuda, cfg, convert.init_params(cfg, torch.Generator().manual_seed(0)))
+    for seed in (0, 1):
+        x = torch.rand(batch["x"].shape, device=cuda,
+                       generator=torch.Generator(device=cuda).manual_seed(seed)) * 5
+        want = eager.rollout(x, 7, ids=batch["ids"])
+        got = graphed.rollout(x, 7, ids=batch["ids"])
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+        assert tuple(got[0].shape) == (16, 7, 1)
+    ran = _card_runs(lambda: graphed.rollout(x, 7, ids=batch["ids"]))
+    assert ran == {"fwd": _each_size(7 * 4), "dh": {}, "dw": {}, "other": 0}
+    short = graphed.rollout(x, 3, ids=batch["ids"])
+    assert torch.equal(short[0], want[0][:, :3])
+    assert sorted(k[1] for k in graphed._graphs if k[0] == "rollout") == [3, 7]

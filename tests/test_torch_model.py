@@ -126,10 +126,17 @@ def test_params_from_jax_rejects_a_mismatched_tree(params):
 
 
 def test_not_yet_ported_paths_raise():
-    # the frozen-period path and use_checkpoint are ported (tests/test_torch_frozen.py,
-    # tests/test_torch_checkpoint.py); period_buckets is not yet
-    with pytest.raises(NotImplementedError, match="period_buckets"):
-        timesnet.TimesNetConfig(**MODEL_KW, period_buckets="auto")
+    # named for when these paths raised: the frozen-period path, use_checkpoint
+    # and period_buckets are ported
+    # (tests/test_torch_frozen.py, tests/test_torch_checkpoint.py,
+    # tests/test_torch_period_buckets.py): a ladder is accepted, kept hashable
+    # and handed to every block
+    for buckets, want in (("auto", "auto"), ([7, 14], (7, 14)), ("7 14", "7 14")):
+        cfg = timesnet.TimesNetConfig(**MODEL_KW, period_buckets=buckets)
+        assert hash(cfg) and cfg.period_buckets == want
+        model = timesnet.TimesNet(cfg)
+        assert [getattr(model, f"blocks_{i}").period_buckets
+                for i in range(cfg.n_layers)] == [want] * cfg.n_layers
     remat = timesnet.TimesNetConfig(**MODEL_KW, use_checkpoint=True)
     plain = timesnet.TimesNet(timesnet.TimesNetConfig(**MODEL_KW)).state_dict()
     got = timesnet.TimesNet(remat).state_dict()  # remat keeps the model's keys and shapes

@@ -134,15 +134,20 @@ def test_dropout_draws_from_the_step_generator():
 
 
 def test_not_yet_ported_training_paths_raise(tree):
-    """use_checkpoint is ported (tests/test_torch_checkpoint.py): an engine
-    takes it on the same parameter keys, which ``convert`` carries from the
-    JAX tree unchanged; period_buckets still raises."""
+    """Named for when these paths raised: use_checkpoint and period_buckets
+    are ported (tests/test_torch_checkpoint.py,
+    tests/test_torch_period_buckets.py): an
+    engine takes each on the same parameter keys, which ``convert`` carries
+    from the JAX tree unchanged, and hands the ladder to every block."""
 
     cfg = port_engine(tree).cfg
     remat = engine.Engine(dataclasses.replace(cfg, use_checkpoint=True),
                           convert.params_from_jax(tree, cfg), device="cpu", **ENGINE_KW)
     assert remat.cfg.use_checkpoint
     assert remat.model.state_dict().keys() == port_engine(tree).model.state_dict().keys()
-    with pytest.raises(NotImplementedError, match="period_buckets"):
-        dataclasses.replace(cfg, period_buckets="auto")
+    bucketed = engine.Engine(dataclasses.replace(cfg, period_buckets="auto"),
+                             convert.params_from_jax(tree, cfg), device="cpu", **ENGINE_KW)
+    assert bucketed.model.state_dict().keys() == port_engine(tree).model.state_dict().keys()
+    assert all(getattr(bucketed.model, f"blocks_{i}").period_buckets == "auto"
+               for i in range(cfg.n_layers))
     assert timesnet.TimesNetConfig(input_len=8, pred_len=2).use_checkpoint is False
