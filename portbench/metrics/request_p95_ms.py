@@ -1,0 +1,9 @@
+"""The 95th percentile of every request's latency in the window."""
+
+import numpy as np
+
+
+def read(ctx):
+    if ctx["kind"] != "serve":
+        return None
+    return 1e3 * float(np.percentile(ctx["latencies_s"], 95))
