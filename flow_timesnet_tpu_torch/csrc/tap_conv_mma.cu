@@ -500,3 +500,32 @@ extern "C" int tap_conv_dh_mma(const void* ct, const void* w, const void* period
   return launch<-1>(ct, w, nullptr, periods, cycles, dh, K, B, Lp, Cin, Cout, kh, kw, p_max,
                     runs, stream);
 }
+
+// A region mark of flow_timesnet_tpu_torch/tracing.py (it replaces no TPU
+// kernel: the JAX package traces from the host). One thread reads the
+// card's nanosecond clock (%globaltimer). cells: a region's three int64
+// cells in the tracing buffer of its device: the last start, the
+// nanoseconds summed over its ends, their count. A start mark (end = 0)
+// writes the start; an end mark adds the time since it and 1. Captured into
+// a CUDA graph, the marks run on every replay. Regions of one name never
+// overlap on a stream, so nothing else writes the cells meanwhile. It
+// lives in this library, which the bf16 path loads anyway, so that tracing
+// builds nothing of its own.
+__global__ void region_mark_kernel(long long* cells, int end) {
+  unsigned long long now;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(now));
+  if (end == 0) {
+    cells[0] = static_cast<long long>(now);
+  } else {
+    cells[1] += static_cast<long long>(now) - cells[0];
+    cells[2] += 1;
+  }
+}
+
+// Launch one mark on `stream`. Returns a cudaError_t value: 0 on a
+// successful launch.
+extern "C" int region_mark(void* cells, int end, void* stream) {
+  region_mark_kernel<<<1, 1, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<long long*>(cells), end);
+  return static_cast<int>(cudaGetLastError());
+}

@@ -47,7 +47,7 @@ import numpy as np
 import torch
 from torch.func import functional_call
 
-from . import graphs
+from . import graphs, tracing
 from .data.device_windows import StagedWindows, gather_batch, strip_augment
 from .device import resolve_device
 from .losses import negative_binomial_mask, negative_binomial_nll
@@ -179,19 +179,39 @@ class Engine:
         # replay graphs (see the module's doc); not under gloo, whose
         # collectives a graph cannot capture: there every step runs eagerly
         self.cuda_graphs = self.device.type == "cuda" and mesh.graphs_allowed()
+        # graphs by key: its kind first, the tracing state (marks captured) last
         self._graphs: Dict[tuple, graphs.Captured] = {}
         self._graph_state: Optional[TrainState] = None  # the state the training graphs hold
+        self._marked = False  # whether a graph holds tracing's marks
         self._pool = None
 
     # -- CUDA graphs -------------------------------------------------------------
 
-    def _capture(self, key: tuple, body, **kwargs) -> graphs.Captured:
-        """Capture ``body`` into this engine's memory pool under ``key``."""
+    def _key(self, *parts) -> tuple:
+        """A graph's key: ``parts`` (its kind first) and the tracing state,
+        so that a marked graph and an unmarked one never share a key."""
 
-        if self._pool is None:
+        return (*parts, tracing.enabled())
+
+    def _graph(self, key: tuple) -> Optional[graphs.Captured]:
+        """The graph captured under ``key``, or None. With tracing off, the
+        marked graphs are dropped first."""
+
+        if self._marked and not key[-1]:
+            self._graphs = {k: g for k, g in self._graphs.items() if not k[-1]}
+            self._marked = False
+        return self._graphs.get(key)
+
+    def _capture(self, key: tuple, body, **kwargs) -> graphs.Captured:
+        """Capture ``body`` into this engine's memory pool under ``key``: a
+        new pool where no graph holds the last one (a capture may share a
+        pool only with a live graph)."""
+
+        if self._pool is None or not self._graphs:
             self._pool = torch.cuda.graph_pool_handle()
-        graph = graphs.capture(body, self._pool, **kwargs)
+        graph = graphs.capture(body, self._pool, kind=key[0], **kwargs)
         self._graphs[key] = graph
+        self._marked = self._marked or key[-1]
         return graph
 
     def _training_graphs(self, state: TrainState) -> None:
@@ -225,17 +245,24 @@ class Engine:
 
         self.model.eval()
         args = (x, x_mark, static, ids, floor, row_valid)
-        if not self.cuda_graphs:
+        with tracing.span("engine.replay"):
+            if not self.cuda_graphs:
+                return self._served(*args)
+            key = self._key("forward", graphs.signature(args))
+            graph = self._graph(key)
+            if graph is None:
+                bufs = graphs.static_copies(args)
+                graph = self._capture(key, lambda: self._served(*bufs), inputs=bufs)
+                rate, disp = graph.replay()
+            else:
+                rate, disp = graph.replay(args)
+            return rate.clone(), disp.clone()
+
+    def _served(self, *args):
+        """The model's forward on ``args``: a served request's device work."""
+
+        with tracing.region("model.forward", self.device):
             return self.model(*args)
-        key = ("forward", graphs.signature(args))
-        graph = self._graphs.get(key)
-        if graph is None:
-            bufs = graphs.static_copies(args)
-            graph = self._capture(key, lambda: self.model(*bufs), inputs=bufs)
-            rate, disp = graph.replay()
-        else:
-            rate, disp = graph.replay(args)
-        return rate.clone(), disp.clone()
 
     @torch.inference_mode()
     def rollout(self, x, horizon, x_mark=None, y_mark=None, static=None, ids=None, floor=None,
@@ -252,19 +279,23 @@ class Engine:
         self.model.eval()
         horizon = int(horizon)
         args = (x, x_mark, y_mark, static, ids, floor, row_valid)
-        if not self.cuda_graphs:
-            return self._rollout(None, x, horizon, x_mark, y_mark, static, ids, floor, row_valid)
-        key = ("rollout", horizon, graphs.signature(args))
-        graph = self._graphs.get(key)
-        if graph is None:
-            bufs = graphs.static_copies(args)
-            xb, mb, yb, *rest = bufs
-            graph = self._capture(
-                key, lambda: self._rollout(None, xb, horizon, mb, yb, *rest), inputs=bufs)
-            rate, disp = graph.replay()
-        else:
-            rate, disp = graph.replay(args)
-        return rate.clone(), disp.clone()
+
+        def decode(x, x_mark, y_mark, *rest):
+            with tracing.region("model.forward", self.device):
+                return self._rollout(None, x, horizon, x_mark, y_mark, *rest)
+
+        with tracing.span("engine.replay"):
+            if not self.cuda_graphs:
+                return decode(*args)
+            key = self._key("rollout", horizon, graphs.signature(args))
+            graph = self._graph(key)
+            if graph is None:
+                bufs = graphs.static_copies(args)
+                graph = self._capture(key, lambda: decode(*bufs), inputs=bufs)
+                rate, disp = graph.replay()
+            else:
+                rate, disp = graph.replay(args)
+            return rate.clone(), disp.clone()
 
     def _rollout(self, params, x, horizon, x_mark, y_mark, static, ids, floor, row_valid):
         if x_mark is not None and y_mark is None:
@@ -480,11 +511,13 @@ class Engine:
         params = list(state.params.values())
         for p in params:
             p.grad = None
-        loss, stats = self._loss(batch, generator)
-        loss.backward()
-        grads = [p.grad if p.grad is not None else torch.zeros_like(p) for p in params]
-        if mesh.grouped():
-            loss = self._reduce(grads, loss)
+        with tracing.region("step.forward", self.device):
+            loss, stats = self._loss(batch, generator)
+        with tracing.region("step.backward", self.device):
+            loss.backward()
+            grads = [p.grad if p.grad is not None else torch.zeros_like(p) for p in params]
+            if mesh.grouped():
+                loss = self._reduce(grads, loss)
         # debug_nans: the loss and each gradient, and each parameter after the
         # update (the step's outputs, as JAX's jax_debug_nans checks them)
         finite = ([torch.isfinite(loss).all()] + [torch.isfinite(g).all() for g in grads]
@@ -496,7 +529,7 @@ class Engine:
                 return loss.detach(), _flagged(stats, finite, params)
             grads = [a.clone() for a in accum]
             torch._foreach_zero_(accum)
-        with torch.no_grad():
+        with torch.no_grad(), tracing.region("step.optimizer", self.device):
             state.optimizer.step(grads)
             if state.ema is not None:
                 ema = list(state.ema.values())
@@ -529,8 +562,8 @@ class Engine:
             return state, loss, stats
         self._training_graphs(state)
         tensors = [batch.get(k) for k in _STEP_KEYS]
-        key = ("step", id(generator), graphs.signature(tensors))
-        graph = self._graphs.get(key)
+        key = self._key("step", id(generator), graphs.signature(tensors))
+        graph = self._graph(key)
         if graph is None:
             bufs = graphs.static_copies(tensors)
             static_batch = dict(zip(_STEP_KEYS, bufs))
@@ -610,7 +643,7 @@ class Engine:
         if not self.cuda_graphs:
             buf = self._resident_buffers(S, B, sums)
             return buf, make_body(buf)
-        graph = self._graphs.get(key)
+        graph = self._graph(key)
         if graph is None or graph.pins[0]["idx"].shape[0] < S:
             buf = self._resident_buffers(max(RESIDENT_PLAN_ROWS, S), B, sums)
             outputs = buf["sums"] if sums else [buf[k] for k in ("losses", "mask_true", "finite")
@@ -661,8 +694,9 @@ class Engine:
 
         def make_body(buf):
             def body():
-                flat, rv = self._plan_row(buf)
-                batch = gather_batch(staged, flat, rv, generator=generator)
+                with tracing.region("step.gather", self.device):
+                    flat, rv = self._plan_row(buf)
+                    batch = gather_batch(staged, flat, rv, generator=generator)
                 loss, stats = self._train_body(state, generator, batch)
                 with torch.no_grad():
                     buf["losses"].index_copy_(0, buf["counter"], loss.reshape(1))
@@ -672,17 +706,19 @@ class Engine:
                     buf["counter"].add_(1)
             return body
 
-        buf, step = self._resident(("epoch", id(generator), id(staged), B), S, B, False,
-                                   make_body, state=state.tensors(),
-                                   generators=(generator,), pins=(generator, staged))
-        buf["idx"][:S].copy_(idx_t)
-        buf["rv"][:S].copy_(rv_t)
-        buf["counter"].zero_()
-        for k in range(S):
-            step()
-            if on_step is not None:
-                on_step(step_offset + k + 1, buf["finite"])
-        return state, buf["losses"][:S].clone(), buf["mask_true"][:S].clone()
+        with tracing.span("train.chunk"):
+            buf, step = self._resident(self._key("epoch", id(generator), id(staged), B), S, B,
+                                       False, make_body, state=state.tensors(),
+                                       generators=(generator,), pins=(generator, staged))
+            buf["idx"][:S].copy_(idx_t)
+            buf["rv"][:S].copy_(rv_t)
+            buf["counter"].zero_()
+            for k in range(S):
+                with tracing.span("engine.replay"):
+                    step()
+                if on_step is not None:
+                    on_step(step_offset + k + 1, buf["finite"])
+            return state, buf["losses"][:S].clone(), buf["mask_true"][:S].clone()
 
     # -- evaluation ---------------------------------------------------------------
 
@@ -785,7 +821,7 @@ class Engine:
                     buf["counter"].add_(1)
             return body
 
-        key = ("eval", id(staged), B, tuple(id(t) for t in pinned))
+        key = self._key("eval", id(staged), B, tuple(id(t) for t in pinned))
         buf, step = self._resident(key, chunk, B, True, make_body, pins=(staged, clean, pinned))
         for acc in buf["sums"]:
             acc.zero_()

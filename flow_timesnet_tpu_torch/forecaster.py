@@ -10,6 +10,13 @@ History is a ``[T, n]`` numpy array; calendar features come from optional
 ``datetime64`` stamps aligned with its rows, stepped into the future by the
 model's frequency. ``forecast`` gives the rates, ``forecast_quantiles`` the
 NB2 head's predictive quantiles.
+
+With tracing on (``tracing.py``) each call is the span ``forecast``, with
+``forecast.prepare`` (validation, scaling, calendar marks, the static, id
+and floor lookups), ``forecast.upload`` (the host-to-device copies),
+``Engine``'s ``engine.replay``, ``forecast.fetch`` (the copies back, which
+wait for the card) and ``forecast.finish`` (the inverse transform and the
+clip) inside it.
 """
 
 from __future__ import annotations
@@ -22,7 +29,7 @@ from typing import Any, Callable, Dict, List, Mapping, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from . import convert
+from . import convert, tracing
 from .config import PipelineConfig, load_yaml
 from .data.pivot import ScalerDict, inverse_transform, transform_array
 from .data.time_features import build_time_features
@@ -324,12 +331,14 @@ class Forecaster:
         when ``return_dispersion``.
         """
 
-        rate_np, disp_np, columns = self._forecast_raw(history, series, horizon, dates)
-        rate_out = np.clip(
-            inverse_transform(rate_np, columns, self._sub_scaler(columns), self.method),
-            0.0,
-            None,
-        )
+        with tracing.span("forecast"):
+            rate_np, disp_np, columns = self._forecast_raw(history, series, horizon, dates)
+            with tracing.span("forecast.finish"):
+                rate_out = np.clip(
+                    inverse_transform(rate_np, columns, self._sub_scaler(columns), self.method),
+                    0.0,
+                    None,
+                )
         if return_dispersion:
             return rate_out, disp_np
         return rate_out
@@ -353,15 +362,17 @@ class Forecaster:
         through the monotone inverse scaler and clipped at zero.
         """
 
-        rate_np, disp_np, columns = self._forecast_raw(history, series, horizon, dates)
-        values = predictive_quantiles(quantiles, rate_np, disp_np,
-                                      resolve_method(method, self.method))
-        sub = self._sub_scaler(columns)
-        return {
-            q: np.clip(inverse_transform(np.asarray(arr, np.float32), columns, sub, self.method),
-                       0.0, None).astype(np.float32)
-            for q, arr in values.items()
-        }
+        with tracing.span("forecast"):
+            rate_np, disp_np, columns = self._forecast_raw(history, series, horizon, dates)
+            with tracing.span("forecast.finish"):
+                values = predictive_quantiles(quantiles, rate_np, disp_np,
+                                              resolve_method(method, self.method))
+                sub = self._sub_scaler(columns)
+                return {
+                    q: np.clip(inverse_transform(np.asarray(arr, np.float32), columns, sub,
+                                                 self.method), 0.0, None).astype(np.float32)
+                    for q, arr in values.items()
+                }
 
     def _tensor(self, arr: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(arr)).to(self.device)
@@ -375,6 +386,30 @@ class Forecaster:
     ):
         """Model-space forward: ``(rate [H, n], dispersion [H, n], columns)``,
         before any inverse transform or clip."""
+
+        with tracing.span("forecast.prepare"):
+            host, columns, horizon = self._prepare(history, series, horizon, dates)
+        with tracing.span("forecast.upload"):
+            xb, x_mark, y_mark, static, ids_arr, floor = (
+                None if a is None else self._tensor(a) for a in host)
+        cfg = self.engine.cfg
+        if cfg.mode == "direct":
+            rate, disp = self.engine.forward(xb, x_mark, static, ids_arr, floor)
+            rate, disp = rate[:, :horizon, :], disp[:, :horizon, :]
+        else:
+            rate, disp = self.engine.rollout(
+                xb, horizon, x_mark=x_mark, y_mark=y_mark, static=static, ids=ids_arr,
+                floor=floor,
+            )
+        with tracing.span("forecast.fetch"):
+            rate_np = rate[:, :, 0].T.float().cpu().numpy()  # [horizon, n]
+            disp_np = disp[:, :, 0].T.float().cpu().numpy()
+        return rate_np, disp_np, columns
+
+    def _prepare(self, history, series, horizon, dates):
+        """The host arrays of a request, validated: ``(x, x_mark, y_mark,
+        static, ids, floor)`` (None where the model takes none), the
+        columns and the horizon."""
 
         cfg = self.engine.cfg
         horizon = int(horizon or cfg.pred_len)
@@ -397,7 +432,7 @@ class Forecaster:
         n = len(columns)
         positions = np.asarray([self.id_position[c] for c in columns], np.int64)
         scaled = transform_array(values[-L:, :], columns, self._sub_scaler(columns), self.method)
-        xb = self._tensor(scaled.T[:, :, None])  # [n, L, 1]
+        xb = scaled.T[:, :, None]  # [n, L, 1]
 
         x_mark = y_mark = None
         if self.time_feature_config is not None:
@@ -415,32 +450,14 @@ class Forecaster:
                     f"time_feature_config gives {marks.shape[1]} features, "
                     f"the model takes {cfg.time_features}"
                 )
-            x_mark = self._tensor(np.broadcast_to(marks[:L][None], (n, L, marks.shape[1])))
-            y_mark = self._tensor(np.broadcast_to(marks[L:][None], (n, horizon, marks.shape[1])))
+            x_mark = np.broadcast_to(marks[:L][None], (n, L, marks.shape[1]))
+            y_mark = np.broadcast_to(marks[L:][None], (n, horizon, marks.shape[1]))
 
-        static = (
-            self._tensor(self.static_features[positions][:, None, :])
-            if self.static_features is not None
-            else None
-        )
-        ids_arr = self._tensor(positions.reshape(-1, 1))
-        floor = (
-            self._tensor(self.sigma_vector[positions].reshape(-1, 1, 1))
-            if self.sigma_vector is not None
-            else None
-        )
-
-        if cfg.mode == "direct":
-            rate, disp = self.engine.forward(xb, x_mark, static, ids_arr, floor)
-            rate, disp = rate[:, :horizon, :], disp[:, :horizon, :]
-        else:
-            rate, disp = self.engine.rollout(
-                xb, horizon, x_mark=x_mark, y_mark=y_mark, static=static, ids=ids_arr,
-                floor=floor,
-            )
-        rate_np = rate[:, :, 0].T.float().cpu().numpy()  # [horizon, n]
-        disp_np = disp[:, :, 0].T.float().cpu().numpy()
-        return rate_np, disp_np, columns
+        static = (self.static_features[positions][:, None, :]
+                  if self.static_features is not None else None)
+        floor = (self.sigma_vector[positions].reshape(-1, 1, 1)
+                 if self.sigma_vector is not None else None)
+        return (xb, x_mark, y_mark, static, positions.reshape(-1, 1), floor), columns, horizon
 
     def _sub_scaler(self, columns: List[str]):
         if self.scaler is None or self.method == "none":

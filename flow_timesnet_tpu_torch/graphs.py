@@ -22,16 +22,30 @@ The fold-conv launch counters of ``ops/cuda_fold.py`` count where a wrapper
 launches its kernel: the warm-up calls and the capture count, a replay
 (which runs no Python) does not. What a replay runs on the card, the
 kernels count themselves (``cuda_fold.kernel_runs``).
+
+:func:`capture_stats` counts the captures of each kind (``forward``,
+``rollout``, ``step``, ``epoch``, ``eval``: the first element of the
+engine's key) and their seconds, warm-up included, on a host clock that
+ends in a synchronise; always on, they cost one clock pair a capture and
+nothing a replay. With tracing on (``tracing.py``) a capture is the span
+``graphs.capture``, with ``graphs.warmup`` and ``graphs.record`` inside it.
 """
 
 from __future__ import annotations
 
 import functools
-from typing import Any, Callable, Iterable, List, Optional, Sequence, Tuple
+import time
+from collections import Counter
+from typing import Any, Callable, Dict, Iterable, List, Optional, Sequence, Tuple
 
 import torch
 
+from . import tracing
+
 WARMUP_CALLS = 3  # eager calls on a side stream before a capture
+
+_captures: Counter = Counter()  # kind -> captures since the process started
+_capture_seconds: Counter = Counter()  # kind -> their seconds
 
 
 class Captured:
@@ -64,46 +78,57 @@ def _warmup_stream(device: int) -> torch.cuda.Stream:
     return torch.cuda.Stream(device)
 
 
-def capture(body: Callable[[], Any], pool, *,
+def capture(body: Callable[[], Any], pool, *, kind: str,
             inputs: Sequence[Optional[torch.Tensor]] = (),
             state: Iterable[torch.Tensor] = (),
             generators: Sequence[Optional[torch.Generator]] = (),
             pins: Tuple[Any, ...] = ()) -> Captured:
     """Warm ``body`` up, restore ``state`` and the ``generators``, capture it.
 
-    ``inputs``: the static buffers the body reads (see
-    :func:`static_copies`); ``state``: every tensor the body updates in
-    place (it is copied before the warm-up and copied back after it);
-    ``generators``: those it draws from (None entries are skipped). A
-    failure in the warm-up or the capture raises; nothing runs the body
-    eagerly in its place.
+    ``kind``: what :func:`capture_stats` counts it as; ``inputs``: the
+    static buffers the body reads (see :func:`static_copies`); ``state``:
+    every tensor the body updates in place (it is copied before the warm-up
+    and copied back after it); ``generators``: those it draws from (None
+    entries are skipped). A failure in the warm-up or the capture raises;
+    nothing runs the body eagerly in its place.
     """
 
-    state = list(state)
-    gens = [g for g in generators if g is not None]
-    saved = [t.detach().clone() for t in state]
-    gen_states = [g.get_state() for g in gens]
-    side = _warmup_stream(torch.cuda.current_device())
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        for _ in range(WARMUP_CALLS):
-            body()
-    torch.cuda.current_stream().wait_stream(side)
-    with torch.no_grad():
-        for t, s in zip(state, saved):
-            t.copy_(s)
-    for g, s in zip(gens, gen_states):
-        g.set_state(s)
+    t0 = time.perf_counter()
+    with tracing.span("graphs.capture"):
+        state = list(state)
+        gens = [g for g in generators if g is not None]
+        saved = [t.detach().clone() for t in state]
+        gen_states = [g.get_state() for g in gens]
+        side = _warmup_stream(torch.cuda.current_device())
+        side.wait_stream(torch.cuda.current_stream())
+        with tracing.span("graphs.warmup"), torch.cuda.stream(side):
+            for _ in range(WARMUP_CALLS):
+                body()
+        torch.cuda.current_stream().wait_stream(side)
+        with torch.no_grad():
+            for t, s in zip(state, saved):
+                t.copy_(s)
+        for g, s in zip(gens, gen_states):
+            g.set_state(s)
 
-    graph = torch.cuda.CUDAGraph()
-    for g in gens:
-        graph.register_generator_state(g)
-    # the outer stream context puts the caller's stream back even where a
-    # failed capture leaves ``torch.cuda.graph``'s own context open
-    with torch.cuda.stream(torch.cuda.current_stream()):
-        with torch.cuda.graph(graph, pool=pool):
-            outputs = body()
+        graph = torch.cuda.CUDAGraph()
+        for g in gens:
+            graph.register_generator_state(g)
+        # the outer stream context puts the caller's stream back even where a
+        # failed capture leaves ``torch.cuda.graph``'s own context open
+        with tracing.span("graphs.record"), torch.cuda.stream(torch.cuda.current_stream()):
+            with torch.cuda.graph(graph, pool=pool):
+                outputs = body()
+        torch.cuda.synchronize()
+    _captures[kind] += 1
+    _capture_seconds[kind] += time.perf_counter() - t0
     return Captured(graph, inputs, outputs, pins)
+
+
+def capture_stats() -> Dict[str, Tuple[int, float]]:
+    """``{kind: (captures, seconds)}`` since the process started."""
+
+    return {kind: (n, _capture_seconds[kind]) for kind, n in _captures.items()}
 
 
 def signature(tensors: Iterable[Optional[torch.Tensor]]) -> Tuple:

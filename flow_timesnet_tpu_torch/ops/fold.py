@@ -37,6 +37,8 @@ from typing import NamedTuple
 
 import torch
 
+from .. import tracing
+
 
 class FoldGeometry(NamedTuple):
     """Per-candidate fold geometry over a static padded time axis."""
@@ -247,9 +249,69 @@ def pointwise_conv(h: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor) ->
     adds the bias in float32 before any cast. A bf16 ``torch.matmul`` would
     round its output to bf16 before the bias, so the bf16 values are upcast
     (exactly) and multiplied in float32 instead.
+
+    With tracing on (``tracing.py``) the call is the region
+    ``pointwise.fwd`` and, where autograd records it, its backward the
+    region ``pointwise.bwd`` (:class:`_MarkedPointwise`), with the same
+    results bit for bit.
     """
 
-    return h.float() @ kernel.to(h.dtype).float() + bias.float()
+    if not tracing.enabled():
+        return h.float() @ kernel.to(h.dtype).float() + bias.float()
+    if torch.is_grad_enabled() and (h.requires_grad or kernel.requires_grad
+                                    or bias.requires_grad):
+        return _MarkedPointwise.apply(h, kernel, bias)
+    with tracing.region("pointwise.fwd", h.device):
+        return h.float() @ kernel.to(h.dtype).float() + bias.float()
+
+
+class _MarkedPointwise(torch.autograd.Function):
+    """:func:`pointwise_conv` as one autograd node whose forward and
+    backward each lie in one tracing region: between two marks around the
+    plain expression's nodes, autograd's ready queue could run a sibling
+    branch's work. It runs the operations autograd runs for the plain
+    expression, in its order: the matmul folded to one ``mm`` over the rows
+    (``torch.matmul`` folds when the kernel records gradients), the bias
+    added in float32; backward, ``mm``'s two gradients as autograd forms
+    them from the operands' strides, the bias's summed to its shape, and
+    each cast's gradient cast back (the kernel's through ``h.dtype``)."""
+
+    @staticmethod
+    def forward(ctx, h, kernel, bias):
+        with tracing.region("pointwise.fwd", h.device):
+            hf = h.float()
+            wk = kernel.to(h.dtype)
+            wf = wk.float()
+            rows = hf.reshape(-1, hf.shape[-1])
+            out = rows.mm(wf).view(*hf.shape[:-1], wf.shape[-1]) + bias.float()
+        ctx.save_for_backward(rows, wf)
+        ctx.shapes = (hf.shape, bias.shape)
+        ctx.dtypes = (h.dtype, kernel.dtype, wk.dtype, bias.dtype)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        rows, wf = ctx.saved_tensors
+        h_shape, b_shape = ctx.shapes
+        h_dt, k_dt, wk_dt, b_dt = ctx.dtypes
+        dh = dk = db = None
+        with tracing.region("pointwise.bwd", g.device):
+            if ctx.needs_input_grad[2]:
+                db = g.sum_to_size(b_shape).to(b_dt)
+            g2 = g.reshape(-1, g.shape[-1])
+            if ctx.needs_input_grad[0]:  # mm_mat1_backward
+                if rows.stride(0) == 1 and rows.stride(1) == rows.shape[0]:
+                    dh = wf.mm(g2.t()).t()
+                else:
+                    dh = g2.mm(wf.t())
+                dh = dh.reshape(h_shape).to(h_dt)
+            if ctx.needs_input_grad[1]:  # mm_mat2_backward
+                if wf.stride(0) == 1 and wf.stride(1) == wf.shape[0]:
+                    dk = g2.t().mm(rows).t()
+                else:
+                    dk = rows.t().mm(g2)
+                dk = dk.to(wk_dt).to(k_dt)
+        return dh, dk, db
 
 
 def combine_residuals(deltas: torch.Tensor, weights: torch.Tensor, x: torch.Tensor) -> torch.Tensor:

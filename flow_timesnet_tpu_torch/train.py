@@ -53,7 +53,9 @@ updated parameters are finite (one wait for the card a step) and raises
 ``FloatingPointError`` at the first step where one is not, naming the
 epoch, the step and the first such parameter. ``train.profile_dir`` traces the first epoch after the first
 one (``torch.profiler``, the CPU and, on the card, CUDA activities) into
-that directory as a Chrome trace. ``model.period_buckets`` is accepted and
+that directory as a Chrome trace, with tracing on (``tracing.py``): the
+trace holds the program's spans and the region marks, and that epoch's log
+line adds its region totals in ms a step. ``model.period_buckets`` is accepted and
 runs the full-cap fold, which gives the bucketed result
 (``models/timesblock.py``).
 """
@@ -84,6 +86,7 @@ from .device import resolve_device
 from .engine import Engine, batch_to_device, first_non_finite
 from .optim import LRController, resolve_warmup
 from .parallel import mesh
+from .tracing import EpochTrace
 from .utils import artifacts as artifacts_io
 from .utils import metadata as metadata_utils
 from .utils.metrics import wsmape_from_series_sums
@@ -286,36 +289,6 @@ def _is_on(value: Any, default: str) -> bool:
         "1", "true", "yes", "on", "auto")
 
 
-class _EpochTrace:
-    """``train.profile_dir``: a ``torch.profiler`` trace of one epoch, the
-    CPU's activities and, on the card, CUDA's."""
-
-    def __init__(self) -> None:
-        self.prof = None
-
-    def start(self, device: torch.device) -> None:
-        from torch.profiler import ProfilerActivity, profile
-
-        activities = [ProfilerActivity.CPU]
-        if device.type == "cuda":
-            activities.append(ProfilerActivity.CUDA)
-        self.prof = profile(activities=activities)
-        self.prof.start()
-
-    def stop(self, path: Optional[str] = None) -> None:
-        """Stop a running trace and, given ``path``, write it there as a
-        Chrome trace."""
-
-        prof, self.prof = self.prof, None
-        if prof is None:
-            return
-        prof.stop()
-        if path is not None:
-            os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
-            prof.export_chrome_trace(path)
-            _log(f"Profiler trace written to {path}")
-
-
 def train_once(
     cfg: PipelineConfig | Dict[str, Any],
     epoch_hook: Optional[Any] = None,
@@ -327,14 +300,14 @@ def train_once(
     pruner).
     """
 
-    trace = _EpochTrace()
+    trace = EpochTrace()
     try:
         return _train_once(cfg, epoch_hook, trace)
     finally:
         trace.stop()  # a run that raises mid-epoch leaves no profiler running
 
 
-def _train_once(cfg, epoch_hook, trace: _EpochTrace) -> Tuple[float, Dict[str, Any]]:
+def _train_once(cfg, epoch_hook, trace: EpochTrace) -> Tuple[float, Dict[str, Any]]:
     t_start = time.perf_counter()
     if isinstance(cfg, PipelineConfig):
         pipeline_cfg = cfg
@@ -891,6 +864,7 @@ def _train_once(cfg, epoch_hook, trace: _EpochTrace) -> Tuple[float, Dict[str, A
                 "model has diverged (non-finite rate/dispersion); lower the "
                 "lr or raise min_sigma."
             )
+        step_regions = trace.step_regions()  # the traced epoch's steps, before its evaluation
         eval_params = state.ema if ema_decay > 0.0 else state.params
         t_eval = time.perf_counter()
         if use_resident:
@@ -912,11 +886,13 @@ def _train_once(cfg, epoch_hook, trace: _EpochTrace) -> Tuple[float, Dict[str, A
             history[key].append(value)
         _log(f"Epoch {ep} loss={mean_loss:.6f} val_nll={val_nll:.6f} "
              f"val_smape={val_smape:.6f} lr={lr:.3e} mask_cov={coverage:.4f} "
-             f"windows/s={throughput:.1f} seconds={epoch_time:.3f}")
+             f"windows/s={throughput:.1f} seconds={epoch_time:.3f}{step_regions}")
         if debug_memory and ep == start_epoch:
             _log_device_memory(f"epoch {ep}", device)
-        trace.stop(os.path.join(str(profile_dir), f"torch_trace_epoch{ep}.json")
-                   if profile_dir and mesh.is_main() else None)
+        written = trace.stop(os.path.join(str(profile_dir), f"torch_trace_epoch{ep}.json")
+                             if profile_dir and mesh.is_main() else None)
+        if written:
+            _log(f"Profiler trace written to {written}")
         sel_value = val_nll if selection_metric == "nll" else val_smape
         lr_ctl.observe(sel_value)
         if sel_value < best_sel:

@@ -1628,3 +1628,203 @@ def test_the_recursive_decode_replays_one_graph_equal_to_the_eager_loop(cuda):
     short = graphed.rollout(x, 3, ids=batch["ids"])
     assert torch.equal(short[0], want[0][:, :3])
     assert sorted(k[1] for k in graphed._graphs if k[0] == "rollout") == [3, 7]
+
+
+# -- tracing: regions that survive replay, spans, capture counts ---------------------
+
+# the pointwise convs of a pass of the graph tests' model: 2 layers x 2
+# inceptions x (3 bottlenecked branches' reduce and expand, proj, res)
+GRAPH_POINTWISE = 2 * 2 * (2 * len(GRAPH_KERNELS) + 2)
+
+
+@pytest.fixture
+def traced_off():
+    from flow_timesnet_tpu_torch import tracing
+
+    tracing.enable(False)
+    tracing.clear()
+    tracing.clear_regions()  # what an earlier traced run left
+    yield tracing
+    tracing.enable(False)
+    tracing.clear()
+    tracing.clear_regions()
+
+
+def _counts(tracing, device):
+    return {k: c for k, (c, _) in tracing.regions(device).items()}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+def test_traced_pointwise_equals_plain_on_the_card(cuda, traced_off, dtype):
+    """The traced 1x1 conv (one autograd node between its marks) runs
+    cuBLAS's products as the plain expression does: forward, dh, dW and
+    db bit for bit, at the flagship's fold shape."""
+
+    tracing = traced_off
+    g = torch.Generator(device=cuda).manual_seed(0)
+    base = torch.randn(2, 256, 55, 32, device=cuda, generator=g)
+    k0, b0 = torch.randn(32, 64, device=cuda, generator=g), torch.randn(64, device=cuda,
+                                                                          generator=g)
+    ct = torch.randn(2, 256, 55, 64, device=cuda, generator=g)
+
+    def run(on):
+        tracing.enable(on)
+        h, k, b = (t.clone().requires_grad_() for t in (base, k0, b0))
+        out = fold.pointwise_conv(h.to(dtype), k, b)
+        out.backward(ct)
+        return out.detach(), h.grad, k.grad, b.grad
+
+    plain, traced = run(False), run(True)
+    assert all(torch.equal(a, b) for a, b in zip(plain, traced))
+    assert _counts(tracing, cuda) == {"pointwise.fwd": 1, "pointwise.bwd": 1}
+
+
+@pytest.mark.cuda
+def test_traced_replays_equal_untraced_and_count_their_regions(cuda, traced_off):
+    """A resident chunk and a served forward, each captured and replayed
+    with tracing on, give the untraced graphs' bits; a replay's marks count
+    each region exactly (per step: the gather, forward, backward and
+    optimizer once, 32 pointwise convs each way; per request: the model's
+    forward once and 32 pointwise forwards); seconds are positive."""
+
+    tracing = traced_off
+    cfg, params, batch = _graph_setup(cuda, False, 0.1)
+    staged, idx, rv = _staged_plan(cuda)
+    out = []
+    for on in (False, True):
+        tracing.enable(on)
+        eng, _ = _engines(cuda, cfg, params)
+        state, gen = eng.init_state(), torch.Generator(device=cuda).manual_seed(3)
+        state, first, _ = eng.train_epoch_resident(state, 1e-3, gen, staged, idx[:1], rv[:1])
+        tracing.clear_regions()
+        state, losses, _ = eng.train_epoch_resident(state, 1e-3, gen, staged, idx, rv)
+        steps = _counts(tracing, cuda)
+        x = batch["x"] * 0.5
+        eng.forward(x, ids=batch["ids"])
+        tracing.clear_regions()
+        served = eng.forward(batch["x"], ids=batch["ids"])
+        request = _counts(tracing, cuda)
+        out.append((first, losses, state, served, steps, request))
+    (f0, l0, s0, r0, steps0, req0), (f1, l1, s1, r1, steps1, req1) = out
+    assert torch.equal(f0, f1) and torch.equal(l0, l1)
+    assert all(torch.equal(a, b) for a, b in zip(s0.tensors(), s1.tensors()))
+    assert all(torch.equal(a, b) for a, b in zip(r0, r1))
+    assert steps0 == req0 == {}  # untraced graphs hold no mark
+    S = len(idx)
+    assert steps1 == {"step.gather": S, "step.forward": S, "step.backward": S,
+                      "step.optimizer": S, "pointwise.fwd": S * GRAPH_POINTWISE,
+                      "pointwise.bwd": S * GRAPH_POINTWISE}
+    assert req1 == {"model.forward": 1, "pointwise.fwd": GRAPH_POINTWISE}
+    assert all(s > 0 for _, s in tracing.regions(cuda).values())
+
+
+@pytest.mark.cuda
+def test_an_untraced_graph_holds_no_mark_and_captures_count(cuda, traced_off):
+    """A forward captured with tracing off replays no mark kernel (its
+    cells stay zero and the profiler sees none); with tracing on the
+    marked variant is captured once and its replay shows the marks; back
+    off, the unmarked graph replays and the marked one is dropped.
+    ``graphs.capture_stats`` counts one capture a new key, none a replay."""
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from flow_timesnet_tpu_torch import graphs
+
+    tracing = traced_off
+    cfg, params, batch = _graph_setup(cuda, False, 0.0)
+    eng, _ = _engines(cuda, cfg, params)
+
+    def forwards():
+        return graphs.capture_stats().get("forward", (0, 0.0))
+
+    def marks_seen():
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            eng.forward(batch["x"], ids=batch["ids"])
+            torch.cuda.synchronize()
+        return sum(e.count for e in prof.key_averages() if "region_mark" in e.key)
+
+    n0, s0 = forwards()
+    eng.forward(batch["x"], ids=batch["ids"])  # capture
+    n1, s1 = forwards()
+    assert n1 == n0 + 1 and s1 > s0
+    tracing.clear_regions()
+    assert marks_seen() == 0 and tracing.regions(cuda) == {}
+    assert forwards()[0] == n1  # a replay captures nothing
+    tracing.enable()
+    eng.forward(batch["x"], ids=batch["ids"])  # the marked variant
+    assert forwards()[0] == n1 + 1 and len(eng._graphs) == 2
+    assert marks_seen() == 2 * (1 + GRAPH_POINTWISE)
+    tracing.enable(False)
+    tracing.clear_regions()
+    assert marks_seen() == 0 and tracing.regions(cuda) == {}
+    assert forwards()[0] == n1 + 1 and len(eng._graphs) == 1
+
+
+@pytest.mark.cuda
+def test_an_engine_of_marked_graphs_alone_captures_again_untraced(cuda, traced_off):
+    """Turning tracing off drops every graph of an engine that captured
+    only marked ones; its next capture takes a new pool (a capture may not
+    share a pool that no live graph holds) and replays untraced."""
+
+    tracing = traced_off
+    cfg, params, batch = _graph_setup(cuda, False, 0.0)
+    eng, eager = _engines(cuda, cfg, params)
+    tracing.enable()
+    marked = eng.forward(batch["x"], ids=batch["ids"])
+    tracing.enable(False)
+    tracing.clear_regions()
+    got = eng.forward(batch["x"], ids=batch["ids"])
+    want = eager.forward(batch["x"], ids=batch["ids"])
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert all(torch.equal(a, b) for a, b in zip(marked, want))
+    assert list(eng._graphs) == [k for k in eng._graphs if not k[-1]] and len(eng._graphs) == 1
+    assert tracing.regions(cuda) == {}
+
+
+@pytest.mark.cuda
+def test_the_global_timer_resolution(cuda, traced_off):
+    """Reads the resolution of ``%globaltimer``, the clock of the marks, on
+    this card: the least step between the start stamps of marks a few
+    microseconds apart, and their common divisor. Printed for PERF.md."""
+
+    import math
+
+    tracing = traced_off
+    tracing.enable()
+    stamps = []
+    for _ in range(200):
+        with tracing.region("timer", cuda):
+            pass
+        torch.cuda.synchronize()
+        stamps.append(int(tracing._buffers[tracing._device(cuda)][tracing._slots["timer"] * 3]))
+    steps = [b - a for a, b in zip(stamps, stamps[1:]) if b != a]
+    assert steps and min(steps) > 0
+    gcd = math.gcd(*steps)
+    count, seconds = tracing.regions(cuda)["timer"]
+    print(f"\n%globaltimer on {torch.cuda.get_device_name(cuda)}: least step {min(steps)} ns, "
+          f"common divisor {gcd} ns; an empty region {1e9 * seconds / count:.0f} ns on average")
+    assert count == 200
+
+
+@pytest.mark.cuda
+def test_a_profile_dir_trace_holds_the_spans_and_the_marks(cuda, tmp_path):
+    """``train.profile_dir`` traces its epoch with tracing on: the Chrome
+    trace holds the program's spans as user annotations and the mark
+    kernels, and tracing is off after the run."""
+
+    import json
+
+    from flow_timesnet_tpu_torch import tracing
+    from flow_timesnet_tpu_torch import train as ptrain
+
+    cfg = _card_train_config(tmp_path, profile_dir=str(tmp_path / "trace"))
+    ptrain.train_once(cfg)
+    with open(tmp_path / "trace" / "torch_trace_epoch2.json") as f:
+        events = json.load(f)["traceEvents"]
+    notes = {e["name"] for e in events if e.get("cat") == "user_annotation"}
+    assert {"train.chunk", "engine.replay", "graphs.capture"} <= notes, sorted(notes)[:20]
+    kernels = {e["name"] for e in events if e.get("cat") == "kernel"}
+    assert any("region_mark" in name for name in kernels)
+    assert not tracing.enabled()
