@@ -12,7 +12,8 @@ def resolve_device(device: str | torch.device = "cuda") -> torch.device:
     only when the caller names it. On a CUDA device, float32 matmuls and
     cuDNN convolutions are pinned to full float32 (TF32 keeps about three
     decimal digits, and the JAX reference accumulates bf16 and float32
-    products in float32). That setting is process-wide: it holds for every
+    products in float32), and cuBLAS may not reduce a bf16 GEMM's split-K
+    partial sums in bf16. That setting is process-wide: it holds for every
     torch computation in the process from then on. This function is the
     port's one owner of it.
     """
@@ -26,6 +27,7 @@ def resolve_device(device: str | torch.device = "cuda") -> torch.device:
             )
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     elif dev.type != "cpu":
         raise ValueError(f"unsupported device {device!r}; use 'cuda' or 'cpu'")
     return dev

@@ -115,9 +115,9 @@ class InceptionBranch(nn.Module):
         conv = dense_fold_conv if geom.dense else tap_conv
         if not self.bottleneck:
             return conv(h.to(dt), geom, self.conv_kernel, self.conv_bias, kh, kw)
-        h = pointwise_conv(h.to(dt), self.reduce_kernel, self.reduce_bias).to(dt)
+        h = pointwise_conv(h.to(dt), self.reduce_kernel, self.reduce_bias, dt)
         h = conv(h, geom, self.conv_kernel, self.conv_bias, kh, kw).to(dt)
-        return pointwise_conv(h, self.expand_kernel, self.expand_bias)
+        return pointwise_conv(h, self.expand_kernel, self.expand_bias, dt)
 
 
 class InceptionBlock(nn.Module):
@@ -152,11 +152,11 @@ class InceptionBlock(nn.Module):
         self, h: torch.Tensor, geom: FoldGeometry, generator: Optional[torch.Generator] = None
     ) -> torch.Tensor:
         dt = self.dt
-        res = pointwise_conv(h.to(dt), self.res_kernel, self.res_bias) if self.has_res else h
+        res = pointwise_conv(h.to(dt), self.res_kernel, self.res_bias, dt) if self.has_res else h
         feats = [
             getattr(self, f"branch_{i}")(h, geom).to(dt) for i in range(self.n_branches)
         ]
-        z = pointwise_conv(torch.cat(feats, dim=-1), self.proj_kernel, self.proj_bias).to(dt)
+        z = pointwise_conv(torch.cat(feats, dim=-1), self.proj_kernel, self.proj_bias, dt)
         z = self.act(z)
         # after the cast: the dropout product stays in the compute type
         z = dropout(z, self.dropout, generator)

@@ -33,7 +33,8 @@ them.
 from __future__ import annotations
 
 import functools
-from typing import NamedTuple
+from collections import Counter
+from typing import Dict, NamedTuple, Optional
 
 import torch
 
@@ -242,42 +243,142 @@ def tap_weight_grad(
     return torch.stack(rows).reshape(kh, kw, h.shape[-1], ct.shape[-1])
 
 
-def pointwise_conv(h: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
+# Calls of :func:`pointwise_conv` by route and direction since
+# :func:`clear_pointwise_runs`: "tensor_core" (bf16 operands on the tensor
+# cores) and "float32" (the operands widened to float32). They count where
+# a call is issued, as ``cuda_fold.launches`` does: eager calls and a
+# graph's warm-up and capture. A replay runs no Python; it reruns the
+# route its capture took (the ``pointwise.*`` regions count replays).
+POINTWISE_ROUTES = ("tensor_core", "float32")
+_pointwise_runs: Counter = Counter()  # (route, "fwd" | "bwd") -> calls
+
+
+def pointwise_runs() -> Dict[str, Dict[str, int]]:
+    """``{route: {"fwd": n, "bwd": m}}`` for each of ``POINTWISE_ROUTES``:
+    the calls of :func:`pointwise_conv` and of its backward that took the
+    route since :func:`clear_pointwise_runs`."""
+
+    return {route: {d: _pointwise_runs[(route, d)] for d in ("fwd", "bwd")}
+            for route in POINTWISE_ROUTES}
+
+
+def clear_pointwise_runs() -> None:
+    """Zero :func:`pointwise_runs`."""
+
+    _pointwise_runs.clear()
+
+
+def pointwise_conv(h: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor,
+                   out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """1x1 conv == per-position channel matmul; kernel [Cin, Cout].
 
     The JAX package multiplies in ``h.dtype`` with float32 accumulation and
-    adds the bias in float32 before any cast. A bf16 ``torch.matmul`` would
-    round its output to bf16 before the bias, so the bf16 values are upcast
-    (exactly) and multiplied in float32 instead.
+    adds the float32 bias before any cast. The result is float32, or
+    ``out_dtype`` where given: the caller's cast of that float32 value,
+    folded in. The route follows ``h``:
+
+    - bf16 on a card (:class:`_TensorCorePointwise`): cuBLAS multiplies the
+      bf16 operands on the tensor cores with float32 accumulation and adds
+      the bias to the float32 sums, forward and both gradients, and no
+      operand is widened. Products of two bf16 values are exact in float32,
+      so these are the float32 route's sums in another order.
+    - otherwise (float32, or on the CPU) the bf16 values are upcast
+      (exactly) and multiplied in float32: a bf16 ``torch.matmul`` would
+      round its output before the bias. Where autograd records the call,
+      :class:`_Float32Pointwise` runs what autograd runs for that
+      expression.
 
     With tracing on (``tracing.py``) the call is the region
-    ``pointwise.fwd`` and, where autograd records it, its backward the
-    region ``pointwise.bwd`` (:class:`_MarkedPointwise`), with the same
-    results bit for bit.
+    ``pointwise.fwd`` and its backward the region ``pointwise.bwd``, with
+    the same results bit for bit. :func:`pointwise_runs` counts the routes.
     """
 
-    if not tracing.enabled():
-        return h.float() @ kernel.to(h.dtype).float() + bias.float()
+    if h.is_cuda and h.dtype == torch.bfloat16:
+        return _TensorCorePointwise.apply(h, kernel, bias, out_dtype or torch.float32)
     if torch.is_grad_enabled() and (h.requires_grad or kernel.requires_grad
                                     or bias.requires_grad):
-        return _MarkedPointwise.apply(h, kernel, bias)
-    with tracing.region("pointwise.fwd", h.device):
-        return h.float() @ kernel.to(h.dtype).float() + bias.float()
+        out = _Float32Pointwise.apply(h, kernel, bias)
+    else:
+        _pointwise_runs[("float32", "fwd")] += 1
+        with tracing.region("pointwise.fwd", h.device):
+            out = h.float() @ kernel.to(h.dtype).float() + bias.float()
+    return out if out_dtype is None else out.to(out_dtype)
 
 
-class _MarkedPointwise(torch.autograd.Function):
-    """:func:`pointwise_conv` as one autograd node whose forward and
-    backward each lie in one tracing region: between two marks around the
-    plain expression's nodes, autograd's ready queue could run a sibling
-    branch's work. It runs the operations autograd runs for the plain
-    expression, in its order: the matmul folded to one ``mm`` over the rows
-    (``torch.matmul`` folds when the kernel records gradients), the bias
-    added in float32; backward, ``mm``'s two gradients as autograd forms
-    them from the operands' strides, the bias's summed to its shape, and
-    each cast's gradient cast back (the kernel's through ``h.dtype``)."""
+class _TensorCorePointwise(torch.autograd.Function):
+    """The bf16 1x1 conv on the tensor cores: ``rows @ W`` over bf16 rows
+    and the kernel rounded to bf16 (as ``kernel.to(h.dtype)``), summed in
+    float32; then one pass adds the float32 bias and rounds once to
+    ``out_dtype``. (``addmm``'s bias epilogue gives the same bits, but took
+    longer on an H100 and keeps a cuBLASLt workspace for each stream.) The
+    rows and the kernel are saved in bf16.
+
+    Backward, with the bf16 cotangent that a bf16 ``out_dtype`` gets from
+    autograd: ``dh = g @ W^T`` with float32 sums rounded once to bf16,
+    ``dW = rows^T @ g`` summed in float32 and rounded as the kernel's cast
+    rounds it, ``db`` summed in float32 as ``ones @ g`` (a GEMM reads ``g``
+    faster than a column reduction). A float32 cotangent (a float32
+    ``out_dtype``) is not rounded: its products run in float32. The whole
+    of each direction lies in one tracing region."""
+
+    @staticmethod
+    def forward(ctx, h, kernel, bias, out_dtype):
+        _pointwise_runs[("tensor_core", "fwd")] += 1
+        with tracing.region("pointwise.fwd", h.device):
+            rows = h.reshape(-1, h.shape[-1])
+            w = kernel.to(h.dtype)
+            acc = torch.mm(rows, w, out_dtype=torch.float32)
+            out = torch.add(acc, bias.float(), out=acc.new_empty(acc.shape, dtype=out_dtype))
+            out = out.view(*h.shape[:-1], w.shape[-1])
+        ctx.save_for_backward(rows, w)
+        ctx.shapes = (h.shape, bias.shape)
+        ctx.dtypes = (kernel.dtype, bias.dtype)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        rows, w = ctx.saved_tensors
+        h_shape, b_shape = ctx.shapes
+        k_dt, b_dt = ctx.dtypes
+        dh = dk = db = None
+        cores = g.dtype == rows.dtype  # a bf16 cotangent: bf16 operands
+        _pointwise_runs[("tensor_core" if cores else "float32", "bwd")] += 1
+        with tracing.region("pointwise.bwd", g.device):
+            g2 = g.reshape(-1, g.shape[-1])
+            if ctx.needs_input_grad[2]:
+                if cores:
+                    ones = g2.new_ones(1, g2.shape[0])
+                    db = torch.mm(ones, g2, out_dtype=torch.float32)
+                else:
+                    db = g2.sum(0)
+                db = db.reshape(b_shape).to(b_dt)
+            if ctx.needs_input_grad[0]:
+                dh = g2.mm(w.t()) if cores else g2.mm(w.float().t())
+                dh = dh.reshape(h_shape).to(rows.dtype)
+            if ctx.needs_input_grad[1]:
+                if cores:
+                    dk = torch.mm(rows.t(), g2, out_dtype=torch.float32)
+                else:
+                    dk = rows.float().t().mm(g2)
+                dk = dk.to(w.dtype).to(k_dt)
+        return dh, dk, db, None
+
+
+class _Float32Pointwise(torch.autograd.Function):
+    """:func:`pointwise_conv`'s float32 route as one autograd node, so that
+    its forward and its backward each lie in one tracing region: between
+    two marks around the plain expression's nodes, autograd's ready queue
+    could run a sibling branch's work. It runs the operations autograd runs
+    for the plain expression, in its order: the matmul folded to one ``mm``
+    over the rows (``torch.matmul`` folds when the kernel records
+    gradients), the bias added in float32; backward, ``mm``'s two gradients
+    as autograd forms them from the operands' strides, the bias's summed to
+    its shape, and each cast's gradient cast back (the kernel's through
+    ``h.dtype``)."""
 
     @staticmethod
     def forward(ctx, h, kernel, bias):
+        _pointwise_runs[("float32", "fwd")] += 1
         with tracing.region("pointwise.fwd", h.device):
             hf = h.float()
             wk = kernel.to(h.dtype)
@@ -295,6 +396,7 @@ class _MarkedPointwise(torch.autograd.Function):
         h_shape, b_shape = ctx.shapes
         h_dt, k_dt, wk_dt, b_dt = ctx.dtypes
         dh = dk = db = None
+        _pointwise_runs[("float32", "bwd")] += 1
         with tracing.region("pointwise.bwd", g.device):
             if ctx.needs_input_grad[2]:
                 db = g.sum_to_size(b_shape).to(b_dt)

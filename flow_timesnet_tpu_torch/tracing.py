@@ -41,7 +41,9 @@ chunk). They go to a ring of the last :data:`SPAN_RING` spans
 also opens ``record_function(name)``, so it lands in the Chrome trace as a
 ``user_annotation`` on the clock of the device's kernel records.
 
-**Counters**: ``graphs.capture_stats()`` counts captures by kind, always on.
+**Counters**: ``graphs.capture_stats()`` counts captures by kind, and
+``ops/fold.py::pointwise_runs()`` the 1x1 convs by route (tensor cores or
+float32) and direction, both always on.
 """
 
 from __future__ import annotations

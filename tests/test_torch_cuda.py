@@ -1630,6 +1630,134 @@ def test_the_recursive_decode_replays_one_graph_equal_to_the_eager_loop(cuda):
     assert sorted(k[1] for k in graphed._graphs if k[0] == "rollout") == [3, 7]
 
 
+# -- the 1x1 convs on the tensor cores ----------------------------------------------
+
+# (rows, Cin, Cout): the flagship's fold (K * B * Lp = 2 * 256 * 55 rows) at a
+# 1x1 of 32 -> 64 and at its projection 1536 -> 512; the long recipe's
+# (4 * 64 * 1023) at its projection 768 -> 256
+POINTWISE_SHAPES = [(2 * 256 * 55, 32, 64), (2 * 256 * 55, 1536, 512),
+                    (4 * 64 * 1023, 768, 256)]
+U32 = 2.0 ** -24  # float32's unit roundoff
+
+
+def _pointwise_routes(h0, k0, b0, ct, out_dtype):
+    """``pointwise_conv`` on bf16 card rows (the tensor-core route) and the
+    float32 expression it replaced, each with the caller's cast to
+    ``out_dtype``: ``[(out, dh, dW, db)]`` for the cotangent ``ct``."""
+
+    got = []
+    for cores in (True, False):
+        h, k, b = (t.clone().requires_grad_() for t in (h0, k0, b0))
+        if cores:
+            out = fold.pointwise_conv(h, k, b, out_dtype)
+        else:
+            out = (h.float() @ k.to(h.dtype).float() + b.float()).to(out_dtype)
+        out.backward(ct)
+        got.append((out.detach(), h.grad, k.grad, b.grad))
+    return got
+
+
+def _abs_sums(h, k, b, ct):
+    """Of each result (out, dh, dW, db): the sum of its terms' absolute
+    values and the number of terms, in float64."""
+
+    h, k, b, ct = (t.double().abs() for t in (h, k.to(h.dtype), b, ct))
+    return [(h @ k + b, h.shape[1] + 1), (ct @ k.t(), k.shape[1]),
+            (h.t() @ ct, h.shape[0]), (ct.sum(0), ct.shape[0])]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("out_dtype", [torch.bfloat16, torch.float32], ids=["bf16_out", "fp32_out"])
+@pytest.mark.parametrize("rows,cin,cout", POINTWISE_SHAPES)
+def test_tensor_core_pointwise_is_exact_where_every_sum_is(cuda, rows, cin, cout, out_dtype):
+    """Small integers in the rows, the kernel and the cotangent, and a bias
+    with 7 bits below the binary point, where bf16 keeps none at its size:
+    every product and partial sum is a float32 value (the bound is
+    asserted), so the tensor-core route gives the float32 route's bits in
+    the output, dh, dW and db. Its partial sums need more bits than bf16's
+    8, so a bf16 reduction of cuBLAS's split-K partials would show, and a
+    bias rounded before its add would show in the float32 output."""
+
+    assert not torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction
+    g = torch.Generator(device=cuda).manual_seed(0)
+
+    def ints(shape, m):
+        return torch.randint(-m, m + 1, shape, device=cuda, generator=g).float()
+
+    h = ints((rows, cin), 3).to(torch.bfloat16)
+    k = ints((cin, cout), 3)
+    b = ints((cout,), 64) + ints((cout,), 64) / 128
+    ct = ints((rows, cout), 15).to(out_dtype)
+    assert not torch.equal(b, b.to(torch.bfloat16).float())
+    sums = _abs_sums(h, k, b, ct)
+    assert sums[0][0].max() < 2.0 ** 17  # 7 bits below the point
+    assert all(s.max() < 2.0 ** 24 for s, _ in sums[1:])
+    cores, plain = _pointwise_routes(h, k, b, ct, out_dtype)
+    for name, a, w in zip(("out", "dh", "dW", "db"), cores, plain):
+        assert a.dtype == w.dtype and torch.equal(a, w), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,cin,cout", POINTWISE_SHAPES)
+def test_tensor_core_pointwise_agrees_up_to_summation_order(cuda, rows, cin, cout):
+    """Random rows, kernel, bias and cotangent, bf16 out and a bf16
+    cotangent as the model runs it. Both routes form the same exact
+    products and sum them in float32 in their own orders: each sum of n
+    terms lies within gamma_n * (the sum of the terms' absolute values) of
+    the exact one, gamma_n = n u / (1 - n u), u = 2**-24. So the routes
+    differ by at most twice that, plus one bf16 rounding of each (at most
+    2**-8 of the value each) where the result is rounded to bf16: out, dh
+    and dW."""
+
+    g = torch.Generator(device=cuda).manual_seed(1)
+    h = torch.randn(rows, cin, device=cuda, generator=g).to(torch.bfloat16)
+    k = torch.randn(cin, cout, device=cuda, generator=g) * cin ** -0.5
+    b = torch.randn(cout, device=cuda, generator=g) * 0.1
+    ct = torch.randn(rows, cout, device=cuda, generator=g).to(torch.bfloat16)
+    cores, plain = _pointwise_routes(h, k, b, ct, torch.bfloat16)
+    for name, a, w, (s, n), rounded in zip(("out", "dh", "dW", "db"), cores, plain,
+                                           _abs_sums(h, k, b, ct), (1, 1, 1, 0)):
+        assert a.dtype == w.dtype, name
+        a, w = a.double(), w.double()
+        gamma = n * U32 / (1 - n * U32)
+        ulps = rounded * 2 * 2.0 ** -8 / (1 - 2.0 ** -8)
+        bound = 2 * gamma * s + ulps * torch.maximum(a.abs(), w.abs())
+        assert ((a - w).abs() <= bound).all(), name
+
+
+@pytest.mark.cuda
+def test_every_pointwise_conv_of_a_step_and_a_request_takes_the_tensor_cores(cuda):
+    """The graph tests' bf16 model: an eager step runs its 32 pointwise
+    convs and their 32 backwards on the tensor cores, a served request its
+    32 forwards, and nothing takes the float32 route. A graph counts where
+    it is issued, in its warm-up and capture ((3 + 1) passes); its replays
+    rerun that route and add nothing."""
+
+    from flow_timesnet_tpu_torch import graphs
+
+    cfg, params, batch = _graph_setup(cuda, False, 0.1)
+    graphed, eager = _engines(cuda, cfg, params)
+    P = GRAPH_POINTWISE
+
+    def on_cores(fwd, bwd):
+        return {"tensor_core": {"fwd": fwd, "bwd": bwd}, "float32": {"fwd": 0, "bwd": 0}}
+
+    for eng, passes in ((eager, 1), (graphed, graphs.WARMUP_CALLS + 1)):
+        state, gen = eng.init_state(), torch.Generator(device=cuda).manual_seed(3)
+        fold.clear_pointwise_runs()
+        eng.train_step(state, 1e-3, gen, batch)
+        assert fold.pointwise_runs() == on_cores(passes * P, passes * P)
+        fold.clear_pointwise_runs()
+        eng.forward(batch["x"], ids=batch["ids"])
+        assert fold.pointwise_runs() == on_cores(passes * P, 0)
+    fold.clear_pointwise_runs()
+    graphed.train_step(state, 1e-3, gen, batch)
+    graphed.forward(batch["x"] * 0.5, ids=batch["ids"])
+    torch.cuda.synchronize()
+    assert fold.pointwise_runs() == on_cores(0, 0)
+    fold.clear_pointwise_runs()
+
+
 # -- tracing: regions that survive replay, spans, capture counts ---------------------
 
 # the pointwise convs of a pass of the graph tests' model: 2 layers x 2
@@ -1658,20 +1786,22 @@ def _counts(tracing, device):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
 def test_traced_pointwise_equals_plain_on_the_card(cuda, traced_off, dtype):
     """The traced 1x1 conv (one autograd node between its marks) runs
-    cuBLAS's products as the plain expression does: forward, dh, dW and
-    db bit for bit, at the flagship's fold shape."""
+    cuBLAS's products as the untraced one does, on either route (bf16:
+    the tensor cores, with the bf16 cotangent the model hands it; float32:
+    the float32 expression): forward, dh, dW and db bit for bit, at the
+    flagship's fold shape."""
 
     tracing = traced_off
     g = torch.Generator(device=cuda).manual_seed(0)
     base = torch.randn(2, 256, 55, 32, device=cuda, generator=g)
     k0, b0 = torch.randn(32, 64, device=cuda, generator=g), torch.randn(64, device=cuda,
                                                                           generator=g)
-    ct = torch.randn(2, 256, 55, 64, device=cuda, generator=g)
+    ct = torch.randn(2, 256, 55, 64, device=cuda, generator=g).to(dtype)
 
     def run(on):
         tracing.enable(on)
         h, k, b = (t.clone().requires_grad_() for t in (base, k0, b0))
-        out = fold.pointwise_conv(h.to(dtype), k, b)
+        out = fold.pointwise_conv(h.to(dtype), k, b, dtype)
         out.backward(ct)
         return out.detach(), h.grad, k.grad, b.grad
 

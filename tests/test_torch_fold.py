@@ -79,20 +79,22 @@ def test_make_geometry_matches_jax(periods, L, p_cap):
         np.testing.assert_array_equal(got.numpy(), np.asarray(getattr(jg, name)), err_msg=name)
 
 
+@pytest.mark.parametrize("cast", [False, True], ids=["fp32_out", "cast_out"])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_pointwise_conv_and_combine_residuals(dtype):
+def test_pointwise_conv_and_combine_residuals(dtype, cast):
     rng = np.random.default_rng(5)
     h = rng.standard_normal((2, 3, 11, 16)).astype(np.float32)
     kernel = rng.standard_normal((16, 24)).astype(np.float32) * 0.3
     bias = rng.standard_normal(24).astype(np.float32)
     jdt = jnp.bfloat16 if dtype == "bfloat16" else jnp.float32
     tdt = torch.bfloat16 if dtype == "bfloat16" else torch.float32
-    want = np.asarray(jfold.pointwise_conv(jnp.asarray(h, jdt), jnp.asarray(kernel),
-                                           jnp.asarray(bias)))
+    want = jfold.pointwise_conv(jnp.asarray(h, jdt), jnp.asarray(kernel), jnp.asarray(bias))
+    # with the output type passed: the caller's cast folded in
+    want = np.asarray(want.astype(jdt) if cast else want, np.float32)
     got = fold.pointwise_conv(torch.from_numpy(h).to(tdt), torch.from_numpy(kernel),
-                              torch.from_numpy(bias))
-    assert got.dtype == torch.float32
-    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5)
+                              torch.from_numpy(bias), tdt if cast else None)
+    assert got.dtype == (tdt if cast else torch.float32)
+    np.testing.assert_allclose(got.float().numpy(), want, rtol=1e-5, atol=1e-5)
 
     deltas = rng.standard_normal((2, 3, 11, 24)).astype(np.float32)
     weights = rng.dirichlet(np.ones(2), size=3).astype(np.float32)

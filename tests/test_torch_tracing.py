@@ -4,7 +4,8 @@ cells take ``time.perf_counter_ns()`` in place of the card's clock.
 - Off is inert: one shared no-op, no spans, no region cells touched, and
   every graph key carries the tracing state.
 - The traced ``pointwise_conv`` (one autograd node holding the marks) equals
-  the plain expression bit for bit: forward, dh, dW and db, float32 and bf16.
+  the untraced one and the plain expression bit for bit: forward, dh, dW
+  and db, float32 and bf16, with and without the output type passed.
 - A resident step and an eager step count their regions exactly as the
   model's structure says (remat runs the pointwise forwards twice); no two
   regions of one name overlap, and every pointwise region lies inside a
@@ -130,29 +131,39 @@ def test_tracing_off_drops_the_marked_graphs():
     assert list(eng._graphs) == [("forward", "sig", False)] and not eng._marked
 
 
+@pytest.mark.parametrize("cast", [False, True], ids=["fp32_out", "cast_out"])
 @pytest.mark.parametrize("shape", [(27, 12), (3, 9, 12), (3, 3, 3, 12), "expanded"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_traced_pointwise_equals_the_plain_expression(dtype, shape):
+def test_traced_pointwise_equals_the_plain_expression(dtype, shape, cast):
+    """Traced, untraced and the plain expression (with the caller's cast
+    where the output type is passed) give the same bits: forward, dh, dW
+    and db."""
+
     gen = torch.Generator().manual_seed(3)
     base = torch.randn(3, 9, 12, generator=gen)
     kernel0, bias0 = torch.randn(12, 20, generator=gen), torch.randn(20, generator=gen)
 
-    def run(on):
+    def run(on, plain=False):
         tracing.enable(on)
         x = base.clone().requires_grad_()
         kernel, bias = kernel0.clone().requires_grad_(), bias0.clone().requires_grad_()
         if shape == "expanded":  # a candidate axis of stride 0, as a fold's input
-            h = x[None].expand(2, 3, 9, 12)
+            h = x[None].expand(2, 3, 9, 12).to(dtype)
         else:
-            h = x.reshape(shape)
-        out = pointwise_conv(h.to(dtype), kernel, bias)
-        g = torch.randn(out.shape, generator=torch.Generator().manual_seed(4))
+            h = x.reshape(shape).to(dtype)
+        if plain:
+            out = h.float() @ kernel.to(h.dtype).float() + bias.float()
+            out = out.to(dtype) if cast else out
+        else:
+            out = pointwise_conv(h, kernel, bias, dtype if cast else None)
+        g = torch.randn(out.shape, generator=torch.Generator().manual_seed(4)).to(out.dtype)
         out.backward(g)
         return out.detach(), x.grad, kernel.grad, bias.grad
 
-    plain, traced = run(False), run(True)
-    for a, b in zip(plain, traced):
-        assert a.dtype == b.dtype and torch.equal(a, b)
+    expr, plain, traced = run(False, plain=True), run(False), run(True)
+    assert plain[0].dtype == (dtype if cast else torch.float32)
+    for a, b, c in zip(expr, plain, traced):
+        assert a.dtype == b.dtype == c.dtype and torch.equal(a, b) and torch.equal(a, c)
     assert {k: c for k, (c, _) in tracing.regions("cpu").items()} == {
         "pointwise.fwd": 1, "pointwise.bwd": 1}
 

@@ -9,10 +9,12 @@ Builds the cell as ``portbench/run.py`` does (set-up, a window of
 a profiled one) and prints the per-layer numbers the regions and spans give
 beside what surrounds them in the same process: the step's regions against
 the traced step time and the profiled span's device time, the pointwise
-regions against the GEMM kernels, the ``Forecaster``'s own host time against
-``host_ms.serve``, the captures against ``capture_s``. Then the cost of
-tracing: the cell's timed entry with tracing off, on, on, off, for
-``--cost-seconds`` each, ``--cost-rounds`` times. Standard error gets the
+regions against the GEMM kernels (cuBLAS's ``*gemm*`` and ``nvjet*``), the
+profiled span's costliest kernels, the ``Forecaster``'s own host time against
+``host_ms.serve``, the captures against ``capture_s``, and the 1x1 convs'
+routes as ``ops/fold.py::pointwise_runs`` counted them over the process.
+Then the cost of tracing: the cell's timed entry with tracing off, on, on,
+off, for ``--cost-seconds`` each, ``--cost-rounds`` times. Standard error gets the
 regions a unit and the idle seconds by program span; standard output ends
 in one JSON line. No check against the reference runs.
 """
@@ -101,6 +103,7 @@ def main(argv=None) -> int:
 
     import torch
 
+    from flow_timesnet_tpu_torch.ops import fold
     from portbench import run as prun
     from portbench.harness import manifest, regions
 
@@ -108,6 +111,7 @@ def main(argv=None) -> int:
         print("trace_regions: needs a CUDA card", file=sys.stderr)
         return 3
     torch.set_num_threads(1)
+    fold.clear_pointwise_runs()
     found = manifest.cell(manifest.load(), args.workload)
     run = prun.Run(torch, found, args.seed, args.seconds, True)
     cell = importlib.import_module(f"portbench.harness.{found['traffic']['kind']}").Cell(run)
@@ -123,12 +127,16 @@ def main(argv=None) -> int:
     reg = {k: (c / n, 1e3 * s / n) for k, (c, s) in ctx["regions"].items()}
     tr = ctx["traced_trace"]
     ms = {k: v[1] for k, v in reg.items()}
+    gemm_ms = 1e3 * (tr.matching("gemm")[1] + tr.matching("nvjet")[1]) / n
+    top = sorted(tr.kernels.items(), key=lambda kv: -kv[1][1])[:10]
     out = {"workload": args.workload, "seed": args.seed,
            "regions_a_unit": reg, "traced_unit_ms": 1e3 * ctx["traced_unit_s"],
            "graph_captures": ctx["graph_captures"], "graph_capture_s": ctx["graph_capture_s"],
            "capture_s": ctx["capture_s"],
            "profiled_busy_ms_a_unit": 1e3 * tr.busy_s / n,
-           "profiled_gemm_ms_a_unit": 1e3 * tr.matching("gemm")[1] / n,
+           "profiled_gemm_ms_a_unit": gemm_ms,
+           "top_kernels_ms_a_unit": {k[:72]: 1e3 * v[1] / n for k, v in top},
+           "pointwise_routes": fold.pointwise_runs(),
            "idle_by_span_ms": {k: 1e3 * v for k, v in ctx["idle_by_span"].items()}}
     pointwise = ms.get("pointwise.fwd", 0.0) + ms.get("pointwise.bwd", 0.0)
     if ctx["kind"] == "train":
@@ -138,7 +146,7 @@ def main(argv=None) -> int:
                    pointwise_ms=pointwise, regions_sum_ms=step,
                    regions_over_step=step / (1e3 * ctx["traced_unit_s"]),
                    regions_over_busy=step / (1e3 * tr.busy_s / n),
-                   pointwise_over_gemm=pointwise / (1e3 * tr.matching("gemm")[1] / n),
+                   pointwise_over_gemm=pointwise / gemm_ms,
                    pointwise_over_fwd_bwd=pointwise / (ms["step.forward"] + ms["step.backward"]),
                    window_step_ms=1e3 * ctx["step_s"])
     else:
